@@ -1,0 +1,16 @@
+"""JUNO on PyTorch and CUDA for NVIDIA Hopper — the port of ``repro``.
+
+The package mirrors ``repro``'s layout (``core/``, ``kernels/``,
+``build/``, ``serve/``, ``data/``) so each counterpart is easy to find,
+and imports nothing of ``repro`` or JAX: it keeps its own copies of what
+it needs. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a GPU they raise instead of falling back.
+
+Ported so far: the fused-H2 online query path — stage A (IVF filter),
+τ from the density model, stage B (the selective LUT and the int8 hit
+table, a hand-written CUDA kernel) and stage C (the fused two-stage
+hit-count → top-C → masked-ADC scan, a hand-written CUDA kernel) — the
+offline build that feeds it, the artifact reader, and the serving
+engine's fused signature. See ROADMAP.md for what is still to come.
+"""
+from .device import resolve_device  # noqa: F401

@@ -1,0 +1,9 @@
+"""JUNO core of the port: index build and the fused-H2 search.
+
+Public API:
+    JunoConfig, JunoIndexData, build, search   — juno.py
+    exact_topk, recall_n_at_k                   — ref.py
+"""
+from .juno import (BuildDraws, JunoConfig, JunoIndexData,  # noqa: F401
+                   build, draw_build, index_to, search)
+from .ref import exact_topk, recall_n_at_k  # noqa: F401

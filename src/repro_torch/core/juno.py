@@ -1,0 +1,340 @@
+"""The JUNO index: offline build and the fused-H2 online search.
+
+Port of ``repro/core/juno.py`` (``JunoConfig``, ``JunoIndexData``,
+``build``, ``_calibrate_density``, the fused branch of
+``_score_probed_two_stage``, ``_search_batch_two_stage`` and ``search``).
+
+Offline (:func:`build`): IVF k-means → residual PQ codebooks → padded
+per-cluster codes → density grid and threshold-regressor calibration.
+Every random draw of the build is injectable (:class:`BuildDraws`), so a
+build can reproduce another implementation's sample and init indices.
+
+Online (:func:`search`, mode "H2" with ``fused=True``): stage A filters
+the nprobe nearest clusters (one GEMM), τ comes from the density model,
+stage B builds the masked LUT and the int8 hit table (``selective_lut``
+kernel), and stage C runs the fused hit-count → top-C → masked-ADC scan
+(``fused_two_stage`` kernel) before the final top-k. Everything else the
+reference offers raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops
+from . import density as density_lib
+from .ivf import IVFIndex, build_ivf, filter_clusters
+from .pq import PQCodebook, encode, split_subspaces, train_codebook
+from .ref import exact_topk
+
+
+@dataclasses.dataclass(frozen=True)
+class JunoConfig:
+    """Build-time knobs of the JUNO index (the reference's fields)."""
+
+    n_clusters: int = 1024          # C
+    n_entries: int = 256            # E
+    sub_dim: int = 2                # M
+    metric: str = "l2"              # "l2" | "ip"
+    kmeans_iters: int = 10
+    capacity_mult: float = 4.0
+    max_train_points: int = 200_000  # Lloyd subsample (<= 0: all points)
+    grid_size: int = 64             # density grid G
+    calib_queries: int = 128        # queries used to fit the threshold poly
+    calib_topk: int = 100
+    poly_degree: int = 2
+
+
+class JunoIndexData(NamedTuple):
+    """A built index: IVF + PQ codebooks + padded codes + density model."""
+
+    ivf: IVFIndex
+    codebook: PQCodebook
+    codes: torch.Tensor          # (N, S) uint8
+    cluster_codes: torch.Tensor  # (C, P, S) uint8 — padded per-cluster codes
+    density: density_lib.DensityModel
+    points_sq: torch.Tensor      # (N,) f32
+
+
+class BuildDraws(NamedTuple):
+    """Every random draw of :func:`build` (numpy integer / float arrays)."""
+
+    ivf_train_idx: np.ndarray | None  # (T,) IVF Lloyd subsample, or None
+    ivf_init_idx: np.ndarray          # (C,) k-means init, into the subsample
+    pq_train_idx: np.ndarray | None   # (T,) PQ training subsample, or None
+    pq_init_idx: np.ndarray           # (S, E) per-subspace init indices
+    calib_idx: np.ndarray             # (nq,) calibration query points
+    calib_noise: np.ndarray           # (nq, D) unscaled N(0, 1) noise
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """An f32 tensor from a tensor or any array-like (numpy is copied only
+    when it is not already writable, contiguous f32)."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return torch.from_numpy(np.require(np.asarray(x, np.float32),
+                                       requirements=["C", "W"]))
+
+
+def index_to(index: JunoIndexData, device) -> JunoIndexData:
+    """Copy every tensor of an index to ``device``."""
+    def move(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.to(device)
+        return type(obj)(*(move(f) for f in obj))
+    return move(index)
+
+
+def draw_build(n: int, d: int, config: JunoConfig, seed: int = 0
+               ) -> BuildDraws:
+    """The port's own build draws, from a numpy ``Generator(seed)``."""
+    rng = np.random.default_rng(seed)
+    t_max = config.max_train_points if config.max_train_points > 0 else n
+    n_train = min(n, t_max)
+    sub = (lambda: rng.choice(n, t_max, replace=False)) if n > t_max \
+        else (lambda: None)
+    ivf_train = sub()
+    ivf_init = rng.choice(n_train, config.n_clusters,
+                          replace=n_train < config.n_clusters)
+    pq_train = sub()
+    pq_init = np.stack([
+        rng.choice(n_train, config.n_entries, replace=n_train < config.n_entries)
+        for _ in range(d // config.sub_dim)])
+    nq = min(config.calib_queries, n)
+    return BuildDraws(ivf_train_idx=ivf_train, ivf_init_idx=ivf_init,
+                      pq_train_idx=pq_train, pq_init_idx=pq_init,
+                      calib_idx=rng.choice(n, nq, replace=False),
+                      calib_noise=rng.standard_normal((nq, d),
+                                                      dtype=np.float32))
+
+
+def build(points, config: JunoConfig, *, seed: int = 0,
+          draws: BuildDraws | None = None, device=None) -> JunoIndexData:
+    """Offline phase: build a JUNO index on the device.
+
+    Parameters
+    ----------
+    points : array-like or torch.Tensor
+        (N, D) f32 database vectors.
+    config : JunoConfig
+        Build knobs.
+    seed : int
+        Seed of the port's own draws (:func:`draw_build`); ignored when
+        ``draws`` is given.
+    draws : BuildDraws, optional
+        Every random draw of the build, injected (e.g. the reference's).
+    device : str or torch.device, optional
+        ``None`` = ``cuda`` (raises without a GPU); ``"cpu"`` for the CPU.
+
+    Returns
+    -------
+    JunoIndexData
+        The index, every tensor on ``device``.
+    """
+    dev = resolve_device(device)
+    pts = _as_tensor(points).to(dev)
+    n, d = pts.shape
+    if draws is None:
+        draws = draw_build(n, d, config, seed)
+
+    def idx(a):
+        return None if a is None else torch.from_numpy(
+            np.array(a, np.int64)).to(dev)
+
+    ivf = build_ivf(pts, idx(draws.ivf_init_idx), n_clusters=config.n_clusters,
+                    train_idx=idx(draws.ivf_train_idx),
+                    n_iters=config.kmeans_iters,
+                    capacity_mult=config.capacity_mult)
+    residuals = pts - ivf.centroids[ivf.labels.long()]
+    train_res = residuals if draws.pq_train_idx is None \
+        else residuals[idx(draws.pq_train_idx)]
+    codebook = train_codebook(train_res, idx(draws.pq_init_idx),
+                              m=config.sub_dim, n_iters=config.kmeans_iters)
+    codes = encode(residuals, codebook)                           # (N, S)
+    # pad slots read code 0 and are masked by valid
+    cluster_codes = codes[torch.clamp(ivf.point_ids, min=0).long()]
+    dens = _calibrate_density(pts, residuals, codebook, codes, ivf, config,
+                              draws)
+    return JunoIndexData(ivf=ivf, codebook=codebook, codes=codes,
+                         cluster_codes=cluster_codes, density=dens,
+                         points_sq=torch.sum(pts * pts, dim=-1))
+
+
+def _calib_query_subspaces(queries, ivf, config):
+    """Calibration queries in the mask's geometry: the probe-0 residual for
+    l2, the raw query for ip. Returns (Qs, S, M) f32."""
+    if config.metric == "l2":
+        _, c1 = filter_clusters(queries, ivf, nprobe=1, metric="l2")
+        return split_subspaces(queries - ivf.centroids[c1[:, 0]],
+                               config.sub_dim)
+    return split_subspaces(queries, config.sub_dim)
+
+
+def _calib_tau_needed(qsub, gt_codes, codebook, metric):
+    """Per-subspace threshold covering every ground-truth top-k entry.
+
+    qsub (Qs, S, M), gt_codes (Qs, K, S) int64 -> (Qs, S) f32.
+    """
+    ent = codebook.entries                                        # (S, E, M)
+    s_idx = torch.arange(ent.shape[0], device=ent.device)
+    gt_entries = ent[s_idx, gt_codes]                             # (Qs, K, S, M)
+    if metric == "l2":
+        diff = gt_entries - qsub[:, None]
+        return torch.sqrt(torch.amax(torch.sum(diff * diff, -1), dim=1))
+    e_sq = torch.sum(gt_entries * gt_entries, -1)
+    dot = torch.sum(gt_entries * qsub[:, None], -1)
+    t = torch.amax(e_sq - 2.0 * dot, dim=1)
+    return torch.sqrt(torch.clamp(t, min=0.0))
+
+
+def _calibrate_density(pts, residuals, codebook, codes, ivf, config, draws):
+    """Fit density → threshold from ground-truth top-k (paper §4.1)."""
+    qidx = torch.from_numpy(np.array(draws.calib_idx, np.int64)).to(pts.device)
+    noise = _as_tensor(draws.calib_noise).to(pts.device)
+    # perturb so calibration queries are not exact database points
+    queries = pts[qidx] + 0.01 * noise * torch.std(pts, correction=0)
+    _, gt_ids = exact_topk(queries, pts, k=config.calib_topk,
+                           metric=config.metric)
+    qsub = _calib_query_subspaces(queries, ivf, config)
+    tau_needed = _calib_tau_needed(qsub, codes[gt_ids].long(), codebook,
+                                   config.metric)
+    sub_pts = split_subspaces(residuals, config.sub_dim).transpose(0, 1)
+    return density_lib.calibrate(sub_pts, qsub, tau_needed,
+                                 grid_size=config.grid_size,
+                                 degree=config.poly_degree)
+
+
+def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
+                            base: torch.Tensor, cids: torch.Tensor, *, k: int,
+                            metric: str, thres_scale: float, rerank: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mode "H2", fused: τ, stage B and stage C over the probed clusters.
+
+    ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The fused
+    scan reads the probed clusters' codes through ``cids``; only the C
+    candidates' validity and ids are gathered here. Returns (scores (Q, k),
+    ids (Q, k) int32).
+    """
+    nq, nprobe = cids.shape
+    m = index.codebook.sub_dim
+    if metric == "l2":
+        res = q[:, None, :] - index.ivf.centroids[cids]
+        qsub = res.reshape(nq, nprobe, -1, m)
+    else:
+        qsub = q.reshape(nq, 1, -1, m).expand(nq, nprobe, -1, m)
+    tau = density_lib.predict_threshold(index.density, qsub, thres_scale)
+    mlut, table = ops.build_selective_lut(
+        qsub, index.codebook.entries, index.codebook.entry_sq, tau,
+        metric=metric)
+
+    p = index.cluster_codes.shape[1]
+    cap = min(rerank or 4 * k, nprobe * p)
+    _, _, cand, exact = ops.fused_two_stage_scan(
+        mlut, table, index.cluster_codes, index.ivf.valid, cids, cap_c=cap,
+        metric=metric)
+    cand = cand.long()
+    cand_probe = cand // p
+    cand_cid = torch.gather(cids, 1, cand_probe)
+    cand_valid = index.ivf.valid[cand_cid, cand % p]
+    cand_ids = index.ivf.point_ids[cand_cid, cand % p]
+    if metric == "ip":
+        exact = exact + torch.gather(base, 1, cand_probe)
+        exact = torch.where(cand_valid, exact, float("-inf"))
+        sel_s, sel = torch.sort(exact, dim=1, descending=True, stable=True)
+        out_scores = sel_s[:, :k]
+    else:
+        exact = torch.where(cand_valid, exact, float("inf"))
+        sel_s, sel = torch.sort(-exact, dim=1, descending=True, stable=True)
+        out_scores = -sel_s[:, :k]
+    return out_scores, torch.gather(cand_ids, 1, sel[:, :k])
+
+
+def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
+                            nprobe: int, k: int, metric: str,
+                            thres_scale: float, rerank: int = 0,
+                            fused: bool = True):
+    """One query batch of mode "H2": stage A, then the fused scoring tail.
+
+    Returns (scores (Q, k) f32, ids (Q, k) int32).
+    """
+    if not fused:
+        raise _not_ported("composed H2 (fused=False)",
+                          "item 3, tiers H/M/L and composed H2")
+    q = queries.float()
+    base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
+    return _score_probed_two_stage(index, q, base, cids, k=k, metric=metric,
+                                   thres_scale=thres_scale, rerank=rerank)
+
+
+def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
+           mode: str = "H2", metric: str = "l2", thres_scale: float = 1.0,
+           batch: int = 64, rerank: int = 0, fused: bool = True,
+           side=None, prefilter: str = "scan"
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Search the index — the online API (paper Alg. 2), fused H2 only.
+
+    Queries run in chunks of ``batch``; the last chunk is padded with
+    copies of its last row (in-distribution work whose results are sliced
+    off), as the reference does.
+
+    Parameters
+    ----------
+    index : JunoIndexData
+        A built or loaded index; the search runs on its device.
+    queries : array-like or torch.Tensor
+        (Q, D) f32 query vectors.
+    nprobe : int
+        Clusters probed per query.
+    k : int
+        Results per query.
+    mode : str
+        Only "H2" is ported (the reference's default is "H").
+    metric : str
+        "l2" | "ip".
+    thres_scale : float
+        Multiplier on the calibrated thresholds τ.
+    batch : int
+        Queries per chunk.
+    rerank : int
+        Candidate budget C of stage C (0 → ``4 * k``).
+    fused : bool
+        Only ``True`` is ported.
+    side, prefilter
+        Only ``None`` and ``"scan"`` are ported.
+
+    Returns
+    -------
+    tuple of torch.Tensor
+        ``(scores (Q, k) f32, ids (Q, k) int32)``; scores are distances
+        (lower better) for l2 and similarities for ip.
+    """
+    if mode != "H2":
+        raise _not_ported(f"mode={mode!r}", "item 3, tiers H/M/L and composed H2")
+    if prefilter != "scan":
+        raise _not_ported(f"prefilter={prefilter!r}", "item 5, RT prefilter")
+    if side is not None:
+        raise _not_ported("the side buffer", "item 7, mutability and freshness")
+    dev = index.ivf.centroids.device
+    q_all = _as_tensor(queries).to(dev)
+    out_s, out_i = [], []
+    for i in range(0, q_all.shape[0], batch):
+        qb = q_all[i:i + batch]
+        pad = batch - qb.shape[0]
+        if pad:
+            qb = torch.cat([qb, qb[-1:].expand(pad, -1)])
+        s, ids = _search_batch_two_stage(index, qb, nprobe=nprobe, k=k,
+                                         metric=metric,
+                                         thres_scale=thres_scale,
+                                         rerank=rerank, fused=fused)
+        out_s.append(s[:batch - pad])
+        out_i.append(ids[:batch - pad])
+    return torch.cat(out_s), torch.cat(out_i)

@@ -45,3 +45,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "autotune: measured kernel-config search (wall-clock "
         "timing; own CI job)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (repro_torch's hand-written "
+        "kernels); skips without one")

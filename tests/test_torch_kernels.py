@@ -1,0 +1,186 @@
+"""The ported kernels' plain versions against ``repro``'s kernels and
+oracles.
+
+* ``selective_lut_plain`` must equal ``repro.kernels.ref.selective_lut_ref``
+  bit for bit (same IEEE operations in the same order), and the Pallas
+  kernel in interpret mode plus its ip post-pass up to that kernel's own
+  rounding (see the test).
+* ``fused_two_stage_plain`` must equal ``fused_two_stage_host``: counts and
+  ``cand`` (order included) exactly; ``cand_dist``/``dist`` within rtol
+  1e-5, because the f32 sum over S runs in another order (atol 1e-6: the
+  N(0, 1) LUT entries of these inputs can cancel to near 0).
+* Against the dense oracle ``ref.fused_two_stage_ref`` the candidate SET
+  must match (the oracle orders it by count).
+
+The CUDA kernels against their plain versions are in
+``test_torch_kernels_gpu.py`` (no JAX there: the card's machine has none).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.lut import ip_pruned_fill
+from repro.kernels import ref as jref
+from repro.kernels.fused_two_stage import fused_two_stage_host
+from repro.kernels.selective_lut import selective_lut as pallas_selective_lut
+from repro_torch.kernels import fused_two_stage as pfused
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as pref
+from repro_torch.kernels import selective_lut as pslut
+
+RTOL = 1e-5  # f32 sums over S in a different order
+ATOL = 1e-6
+
+
+def _lut_inputs(seed, b=16, s=8, e=32):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, s, 2)) * 2).astype(np.float32)
+    ent = rng.standard_normal((s, e, 2)).astype(np.float32)
+    esq = (ent[..., 0] * ent[..., 0] + ent[..., 1] * ent[..., 1])
+    tau = (np.abs(rng.standard_normal((b, s))) * 2).astype(np.float32)
+    tau[0] = 0.0                         # a row that keeps nothing
+    return (q[..., 0].copy(), q[..., 1].copy(), ent[..., 0].copy(),
+            ent[..., 1].copy(), esq.astype(np.float32), tau)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_selective_lut_plain_matches_reference_oracle(metric, seed):
+    args = _lut_inputs(seed)
+    lut_p, hit_p = pslut.selective_lut_plain(
+        *map(torch.from_numpy, args), metric=metric)
+    lut_r, hit_r = jref.selective_lut_ref(*map(jnp.asarray, args),
+                                          metric=metric)
+    np.testing.assert_array_equal(lut_p.numpy(), np.asarray(lut_r))
+    np.testing.assert_array_equal(hit_p.numpy(), np.asarray(hit_r))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_selective_lut_plain_matches_pallas_interpret(metric):
+    """The interpreted Pallas kernel rounds differently from its own oracle:
+    its CPU backend fuses ``q0*e0 + q1*e1`` into ``fma(q0, e0, q1*e1)`` (and
+    ``|r|^2`` likewise). So the LUT agrees to a few ulps (rtol 1e-5, atol
+    1e-5 against terms of size ~10), and the hit table agrees exactly away
+    from the τ² and τ²/4 boundaries, where an ulp may flip a compare."""
+    args = _lut_inputs(2)
+    lut_k, hit_k = pallas_selective_lut(*map(jnp.asarray, args),
+                                        metric=metric, interpret=True)
+    if metric == "ip":                   # the reference's ops.py post-pass
+        lut_k = ip_pruned_fill(lut_k, hit_k >= 0)
+    lut_p, hit_p = pslut.selective_lut_plain(
+        *map(torch.from_numpy, args), metric=metric)
+    q0, q1, e0, e1, esq, tau = (a.astype(np.float64) for a in args)
+    dot = q0[:, :, None] * e0 + q1[:, :, None] * e1
+    dist = (esq - 2 * dot) + (0 if metric == "ip"
+                              else (q0 * q0 + q1 * q1)[:, :, None])
+    tau_sq = (tau * tau)[:, :, None]
+    near = (np.abs(dist - tau_sq) <= 1e-5) | (np.abs(dist - tau_sq / 4) <= 1e-5)
+    hit_p, hit_k = hit_p.numpy(), np.asarray(hit_k)
+    np.testing.assert_array_equal(hit_p[~near], hit_k[~near])
+    np.testing.assert_allclose(lut_p.numpy(), np.asarray(lut_k), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _scan_inputs(seed, q=3, n_probe=4, p=40, s=8, e=16, valid_frac=0.8,
+                 table_lo=-1):
+    rng = np.random.default_rng(seed)
+    lut = rng.standard_normal((q, n_probe, s, e)).astype(np.float32)
+    table = rng.integers(table_lo, 2, (q, n_probe, s, e)).astype(np.int8)
+    codes = rng.integers(0, e, (q, n_probe, p, s)).astype(np.uint8)
+    valid = rng.random((q, n_probe, p)) < valid_frac
+    return lut, table, codes, valid
+
+
+CASES = {
+    "mixed": dict(),
+    "all_invalid": dict(valid_frac=0.0),
+    "few_valid": dict(valid_frac=0.05),          # cap_c > valid count
+    "all_pruned": dict(table_lo=-1, valid_frac=1.0),
+}
+
+
+def _case(name, seed):
+    kw = dict(CASES[name])
+    lut, table, codes, valid = _scan_inputs(seed, **kw)
+    if name == "all_pruned":
+        table[:] = -1
+    return lut, table, codes, valid
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("cap_c", [1, 25, 160, 1000])
+def test_fused_plain_matches_host_path(case, metric, cap_c):
+    lut, table, codes, valid = _case(case, 3)
+    got = pfused.fused_two_stage_plain(
+        *map(torch.from_numpy, (lut, table, codes, valid)), cap_c=cap_c,
+        metric=metric)
+    want = fused_two_stage_host(*map(jnp.asarray, (lut, table, codes, valid)),
+                                cap_c=cap_c, metric=metric)
+    counts, dist, cand, cdist = (t.numpy() for t in got)
+    np.testing.assert_array_equal(counts, np.asarray(want[0]))
+    np.testing.assert_array_equal(cand, np.asarray(want[2]))
+    assert cand.dtype == np.int32 and counts.dtype == np.int32
+    np.testing.assert_allclose(cdist, np.asarray(want[3]), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(dist, np.asarray(want[1]), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_fused_plain_candidate_set_matches_dense_oracle(case, metric):
+    lut, table, codes, valid = _case(case, 4)
+    for cap_c in (7, 160, 1000):
+        _, _, cand, _ = pfused.fused_two_stage_plain(
+            *map(torch.from_numpy, (lut, table, codes, valid)), cap_c=cap_c,
+            metric=metric)
+        counts_r, _, cand_r, _ = jref.fused_two_stage_ref(
+            *map(jnp.asarray, (lut, table, codes, valid)), cap_c=cap_c,
+            metric=metric)
+        cand_r = np.asarray(cand_r)
+        assert cand.shape == cand_r.shape
+        for row, row_r in zip(cand.numpy(), cand_r):
+            assert set(row.tolist()) == set(row_r.tolist())
+        # the port's own dense oracle agrees with the reference's exactly
+        counts_o, _, cand_o, _ = pref.fused_two_stage_ref(
+            *map(torch.from_numpy, (lut, table, codes, valid)), cap_c=cap_c,
+            metric=metric)
+        np.testing.assert_array_equal(counts_o.numpy(), np.asarray(counts_r))
+        np.testing.assert_array_equal(cand_o.numpy(), cand_r)
+
+
+def _arange_cids(codes, valid):
+    """Pre-gathered (Q, np, P, S) codes as a whole index read through
+    ``cids = arange(Q·np)``: the wrapper's input form."""
+    q, n_probe, p, s = codes.shape
+    cids = torch.arange(q * n_probe).reshape(q, n_probe)
+    return codes.reshape(q * n_probe, p, s), valid.reshape(q * n_probe, p), cids
+
+
+def test_ops_cids_form_equals_gathered_form():
+    """Reading the index through cids (what the search does) gives what
+    the pre-gathered codes give."""
+    lut, table, codes, valid = _scan_inputs(5)
+    rng = np.random.default_rng(5)
+    cl_codes = rng.integers(0, 16, (10, 40, 8)).astype(np.uint8)
+    cl_valid = rng.random((10, 40)) < 0.7
+    cids = rng.integers(0, 10, (3, 4))
+    t = torch.from_numpy
+    a = ops.fused_two_stage_scan(t(lut), t(table), t(cl_codes), t(cl_valid),
+                                 t(cids), cap_c=30)
+    b = ops.fused_two_stage_scan(
+        t(lut), t(table), *_arange_cids(t(cl_codes[cids]), t(cl_valid[cids])),
+        cap_c=30)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def test_ops_rejects_mixed_devices():
+    lut, table, codes, valid = _scan_inputs(6)
+    codes, valid, cids = _arange_cids(torch.from_numpy(codes),
+                                      torch.from_numpy(valid))
+    with pytest.raises(ValueError):
+        ops.fused_two_stage_scan(torch.from_numpy(lut), torch.from_numpy(table),
+                                 codes, valid.to("meta"), cids, cap_c=4)

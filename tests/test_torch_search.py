@@ -1,0 +1,51 @@
+"""The port's fused-H2 search against ``repro.core.search`` on one index.
+
+The index is built by ``repro`` and carried across bit-exactly, so every
+difference comes from the search. Cluster ids, τ and the integer planes
+(hit tables, counts, candidate sets) are exact; the masked-LUT sums over S
+run in another order, so scores compare within rtol 1e-5 and ids are
+equal except inside runs of tied scores
+(``_torch_parity.assert_ids_equal_up_to_ties``). The reference serves
+``impl="ref"`` (its core/lut.py rounding), the port its selective-LUT
+kernel's contract (kernels/ref.py rounding); the two agree except at
+entries within an ulp of a τ² boundary, which these inputs do not hit.
+"""
+import jax
+import numpy as np
+import pytest
+
+from _torch_parity import assert_ids_equal_up_to_ties, to_port
+from repro.core import JunoConfig, build
+from repro.core import search as jax_search
+from repro.data import DEEP_LIKE, TTI_LIKE, make_dataset
+from repro_torch.core import search
+
+
+@pytest.fixture(scope="module", params=["l2", "ip"])
+def indexed(request):
+    metric = request.param
+    spec = DEEP_LIKE if metric == "l2" else TTI_LIKE
+    pts, q = make_dataset(spec, 6000, 40, key=jax.random.PRNGKey(21))
+    cfg = JunoConfig(n_clusters=24, n_entries=32, metric=metric,
+                     calib_queries=32, kmeans_iters=4)
+    ref = build(pts, cfg, jax.random.PRNGKey(2))
+    return metric, np.asarray(q), ref, to_port(ref)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("rerank_mult", [0, 32])
+def test_fused_h2_search_matches_reference(indexed, k, rerank_mult):
+    metric, q, ref, port = indexed
+    kw = dict(nprobe=8, k=k, metric=metric, rerank=rerank_mult * k, batch=16)
+    s_r, ids_r = jax_search(ref, q, mode="H2", fused=True, impl="ref", **kw)
+    s_p, ids_p = search(port, q, **kw)
+    assert ids_p.shape == (q.shape[0], k) and ids_p.dtype.itemsize == 4
+    assert_ids_equal_up_to_ties(ids_p.numpy(), ids_r, s_p.numpy(), s_r)
+
+
+def test_unported_options_raise(indexed):
+    metric, q, _, port = indexed
+    for kw in (dict(mode="H"), dict(mode="M"), dict(mode="L"),
+               dict(fused=False), dict(prefilter="rt"), dict(side=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            search(port, q[:2], k=10, metric=metric, **kw)
