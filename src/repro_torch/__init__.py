@@ -6,11 +6,13 @@ and imports nothing of ``repro`` or JAX: it keeps its own copies of what
 it needs. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.
 
-Ported so far: the fused-H2 online query path — stage A (IVF filter),
-τ from the density model, stage B (the selective LUT and the int8 hit
-table, a hand-written CUDA kernel) and stage C (the fused two-stage
-hit-count → top-C → masked-ADC scan, a hand-written CUDA kernel) — the
-offline build that feeds it, the artifact reader, and the serving
-engine's fused signature. See ROADMAP.md for what is still to come.
+Ported so far: the online query path of tiers H, M, L and H2 — stage A
+(IVF filter), τ from the density model, stage B (the selective LUT and
+the int8 hit table) and stage C (the masked-ADC scan of tier H, the hit
+count of tiers M/L and composed H2, the fused two-stage scan of fused
+H2), each stage B/C step a hand-written CUDA kernel — the offline build
+that feeds it, the artifact reader, and the serving engine in both its
+configurations (``fused=False`` and ``fused=True``). See ROADMAP.md for
+what is still to come.
 """
 from .device import resolve_device  # noqa: F401

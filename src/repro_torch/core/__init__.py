@@ -1,4 +1,5 @@
-"""JUNO core of the port: index build and the fused-H2 search.
+"""JUNO core of the port: index build and the search of tiers H, M, L
+and H2 (fused and composed).
 
 Public API:
     JunoConfig, JunoIndexData, build, search   — juno.py

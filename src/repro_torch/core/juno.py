@@ -1,20 +1,29 @@
-"""The JUNO index: offline build and the fused-H2 online search.
+"""The JUNO index: offline build and the online search of every tier.
 
 Port of ``repro/core/juno.py`` (``JunoConfig``, ``JunoIndexData``,
-``build``, ``_calibrate_density``, the fused branch of
-``_score_probed_two_stage``, ``_search_batch_two_stage`` and ``search``).
+``build``, ``_calibrate_density``, ``_score_probed``, ``_search_batch``,
+``_score_probed_two_stage``, ``_search_batch_two_stage`` and ``search``),
+without the side buffer and the RT prefilter.
 
 Offline (:func:`build`): IVF k-means → residual PQ codebooks → padded
 per-cluster codes → density grid and threshold-regressor calibration.
 Every random draw of the build is injectable (:class:`BuildDraws`), so a
 build can reproduce another implementation's sample and init indices.
 
-Online (:func:`search`, mode "H2" with ``fused=True``): stage A filters
-the nprobe nearest clusters (one GEMM), τ comes from the density model,
-stage B builds the masked LUT and the int8 hit table (``selective_lut``
-kernel), and stage C runs the fused hit-count → top-C → masked-ADC scan
-(``fused_two_stage`` kernel) before the final top-k. Everything else the
-reference offers raises ``NotImplementedError`` naming its ROADMAP item.
+Online (:func:`search`): stage A filters the nprobe nearest clusters
+(one GEMM), τ comes from the density model, stage B builds the masked LUT
+and the int8 hit table (``selective_lut`` kernel), and stage C scores the
+probed points by tier (paper's JUNO-H/M/L, plus the two-stage H2):
+
+* "H": masked ADC of every probed point (``pq_scan`` kernel), top-k;
+* "M": reward/penalty hit count (``hit_count`` kernel), top-k by count;
+* "L": plain hit count, the table clipped to {0, 1}, top-k by count;
+* "H2": hit count → top-C → masked ADC of the C → top-k, either in one
+  fused kernel (``fused=True``, ``fused_two_stage``) or composed
+  (``hit_count`` kernel, then a plain-torch rerank).
+
+The side buffer and ``prefilter="rt"`` raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -213,74 +222,161 @@ def _calibrate_density(pts, residuals, codebook, codes, ivf, config, draws):
                                  degree=config.poly_degree)
 
 
-def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
-                            base: torch.Tensor, cids: torch.Tensor, *, k: int,
-                            metric: str, thres_scale: float, rerank: int = 0
-                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mode "H2", fused: τ, stage B and stage C over the probed clusters.
+def _stage_b(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
+             cids: torch.Tensor, *, metric: str, thres_scale: float):
+    """τ and stage B over the probed clusters.
 
-    ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The fused
-    scan reads the probed clusters' codes through ``cids``; only the C
-    candidates' validity and ids are gathered here. Returns (scores (Q, k),
-    ids (Q, k) int32).
+    Returns ``(mlut, table, probe_base)``: the masked LUT (Q, np, S, E)
+    f32, the int8 reward/penalty hit table of the same shape, and the
+    per-probe score offset (Q, np) that ip adds to a point's LUT total
+    (``<q, c_probe>``; ``None`` for l2).
     """
     nq, nprobe = cids.shape
     m = index.codebook.sub_dim
     if metric == "l2":
         res = q[:, None, :] - index.ivf.centroids[cids]
         qsub = res.reshape(nq, nprobe, -1, m)
+        probe_base = None
     else:
         qsub = q.reshape(nq, 1, -1, m).expand(nq, nprobe, -1, m)
+        probe_base = base
     tau = density_lib.predict_threshold(index.density, qsub, thres_scale)
     mlut, table = ops.build_selective_lut(
         qsub, index.codebook.entries, index.codebook.entry_sq, tau,
         metric=metric)
+    return mlut, table, probe_base
 
+
+def _top_k(scores: torch.Tensor, k: int, higher_better: bool
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` of ``scores`` (or of ``-scores``) along dim 1: the k
+    best in (score desc, index asc) order. Returns (scores, positions)."""
+    key = scores if higher_better else -scores
+    vals, order = torch.sort(key, dim=1, descending=True, stable=True)
+    vals = vals[:, :k]
+    return (vals if higher_better else -vals), order[:, :k]
+
+
+def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
+                  cids: torch.Tensor, *, k: int, mode: str, metric: str,
+                  thres_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Modes "H", "M" and "L": τ, stage B and a scan of every probed point.
+
+    ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The scan
+    kernels read the probed clusters' codes through ``cids``; ids are
+    gathered for the k results only. Returns (scores (Q, k), ids (Q, k)
+    int32): l2 H scores are distances (lower better), every other score
+    is higher-better (ip similarity, or hit count as f32).
+    """
+    nq = q.shape[0]
+    mlut, table, probe_base = _stage_b(index, q, base, cids, metric=metric,
+                                       thres_scale=thres_scale)
+    if mode == "H":
+        pt_scores = ops.masked_adc_scan(mlut, index.cluster_codes,
+                                        index.ivf.valid, cids, metric=metric)
+        if probe_base is not None:
+            pt_scores = pt_scores + probe_base[..., None]
+        higher_better = metric == "ip"
+    else:
+        if mode == "L":  # plain count: clip penalty/inner to {0, 1}
+            table = (table >= 0).to(torch.int8)
+        pt_scores = ops.hit_count_scan(table, index.cluster_codes,
+                                       index.ivf.valid, cids).float()
+        higher_better = True
+    out_scores, sel = _top_k(pt_scores.reshape(nq, -1), k, higher_better)
+    p = index.cluster_codes.shape[1]
+    sel_cid = torch.gather(cids, 1, sel // p)
+    return out_scores, index.ivf.point_ids[sel_cid, sel % p]
+
+
+def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
+                  nprobe: int, k: int, mode: str, metric: str,
+                  thres_scale: float):
+    """One query batch of mode "H", "M" or "L": stage A, then
+    :func:`_score_probed`. Returns (scores (Q, k) f32, ids (Q, k) int32).
+    """
+    q = queries.float()
+    base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
+    return _score_probed(index, q, base, cids, k=k, mode=mode, metric=metric,
+                         thres_scale=thres_scale)
+
+
+def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
+                            base: torch.Tensor, cids: torch.Tensor, *, k: int,
+                            metric: str, thres_scale: float, rerank: int = 0,
+                            fused: bool = False
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mode "H2": τ, stage B, hit-count prefilter → top-C → masked ADC.
+
+    ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The C
+    candidates are the top-C points by hit count; both forms select the
+    same set, so they return the same ids up to score ties:
+
+    * ``fused=True``: one ``fused_two_stage`` kernel counts, thresholds,
+      compacts the candidates (index-ascending) and sums their LUT entries;
+    * ``fused=False``: the ``hit_count`` kernel counts, a stable sort takes
+      the top C in (count desc, index asc) order, and the C candidates'
+      LUT entries are gathered and summed in plain torch.
+
+    Only the candidates' codes, validity and ids are gathered. Returns
+    (scores (Q, k), ids (Q, k) int32).
+    """
+    nq, nprobe = cids.shape
+    mlut, table, probe_base = _stage_b(index, q, base, cids, metric=metric,
+                                       thres_scale=thres_scale)
     p = index.cluster_codes.shape[1]
     cap = min(rerank or 4 * k, nprobe * p)
-    _, _, cand, exact = ops.fused_two_stage_scan(
-        mlut, table, index.cluster_codes, index.ivf.valid, cids, cap_c=cap,
-        metric=metric)
-    cand = cand.long()
-    cand_probe = cand // p
-    cand_cid = torch.gather(cids, 1, cand_probe)
+    if fused:
+        _, _, cand, exact = ops.fused_two_stage_scan(
+            mlut, table, index.cluster_codes, index.ivf.valid, cids,
+            cap_c=cap, metric=metric)
+        cand = cand.long()
+        cand_probe = cand // p
+        cand_cid = torch.gather(cids, 1, cand_probe)
+    else:
+        counts = ops.hit_count_scan(table, index.cluster_codes,
+                                    index.ivf.valid, cids)
+        _, cand = _top_k(counts.reshape(nq, -1), cap, True)
+        cand_probe = cand // p
+        cand_cid = torch.gather(cids, 1, cand_probe)
+        cand_codes = index.cluster_codes[cand_cid, cand % p].long()  # (Q, C, S)
+        s = mlut.shape[2]
+        vals = mlut[torch.arange(nq, device=q.device)[:, None, None],
+                    cand_probe[..., None], torch.arange(s, device=q.device),
+                    cand_codes]                                     # (Q, C, S)
+        exact = vals.sum(-1)
     cand_valid = index.ivf.valid[cand_cid, cand % p]
     cand_ids = index.ivf.point_ids[cand_cid, cand % p]
-    if metric == "ip":
-        exact = exact + torch.gather(base, 1, cand_probe)
-        exact = torch.where(cand_valid, exact, float("-inf"))
-        sel_s, sel = torch.sort(exact, dim=1, descending=True, stable=True)
-        out_scores = sel_s[:, :k]
-    else:
-        exact = torch.where(cand_valid, exact, float("inf"))
-        sel_s, sel = torch.sort(-exact, dim=1, descending=True, stable=True)
-        out_scores = -sel_s[:, :k]
-    return out_scores, torch.gather(cand_ids, 1, sel[:, :k])
+    higher_better = metric == "ip"
+    if probe_base is not None:
+        exact = exact + torch.gather(probe_base, 1, cand_probe)
+    exact = torch.where(cand_valid, exact,
+                        float("-inf") if higher_better else float("inf"))
+    out_scores, sel = _top_k(exact, k, higher_better)
+    return out_scores, torch.gather(cand_ids, 1, sel)
 
 
 def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
                             nprobe: int, k: int, metric: str,
                             thres_scale: float, rerank: int = 0,
-                            fused: bool = True):
-    """One query batch of mode "H2": stage A, then the fused scoring tail.
+                            fused: bool = False):
+    """One query batch of mode "H2": stage A, then the two-stage tail.
 
     Returns (scores (Q, k) f32, ids (Q, k) int32).
     """
-    if not fused:
-        raise _not_ported("composed H2 (fused=False)",
-                          "item 3, tiers H/M/L and composed H2")
     q = queries.float()
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
     return _score_probed_two_stage(index, q, base, cids, k=k, metric=metric,
-                                   thres_scale=thres_scale, rerank=rerank)
+                                   thres_scale=thres_scale, rerank=rerank,
+                                   fused=fused)
 
 
 def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
-           mode: str = "H2", metric: str = "l2", thres_scale: float = 1.0,
-           batch: int = 64, rerank: int = 0, fused: bool = True,
+           mode: str = "H", metric: str = "l2", thres_scale: float = 1.0,
+           batch: int = 64, rerank: int = 0, fused: bool = False,
            side=None, prefilter: str = "scan"
            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Search the index — the online API (paper Alg. 2), fused H2 only.
+    """Search the index — the online API (paper Alg. 2).
 
     Queries run in chunks of ``batch``; the last chunk is padded with
     copies of its last row (in-distribution work whose results are sliced
@@ -297,7 +393,9 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
     k : int
         Results per query.
     mode : str
-        Only "H2" is ported (the reference's default is "H").
+        Operating point: "H" (exact selective distances), "M"
+        (reward/penalty hit count), "L" (plain hit count) or "H2"
+        (hit-count prefilter → exact rerank of the top C).
     metric : str
         "l2" | "ip".
     thres_scale : float
@@ -305,9 +403,11 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
     batch : int
         Queries per chunk.
     rerank : int
-        Candidate budget C of stage C (0 → ``4 * k``).
+        Mode "H2": candidate budget C (0 → ``4 * k``).
     fused : bool
-        Only ``True`` is ported.
+        Mode "H2" only: both stages in the ``fused_two_stage`` kernel
+        instead of the composed hit count → rerank; the ids are the same
+        up to score ties.
     side, prefilter
         Only ``None`` and ``"scan"`` are ported.
 
@@ -315,12 +415,25 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
     -------
     tuple of torch.Tensor
         ``(scores (Q, k) f32, ids (Q, k) int32)``; scores are distances
-        (lower better) for l2 and similarities for ip.
+        (lower better) for l2 H/H2, similarities or counts (higher better)
+        otherwise.
+
+    Raises
+    ------
+    ValueError
+        For ``fused=True`` with a mode other than "H2", or an unknown
+        mode or prefilter.
+    NotImplementedError
+        For ``prefilter="rt"`` or a side buffer (not ported yet).
     """
-    if mode != "H2":
-        raise _not_ported(f"mode={mode!r}", "item 3, tiers H/M/L and composed H2")
-    if prefilter != "scan":
-        raise _not_ported(f"prefilter={prefilter!r}", "item 5, RT prefilter")
+    if mode not in ("H", "M", "L", "H2"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if fused and mode != "H2":
+        raise ValueError(f"fused=True requires mode='H2', got mode={mode!r}")
+    if prefilter not in ("scan", "rt"):
+        raise ValueError(f"unknown prefilter {prefilter!r}")
+    if prefilter == "rt":
+        raise _not_ported("prefilter='rt'", "item 5, RT prefilter")
     if side is not None:
         raise _not_ported("the side buffer", "item 7, mutability and freshness")
     dev = index.ivf.centroids.device
@@ -331,10 +444,12 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         pad = batch - qb.shape[0]
         if pad:
             qb = torch.cat([qb, qb[-1:].expand(pad, -1)])
-        s, ids = _search_batch_two_stage(index, qb, nprobe=nprobe, k=k,
-                                         metric=metric,
-                                         thres_scale=thres_scale,
-                                         rerank=rerank, fused=fused)
+        kw = dict(nprobe=nprobe, k=k, metric=metric, thres_scale=thres_scale)
+        if mode == "H2":
+            s, ids = _search_batch_two_stage(index, qb, rerank=rerank,
+                                             fused=fused, **kw)
+        else:
+            s, ids = _search_batch(index, qb, mode=mode, **kw)
         out_s.append(s[:batch - pad])
         out_i.append(ids[:batch - pad])
     return torch.cat(out_s), torch.cat(out_i)

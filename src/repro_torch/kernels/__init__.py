@@ -1,2 +1,4 @@
 """Hand-written Hopper kernels of the port, their plain PyTorch versions
-and the wrappers that dispatch between them (``ops``)."""
+and the wrappers that dispatch between them (``ops``): ``selective_lut``
+(stage B), ``fused_two_stage`` (fused H2), ``pq_scan`` (tier H) and
+``hit_count`` (tiers M/L, composed H2)."""

@@ -3,8 +3,8 @@
 Each source in ``csrc/`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into one shared library under
 ``build/kernels/`` at the repo root; the file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded. :func:`build_all` starts one ``nvcc`` per source, all at
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and a stale library is never loaded. :func:`build_all` starts one ``nvcc`` per source, all at
 once. Nothing here runs at import time: the CPU tests import every module
 of the package on a machine with no ``nvcc``.
 
@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("selective_lut", "fused_two_stage")
+SOURCES = ("selective_lut", "fused_two_stage", "pq_scan", "hit_count")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +53,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -25,21 +25,25 @@
 // Design:
 //  (a) count_kernel, one block per (q, probe): the S*E int8 table is staged
 //      in shared memory (12 KB at S=48, 25.6 KB at S=100), each thread takes
-//      points and reads their codes in 4-byte words, and a per-query
+//      points and reads their codes in 16- or 4-byte words (the sum is
+//      scan_common.cuh's, shared with hit_count.cu), and a per-query
 //      histogram of 2S+2 bins (one per count in [-S, S], one for invalid)
 //      is built with warp-aggregated shared atomics and flushed to global.
 //  (b) select_kernel, one block per query: theta, n_gt and the tie quota
 //      come from the histogram; two block-wide prefix sums per 1024-wide
 //      window over W (tie rank, then take position) compact the
 //      candidates in index order; then each thread sums one candidate's
-//      S LUT entries in subspace order and scatters it into dist.
+//      S LUT entries in subspace order (scan_common.cuh, as pq_scan.cu
+//      does) and scatters it into dist.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
+
 namespace {
 
-constexpr int kNeg = -(1 << 30);       // invalid-point count sentinel
+using scan::kNeg;
 constexpr int kCountThreads = 256;
 constexpr int kSelectThreads = 1024;
 
@@ -52,21 +56,14 @@ __global__ void count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E
                              int n_probe, int P, int S, int E) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tab_bytes = S * E;
-  int8_t* tab = reinterpret_cast<int8_t*>(smem);
+  const int8_t* tab = reinterpret_cast<const int8_t*>(smem);
   int* h = reinterpret_cast<int*>(smem + ((tab_bytes + 15) & ~15));
   const int nbins = 2 * S + 2;
   const int64_t qp = blockIdx.x;
   const int q = (int)(qp / n_probe);
   const int64_t cid = cids[qp];
 
-  const int8_t* src = table + qp * tab_bytes;
-  if ((tab_bytes & 15) == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(tab);
-    for (int i = threadIdx.x; i < tab_bytes / 16; i += blockDim.x) d4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < tab_bytes; i += blockDim.x) tab[i] = src[i];
-  }
+  scan::stage(smem, table + qp * tab_bytes, tab_bytes);
   for (int i = threadIdx.x; i < nbins; i += blockDim.x) h[i] = 0;
   __syncthreads();
 
@@ -81,23 +78,10 @@ __global__ void count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E
     const bool live = p < P;
     int cnt = kNeg, bin = live ? 0 : -1;
     if (live && vrow[p]) {
-      const uint8_t* c = crow + (int64_t)p * S;
-      int acc = 0;
-      if ((S & 3) == 0) {
-        const uint32_t* cw = reinterpret_cast<const uint32_t*>(c);
-        for (int w = 0; w < S / 4; ++w) {
-          const uint32_t v = __ldg(cw + w);
-          const int8_t* t = tab + 4 * w * E;
-          acc += t[v & 255u] + t[E + ((v >> 8) & 255u)] +
-                 t[2 * E + ((v >> 16) & 255u)] + t[3 * E + (v >> 24)];
-        }
-      } else {
-        for (int s = 0; s < S; ++s) acc += tab[s * E + __ldg(c + s)];
-      }
-      cnt = acc;
-      // hit tables hold {-1, 0, +1}, so acc lies in [-S, S]; the clamp only
+      cnt = scan::gather_sum<int>(tab, crow + (int64_t)p * S, S, E);
+      // hit tables hold {-1, 0, +1}, so cnt lies in [-S, S]; the clamp only
       // keeps an out-of-contract table from writing outside the histogram
-      bin = min(max(acc + S + 1, 1), 2 * S + 1);
+      bin = min(max(cnt + S + 1, 1), 2 * S + 1);
     }
     if (live) out[p] = cnt;
     const unsigned peers = __match_any_sync(0xffffffffu, bin);
@@ -190,13 +174,9 @@ __global__ void select_kernel(const int32_t* __restrict__ counts,  // (Q, W)
     const int probe = i / P, p = i % P;
     const int64_t qp = (int64_t)q * n_probe + probe;
     const int64_t cid = cids[qp];
-    float v = bad;
-    if (valid[cid * P + p]) {
-      const uint8_t* c = codes + (cid * P + p) * S;
-      const float* l = lut + qp * S * E;
-      v = l[c[0]];
-      for (int s = 1; s < S; ++s) v = __fadd_rn(v, l[s * E + c[s]]);
-    }
+    const float v = valid[cid * P + p]
+        ? scan::gather_sum<float>(lut + qp * S * E, codes + (cid * P + p) * S, S, E)
+        : bad;
     cand_dist[(int64_t)q * C + j] = v;
     drow[i] = v;
   }
@@ -217,11 +197,8 @@ extern "C" int fused_two_stage_launch(const void* lut, const void* table,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)((S * E + 15) & ~15) + sizeof(int) * (2 * S + 2);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int smem_err = scan::allow_smem(count_kernel, smem);
+  if (smem_err) return smem_err;
   count_kernel<<<(unsigned)(Q * n_probe), kCountThreads, smem, st>>>(
       (const int8_t*)table, (const uint8_t*)codes, (const uint8_t*)valid,
       (const int64_t*)cids, (int32_t*)counts, (int32_t*)hist, n_probe, P, S, E);

@@ -22,13 +22,7 @@ import functools
 import torch
 
 from . import _build
-from .ref import NEG, gather_tables
-
-
-def _bad(metric: str) -> float:
-    if metric not in ("l2", "ip"):
-        raise ValueError(f"unknown metric {metric!r}")
-    return float("inf") if metric == "l2" else float("-inf")
+from .ref import bad_score, hit_count_ref
 
 
 def fused_two_stage_plain(lut: torch.Tensor, table: torch.Tensor,
@@ -45,14 +39,11 @@ def fused_two_stage_plain(lut: torch.Tensor, table: torch.Tensor,
     q, n_probe, p, s = codes.shape
     w = n_probe * p
     cap_c = max(1, min(cap_c, w))
-    bad = _bad(metric)
+    bad = bad_score(metric)
     dev = codes.device
 
     # stage 1: hit counts by direct gather
-    totals = gather_tables(table, codes).to(torch.int32).sum(-1,
-                                                            dtype=torch.int32)
-    counts = torch.where(valid, totals,
-                         torch.tensor(NEG, dtype=torch.int32, device=dev))
+    counts = hit_count_ref(table, codes, valid)
     flat = counts.reshape(q, w)
 
     # survivor threshold: exact θ-selection
@@ -97,7 +88,7 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
     for ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``.
     Counts one launch in ``_build.LAUNCHES["fused_two_stage"]``.
     """
-    bad = _bad(metric)
+    bad = bad_score(metric)
     dev = lut.device
     if dev.type != "cuda":
         raise ValueError("fused_two_stage launches on CUDA tensors only")

@@ -1,16 +1,25 @@
 """Public wrappers over the ported kernels.
 
-Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79) and
+Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
+``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135) and
 ``fused_two_stage_scan`` (l.147). Dispatch follows the tensors' device: a
 CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written CUDA kernel, or the call raises. There is no fallback
 from a kernel to its plain version.
+
+The three scans take the whole index (``codes (n_clusters, P, S)``,
+``valid (n_clusters, P)``) and the probed cluster ids ``cids (Q, np)``
+int64: the kernels read the probed rows through ``cids`` and never
+materialise the gathered copy the reference scans; the plain versions
+scan ``codes[cids]``.
 """
 from __future__ import annotations
 
 import torch
 
 from .fused_two_stage import fused_two_stage, fused_two_stage_plain
+from .hit_count import hit_count, hit_count_plain
+from .pq_scan import pq_scan, pq_scan_plain
 from .selective_lut import selective_lut, selective_lut_plain
 
 
@@ -49,16 +58,39 @@ def build_selective_lut(qsub: torch.Tensor, entries: torch.Tensor,
     return lut.reshape(*lead, s, e), hit.reshape(*lead, s, e)
 
 
+def masked_adc_scan(mlut: torch.Tensor, codes: torch.Tensor,
+                    valid: torch.Tensor, cids: torch.Tensor, *,
+                    metric: str = "l2") -> torch.Tensor:
+    """Tier H: every probed point's masked-LUT total.
+
+    mlut (Q, np, S, E) f32 -> (Q, np, P) f32; invalid slots get +inf (l2)
+    or -inf (ip).
+    """
+    if _on_cuda(mlut, codes, valid, cids):
+        return pq_scan(mlut.contiguous(), codes.contiguous(),
+                       valid.contiguous(), cids.contiguous(), metric=metric)
+    return pq_scan_plain(mlut, codes[cids], valid[cids], metric=metric)
+
+
+def hit_count_scan(table: torch.Tensor, codes: torch.Tensor,
+                   valid: torch.Tensor, cids: torch.Tensor) -> torch.Tensor:
+    """Tiers M/L and composed H2: every probed point's hit count.
+
+    table (Q, np, S, E) int8 -> (Q, np, P) int32; invalid slots get -2^30.
+    """
+    if _on_cuda(table, codes, valid, cids):
+        return hit_count(table.contiguous(), codes.contiguous(),
+                         valid.contiguous(), cids.contiguous())
+    return hit_count_plain(table, codes[cids], valid[cids])
+
+
 def fused_two_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
                          codes: torch.Tensor, valid: torch.Tensor,
                          cids: torch.Tensor, *, cap_c: int,
                          metric: str = "l2"):
     """Stage C: hit-count prefilter → survivor threshold → top-C → ADC.
 
-    mlut/table (Q, np, S, E); codes (n_clusters, P, S) and valid
-    (n_clusters, P) are the whole index, and the probed rows are read
-    through ``cids`` (Q, np) int64 (the kernel never materialises the
-    gathered copy the reference scans).
+    mlut/table (Q, np, S, E); codes, valid and cids as for the other scans.
 
     Returns
     -------

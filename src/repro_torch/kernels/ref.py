@@ -1,7 +1,10 @@
 """Dense oracles for the ported kernels (the semantics of record).
 
-Port of ``repro/kernels/ref.py:selective_lut_ref`` (l.12) and
-``fused_two_stage_ref`` (l.50). Every top-k is a stable descending sort,
+Port of ``repro/kernels/ref.py:selective_lut_ref`` (l.12), ``pq_scan_ref``
+(l.33), ``hit_count_ref`` (l.42) and ``fused_two_stage_ref`` (l.50). The
+two scans are batched over leading (Q, np) axes; they are also the
+semantics of ``repro/core/scan.py:adc_scan`` and ``hit_count_scan``, which
+the port therefore does not copy. Every top-k is a stable descending sort,
 which reproduces ``lax.top_k``'s (value desc, index asc) order.
 """
 from __future__ import annotations
@@ -46,6 +49,36 @@ def gather_tables(tab: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch.gather(flat, 3, idx)
 
 
+def bad_score(metric: str) -> float:
+    """The invalid-slot score of a masked-ADC scan: +inf (l2), -inf (ip)."""
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    return float("inf") if metric == "l2" else float("-inf")
+
+
+def pq_scan_ref(lut, codes, valid, *, metric="l2"):
+    """Masked ADC: ``sum_s lut[q, probe, s, codes[q, probe, p, s]]``.
+
+    lut (Q, np, S, E) f32, codes (Q, np, P, S) uint8, valid (Q, np, P)
+    bool -> (Q, np, P) f32; invalid slots get +inf (l2) or -inf (ip).
+    """
+    totals = gather_tables(lut, codes).float().sum(-1)
+    return torch.where(valid, totals,
+                       torch.tensor(bad_score(metric), device=codes.device))
+
+
+def hit_count_ref(table, codes, valid):
+    """Hit count: ``sum_s table[q, probe, s, codes[q, probe, p, s]]``.
+
+    table (Q, np, S, E) int8, codes (Q, np, P, S) uint8, valid (Q, np, P)
+    bool -> (Q, np, P) int32; invalid slots get -2^30.
+    """
+    totals = gather_tables(table, codes).to(torch.int32).sum(
+        -1, dtype=torch.int32)
+    return torch.where(valid, totals,
+                       torch.tensor(NEG, dtype=torch.int32, device=codes.device))
+
+
 def fused_two_stage_ref(lut, table, codes, valid, *, cap_c, metric="l2"):
     """Dense oracle for the fused two-stage scan.
 
@@ -58,11 +91,8 @@ def fused_two_stage_ref(lut, table, codes, valid, *, cap_c, metric="l2"):
     q, n_probe, p, _ = codes.shape
     w = n_probe * p
     cap_c = max(1, min(cap_c, w))
-    bad = float("inf") if metric == "l2" else float("-inf")
-    counts = torch.where(
-        valid, gather_tables(table, codes).to(torch.int32).sum(-1,
-                                                              dtype=torch.int32),
-        torch.tensor(NEG, dtype=torch.int32, device=codes.device))
+    bad = bad_score(metric)
+    counts = hit_count_ref(table, codes, valid)
     flat = counts.reshape(q, w)
     topv, order = torch.sort(flat, dim=1, descending=True, stable=True)
     cand = order[:, :cap_c]

@@ -1,4 +1,4 @@
-"""Online ANN query serving over the fused-H2 path.
+"""Online ANN query serving over tiers H, M, L and H2.
 
 Port of ``repro/serve/ann.py`` (``AnnRequest``, ``AnnServeEngine``:
 ``submit``, ``route``, ``step``, ``run``, ``latency_stats``). Requests
@@ -13,13 +13,15 @@ the same signature ``(k, mode, nprobe)`` into one search call:
   work whose results are sliced off); a group larger than the top bucket
   runs in top-bucket chunks.
 * **Recall-target routing** — ``mode="auto"`` requests route by
-  ``recall_target`` through ``ROUTES``.
-* **Fused serving** — the H and H2 tiers fold onto one fused-H2 signature
-  with rerank budget ``FUSED_RERANK_MULT · k``.
+  ``recall_target`` through ``ROUTES``: H (≥ 0.9), H2 (≥ 0.8), M (≥ 0.5),
+  L below.
+* **Fused serving** (``fused=True``) — the H and H2 tiers fold onto one
+  fused-H2 signature with rerank budget ``FUSED_RERANK_MULT · k``. With
+  ``fused=False`` (the default, as in the reference) H runs the masked
+  ADC scan and H2 the composed hit count → rerank of C = 4k.
 
-Only ``fused=True`` is ported: a request that routes to M or L raises at
-``submit``. Mutation, the RT prefilter, the freshness tiers,
-observability and index swaps are later slices (ROADMAP.md).
+Mutation, the RT prefilter, the freshness tiers, observability and index
+swaps are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.juno import JunoIndexData, _not_ported, _search_batch_two_stage
+from ..core.juno import JunoIndexData, _search_batch, _search_batch_two_stage
 
 
 @dataclasses.dataclass
@@ -46,7 +48,7 @@ class AnnRequest:
     rid: int
     queries: np.ndarray                 # (q, D) f32
     k: int = 10
-    mode: str = "auto"                  # "H" | "H2" | "auto"
+    mode: str = "auto"                  # "H" | "M" | "L" | "H2" | "auto"
     nprobe: int = 0                     # 0 → engine default for the mode
     recall_target: float = 0.9          # router input when mode == "auto"
     scores: Optional[np.ndarray] = None
@@ -64,7 +66,7 @@ class AnnRequest:
 
 
 class AnnServeEngine:
-    """Dynamic-batching ANN serving engine over a JUNO index (fused H2)."""
+    """Dynamic-batching ANN serving engine over a JUNO index."""
 
     K_BUCKETS = (10, 100)
     NPROBE_BUCKETS = (4, 8, 16, 32)
@@ -78,7 +80,7 @@ class AnnServeEngine:
     def __init__(self, index: JunoIndexData, *, metric: str = "l2",
                  thres_scale: float = 1.0,
                  batch_buckets: tuple[int, ...] | None = None,
-                 fused: bool = True):
+                 fused: bool = False):
         """Wrap a built or loaded index in a serving engine.
 
         Parameters
@@ -92,12 +94,12 @@ class AnnServeEngine:
         batch_buckets : tuple of int, optional
             Batch sizes the groups pad up to (default ``BATCH_BUCKETS``).
         fused : bool
-            Only ``True`` is ported (the reference's default is False).
+            Serve tier H2 through the fused kernel and fold tier H into it
+            (rerank ``FUSED_RERANK_MULT · k``); ``False`` serves H by the
+            masked ADC scan and H2 composed (C = 4k).
         """
-        if not fused:
-            raise _not_ported("the unfused engine (fused=False)",
-                              "item 3, tiers H/M/L and composed H2")
         self.index = index
+        self.fused = fused
         self.metric = metric
         self.thres_scale = thres_scale
         self.batch_buckets = tuple(batch_buckets or self.BATCH_BUCKETS)
@@ -118,7 +120,7 @@ class AnnServeEngine:
         k : int
             Results per query (rounded up to a ``K_BUCKETS`` entry).
         mode : str
-            "H" | "H2", or "auto" to route by ``recall_target``.
+            "H" | "M" | "L" | "H2", or "auto" to route by ``recall_target``.
         nprobe : int
             Explicit probe budget; 0 uses the mode default.
         recall_target : float
@@ -128,38 +130,30 @@ class AnnServeEngine:
         -------
         AnnRequest
             The queued request.
-
-        Raises
-        ------
-        NotImplementedError
-            When the request routes to tier M or L (not ported yet).
         """
         req = AnnRequest(rid=self._rid, queries=np.atleast_2d(
             np.asarray(queries, np.float32)), k=k, mode=mode, nprobe=nprobe,
             recall_target=recall_target, t_submit=time.perf_counter())
-        self.route(req)
         self._rid += 1
         self.queue.append(req)
         return req
 
+    @property
+    def queued_rows(self) -> int:
+        """Total query rows waiting in the queue (a router's load signal)."""
+        return sum(r.queries.shape[0] for r in self.queue)
+
     def route(self, req: AnnRequest) -> tuple[int, str, int]:
         """Resolve a request's knobs to one signature ``(k, mode, nprobe)``.
 
-        The H tier folds into H2 (fused serving).
-
-        Raises
-        ------
-        NotImplementedError
-            For a request that resolves to tier M or L.
+        With ``fused=True`` the H tier folds into H2, so H and H2 requests
+        batch together.
         """
         mode = req.mode
         if mode == "auto":
             mode = next(m for lo, m in self.ROUTES if req.recall_target >= lo)
-        if mode == "H":
+        if self.fused and mode == "H":
             mode = "H2"
-        if mode != "H2":
-            raise _not_ported(f"tier {mode!r}",
-                              "item 3, tiers H/M/L and composed H2")
         k = next((b for b in self.K_BUCKETS if b >= req.k), None) or req.k
         nprobe = req.nprobe or self.MODE_NPROBE[mode]
         nprobe = next((b for b in self.NPROBE_BUCKETS if b >= nprobe),
@@ -198,10 +192,8 @@ class AnnServeEngine:
             bucket = next(b for b in self.batch_buckets if b >= n)
             if n < bucket:
                 chunk = np.pad(chunk, ((0, bucket - n), (0, 0)), mode="edge")
-            s, ids = _search_batch_two_stage(
-                self.index, torch.from_numpy(chunk).to(dev), nprobe=nprobe,
-                k=k, metric=self.metric, thres_scale=self.thres_scale,
-                rerank=self.FUSED_RERANK_MULT * k)
+            s, ids = self._dispatch(torch.from_numpy(chunk).to(dev), k, mode,
+                                    nprobe)
             out_s.append(s[:n].cpu().numpy())
             out_i.append(ids[:n].cpu().numpy())
             self.stats["padded_rows"] += bucket - n
@@ -222,6 +214,16 @@ class AnnServeEngine:
         self.stats["requests"] += len(picked)
         self.stats["ticks"] += 1
         return rows
+
+    def _dispatch(self, qb: torch.Tensor, k: int, mode: str, nprobe: int):
+        """Run one padded batch through the search of its tier."""
+        kw = dict(nprobe=nprobe, k=k, metric=self.metric,
+                  thres_scale=self.thres_scale)
+        if mode == "H2":
+            return _search_batch_two_stage(
+                self.index, qb, fused=self.fused,
+                rerank=self.FUSED_RERANK_MULT * k if self.fused else 0, **kw)
+        return _search_batch(self.index, qb, mode=mode, **kw)
 
     def run(self, max_ticks: int = 100_000) -> int:
         """Drain the queue; returns total query rows served."""

@@ -79,7 +79,7 @@ def test_build_recall_matches(builds):
     _, gt = jax_exact_topk(q, pts, k=10, metric=cfg.metric)
     gt = torch.tensor(np.asarray(gt)).long()
     _, ids_r = jax_search(ref, q, mode="H2", fused=True, **kw)
-    _, ids_p = search(port, q, **kw)
+    _, ids_p = search(port, q, mode="H2", fused=True, **kw)
     r_ref = recall_n_at_k(torch.tensor(np.asarray(ids_r)).long(), gt)
     r_port = recall_n_at_k(ids_p.long(), gt)
     assert abs(r_ref - r_port) <= 0.02, (r_ref, r_port)

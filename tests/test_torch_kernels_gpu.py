@@ -8,7 +8,9 @@ has only the port's dependencies:
 The LUT, the hit table, counts and candidates must be equal; ``cand_dist``
 and ``dist`` agree within rtol 1e-5 (f32 sums over S in another order),
 plus atol 1e-6: these LUTs hold N(0, 1) entries, so a sum of S <= 8 of them
-can cancel to near 0, where a few ulps of the terms exceed rtol.
+can cancel to near 0, where a few ulps of the terms exceed rtol. The
+``pq_scan`` sums run to S = 100, so they are held within 1e-5 of the sum of
+their terms' magnitudes instead, with the ±inf placement equal.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ import torch
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fused_two_stage as pfused
+from repro_torch.kernels import hit_count as phit
+from repro_torch.kernels import pq_scan as ppq
 from repro_torch.kernels import selective_lut as pslut
 
 RTOL = 1e-5
@@ -100,10 +104,73 @@ def test_fused_kernel_reads_codes_through_cids(cuda):
     torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
 
 
+def _index_form(seed, valid_frac, *, s, e=256, p=300, n_clusters=12, q=3,
+                n_probe=4, signed=False):
+    """A whole index (codes, valid), probed cluster ids and per-probe
+    tables, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    lut = (torch.randn((q, n_probe, s, e), generator=g, device=dev) if signed
+           else torch.rand((q, n_probe, s, e), generator=g, device=dev) * 4)
+    table = torch.randint(-1, 2, (q, n_probe, s, e), generator=g, device=dev,
+                          dtype=torch.int8)
+    codes = torch.randint(0, e, (n_clusters, p, s), generator=g, device=dev,
+                          dtype=torch.uint8)
+    valid = torch.rand((n_clusters, p), generator=g, device=dev) < valid_frac
+    cids = torch.randint(0, n_clusters, (q, n_probe), generator=g, device=dev)
+    return lut, table, codes, valid, cids
+
+
+SCAN_CASES = [(s, frac) for s in (8, 48, 100) for frac in (0.25, 1.0)]
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("s,valid_frac", SCAN_CASES)
+def test_pq_scan_kernel_matches_plain(cuda, metric, s, valid_frac):
+    lut, _, codes, valid, cids = _index_form(20 + s, valid_frac, s=s,
+                                             signed=metric == "ip")
+    got = ppq.pq_scan(lut, codes, valid, cids, metric=metric)
+    want = ppq.pq_scan_plain(lut, codes[cids], valid[cids], metric=metric)
+    scale = ppq.pq_scan_plain(lut.abs(), codes[cids], valid[cids])
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin], want[~fin])
+    assert ((got - want)[fin].abs() <= RTOL * scale[fin]).all()
+
+
+@pytest.mark.parametrize("s,valid_frac", SCAN_CASES)
+def test_hit_count_kernel_matches_plain(cuda, s, valid_frac):
+    _, table, codes, valid, cids = _index_form(30 + s, valid_frac, s=s)
+    got = phit.hit_count(table, codes, valid, cids)
+    want = phit.hit_count_plain(table, codes[cids], valid[cids])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_scans_read_codes_through_cids(cuda):
+    """The ops wrappers on the card equal the plain versions over the
+    gathered codes, for cids with repeats and an odd S (byte loads)."""
+    lut, table, codes, valid, cids = _index_form(40, 0.5, s=6, e=20)
+    got = ops.hit_count_scan(table, codes, valid, cids)
+    assert torch.equal(got, phit.hit_count_plain(table, codes[cids],
+                                                 valid[cids]))
+    got = ops.masked_adc_scan(lut, codes, valid, cids, metric="l2")
+    want = ppq.pq_scan_plain(lut, codes[cids], valid[cids])
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=0.0)
+
+
 def test_launch_counts(cuda):
     _build.reset_launches()
     args = [torch.from_numpy(a).to(cuda) for a in _lut_inputs(1, 8, 4, 32)]
     pslut.selective_lut_plain(*args)           # the plain version: no count
     ops.build_selective_lut(torch.stack(args[:2], -1),
                             torch.stack(args[2:4], -1), args[4], args[5])
-    assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0}
+    lut, table, codes, valid, cids = _index_form(2, 0.5, s=8)
+    ppq.pq_scan_plain(lut, codes[cids], valid[cids])
+    phit.hit_count_plain(table, codes[cids], valid[cids])
+    ops.masked_adc_scan(lut, codes, valid, cids)
+    ops.hit_count_scan(table, codes, valid, cids)
+    ops.hit_count_scan(table, codes, valid, cids)
+    assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0,
+                               "pq_scan": 1, "hit_count": 2}
