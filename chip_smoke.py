@@ -6,25 +6,29 @@
 Phases, each raising on failure:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — all four CUDA kernels compiled from
+2. build — all six CUDA kernels compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, in
    parallel;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main paths' shapes (LUT, hit table, counts and candidates equal;
-   ADC sums within 1e-5 of the sum of their terms' magnitudes), timed
-   with CUDA events (median of 20) beside the plain version, one PyTorch
-   call that computes the same sums where there is one, and the least
-   time the card could take; plus the stage-A GEMM (``ivf_filter``, not
-   ported) against ``torch.addmm``;
+   the main paths' shapes (LUT, hit table, sphere hits, ``probe_ok``,
+   counts and candidates equal; ADC sums within 1e-5 of the sum of their
+   terms' magnitudes), timed with CUDA events (median of 20) beside the
+   plain version, one PyTorch call that computes the same sums where
+   there is one, and the least time the card could take; plus the stage-A
+   GEMM (``ivf_filter``, not ported) against ``torch.addmm``;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
-   built on the card and served by two engines, ``fused=True`` and the
-   default ``fused=False``, on a stream of ≥ 64 requests that routes to
-   tiers H, H2, M and L: each engine's kernel launches over one pass,
-   QPS, latency and signatures; then per tier (H, fused H2, composed H2,
-   M, L) recall@10-in-100 against ``exact_topk`` and QPS, composed H2
-   against fused H2 at the same rerank (ids equal up to score ties), and
-   the ids of 32 queries against the same search on the CPU (plain
-   versions);
+   and its RT centroid grid built on the card (then ``sphere_hits``
+   against its plain version on that grid, the main path's ``cap``, and the
+   rt router's host time over the request stream), served by four engines —
+   ``fused`` True and False, each with ``prefilter`` "scan" and "rt" — on
+   a stream of 64 requests that routes to tiers H, H2, M and L: each
+   engine's kernel launches over one pass, QPS, latency and signatures;
+   then per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
+   three-stage kernel) recall@10-in-100 against ``exact_topk`` and QPS,
+   composed H2 against fused H2 at the same rerank (ids equal up to score
+   ties), and the ids of 32 queries against the same search on the CPU
+   (plain versions); under rt also the scan path's ids at full coverage
+   and the three-stage kernel against ``fused3=False``;
 5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100);
 6. the kernel line, then the card line, then the result line.
 
@@ -50,14 +54,20 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
+from repro_torch import rt  # noqa: E402
 from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
                               index_to, recall_n_at_k, search)
+from repro_torch.core import density as density_lib  # noqa: E402
+from repro_torch.core.ivf import filter_clusters  # noqa: E402
+from repro_torch.core.juno import _rt_probe_mask  # noqa: E402
 from repro_torch.data import DEEP_LIKE, TTI_LIKE, make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
 from repro_torch.kernels import fused_two_stage as fts  # noqa: E402
 from repro_torch.kernels import hit_count as hc  # noqa: E402
 from repro_torch.kernels import pq_scan as pqs  # noqa: E402
 from repro_torch.kernels import selective_lut as slut  # noqa: E402
+from repro_torch.kernels import sphere_hits as sph  # noqa: E402
 from repro_torch.kernels.ref import NEG  # noqa: E402
 from repro_torch.serve.ann import AnnServeEngine  # noqa: E402
 
@@ -65,6 +75,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
 RTOL = 1e-5                    # f32 sums over S in another order
 N_POINTS = 1_000_000
+FULL = 1e6                     # rt_scale at which every disc covers every cluster
 SOURCES = {
     "selective_lut": ("src/repro_torch/kernels/csrc/selective_lut.cu",
                       "src/repro/kernels/selective_lut.py:80"),
@@ -74,13 +85,22 @@ SOURCES = {
                 "src/repro/kernels/pq_scan.py:41"),
     "hit_count": ("src/repro_torch/kernels/csrc/hit_count.cu",
                   "src/repro/kernels/hit_count.py:36"),
+    "sphere_hits": ("src/repro_torch/kernels/csrc/sphere_hits.cu",
+                    "src/repro/rt/intersect.py:68"),
+    "fused_three_stage": ("src/repro_torch/kernels/csrc/fused_three_stage.cu",
+                          "src/repro/kernels/fused_three_stage.py:203"),
 }
-# the kernels each engine configuration must launch (and must not)
+# the kernels each engine configuration (prefilter, fused) must launch; it
+# must launch no other
 ENGINE_KERNELS = {
-    True: ({"selective_lut", "fused_two_stage", "hit_count"}, {"pq_scan"}),
-    False: ({"selective_lut", "pq_scan", "hit_count"}, {"fused_two_stage"}),
+    ("scan", True): {"selective_lut", "fused_two_stage", "hit_count"},
+    ("scan", False): {"selective_lut", "pq_scan", "hit_count"},
+    ("rt", True): {"selective_lut", "fused_three_stage", "hit_count",
+                   "sphere_hits"},
+    ("rt", False): {"selective_lut", "sphere_hits", "pq_scan", "hit_count"},
 }
-# the tiers whose recall and QPS are read, as search() arguments (k=100)
+# the tiers whose recall and QPS are read, as search() arguments (k=100);
+# under prefilter="rt" fused H2 runs the three-stage kernel
 TIERS = {
     "H": dict(mode="H", nprobe=16),
     "H2_fused": dict(mode="H2", fused=True, nprobe=16,
@@ -371,6 +391,153 @@ def check_pq_scan(q: int, n_probe: int, p: int, s: int, e: int,
     return out
 
 
+def _grid(g: int, cap: int, gen) -> tuple:
+    """A synthetic centroid grid on the card with the build's invariants:
+    g×g cells of ``cap`` slots over the unit square, each cell filled to a
+    random count (the first empty, the last full), slot centroids inside
+    their cell, ``-inf`` reach at pad slots. Returns (c0, c1, reach) as
+    (g·g, cap) f32 and the flat indices of the real slots."""
+    dev = torch.device("cuda")
+    n_cells = g * g
+    fill = torch.randint(0, cap + 1, (n_cells,), generator=gen, device=dev)
+    fill[0], fill[-1] = 0, cap
+    real = torch.arange(cap, device=dev)[None, :] < fill[:, None]
+    cell = torch.arange(n_cells, device=dev)
+    u = torch.rand((2, n_cells, cap), generator=gen, device=dev)
+    c0 = ((cell // g)[:, None] + u[0]) / g
+    c1 = ((cell % g)[:, None] + u[1]) / g
+    reach = (torch.randn((n_cells, cap), generator=gen, device=dev) * 0.05).abs()
+    reach = torch.where(real, reach, torch.tensor(float("-inf"), device=dev))
+    return c0, c1, reach, torch.nonzero(real.reshape(-1))[:, 0]
+
+
+def _slot_gap(q0, q1, c0, c1, reach, slots) -> torch.Tensor:
+    """|q − c| − reach at the given slots (Q, n), in float64."""
+    dx = q0.double()[:, None] - c0.reshape(-1)[slots].double()
+    dy = q1.double()[:, None] - c1.reshape(-1)[slots].double()
+    return torch.sqrt(dx * dx + dy * dy) - reach.reshape(-1)[slots].double()
+
+
+def _sphere_row(args: tuple, **info) -> dict:
+    """``sphere_hits`` against its plain version on ``args`` (q0, q1,
+    radius, c0, c1, reach): hits equal, then timed beside its bound."""
+    got = sph.sphere_hits(*args)
+    want = sph.sphere_hits_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"sphere_hits {info}: {int((got != want).sum())} "
+                             f"hits differ from plain")
+    q = args[0].shape[0]
+    n_cells, cap = args[3].shape
+    n_slots = n_cells * cap
+    # bytes: queries and radii, the three slot planes, the int8 table;
+    # operations: two subtractions, three multiplies (one fused add), one
+    # add per (query, slot)
+    n_bytes = 4 * 3 * q + 4 * 3 * n_slots + q * n_slots
+    bnd, by = bound_ms(n_bytes, 7 * q * n_slots)
+    return {**info, "Q": q, "cells": n_cells, "cap": cap, "max_abs_err": 0.0,
+            "hit_share": float(got.float().mean()),
+            "ms": time_ms(lambda: sph.sphere_hits(*args)),
+            "plain_ms": time_ms(lambda: sph.sphere_hits_plain(*args)),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "bytes": n_bytes}
+
+
+def check_sphere_hits(q: int, g: int, cap: int, gen) -> dict:
+    """The sphere test over a synthetic grid with pads and an empty cell;
+    radii 0, 1e6, on a slot's disc boundary, and in a calibrated-like
+    range (a few cells' width)."""
+    dev = torch.device("cuda")
+    c0, c1, reach, real = _grid(g, cap, gen)
+    q0 = torch.rand((q,), generator=gen, device=dev) * 1.4 - 0.2
+    q1 = torch.rand((q,), generator=gen, device=dev) * 1.4 - 0.2
+    radius = torch.rand((q,), generator=gen, device=dev) * (4.0 / g)
+    a = q // 4
+    radius[:a] = 0.0
+    radius[a:2 * a] = FULL
+    pick = real[torch.randint(0, real.numel(), (a,), generator=gen,
+                              device=dev)]
+    gap = _slot_gap(q0[2 * a:3 * a], q1[2 * a:3 * a], c0, c1, reach,
+                    pick[:, None])[:, 0]
+    radius[2 * a:3 * a] = gap.float()                   # on the boundary
+    return _sphere_row((q0, q1, radius, c0, c1, reach), grid="synthetic")
+
+
+def check_sphere_hits_on_grid(name: str, index, grid, queries, metric: str,
+                              q: int = 128) -> dict:
+    """The sphere test as the search calls it on the index's own grid (the
+    main path's ``cap``): one batch of real queries at ``rt_scale`` 1."""
+    qb = torch.from_numpy(queries[:q]).to(index.ivf.centroids.device)
+    _, tau = _probe_tau(index, qb, metric, 16)
+    qp = qb @ grid.proj
+    return _sphere_row((qp[:, 0].contiguous(), qp[:, 1].contiguous(),
+                        rt.query_radius(grid, tau[:, 0]), grid.cell_c0,
+                        grid.cell_c1, grid.slot_reach), grid=f"{name} index")
+
+
+def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
+                            n_clusters: int, cap_c: int, metric: str,
+                            coverage: str, gen) -> dict:
+    """The three-stage kernel at the fused shapes with a 256-cell grid:
+    ``coverage`` "half" sets each query's radius to the median of its
+    probes' disc gaps (about half survive), "probe0" to -1e6 (only the
+    forced probe 0), "full" to 1e6 (every probe; then the outputs must be
+    the two-stage kernel's)."""
+    dev = torch.device("cuda")
+    lut = _lut(q, n_probe, s, e, metric, gen)
+    table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
+                          device=dev, dtype=torch.int8)
+    codes, valid, cids, _ = _scan_index(q, n_probe, p, s, e, n_clusters, gen)
+    c0, c1, reach, real = _grid(16, 64, gen)
+    slot_idx = real[torch.randint(0, real.numel(), (q, n_probe),
+                                  generator=gen, device=dev)].to(torch.int32)
+    q0 = torch.rand((q,), generator=gen, device=dev)
+    q1 = torch.rand((q,), generator=gen, device=dev)
+    gap = _slot_gap(q0, q1, c0, c1, reach, slot_idx.long())
+    radius = {"half": torch.median(gap, dim=1).values.float(),
+              "probe0": torch.full((q,), -FULL, device=dev),
+              "full": torch.full((q,), FULL, device=dev)}[coverage]
+    sphere = (q0, q1, radius, c0, c1, reach, slot_idx)
+    kw = dict(cap_c=cap_c, metric=metric)
+    got = f3s.fused_three_stage(lut, table, codes, valid, cids, *sphere, **kw)
+    want = f3s.fused_three_stage_plain(lut, table, codes[cids], valid[cids],
+                                       *sphere, **kw)
+    scale = f3s.fused_three_stage_plain(lut.abs(), table, codes[cids],
+                                        valid[cids], *sphere, **kw)
+    torch.cuda.synchronize()
+    what = f"fused_three_stage {metric} S={s} C={cap_c} {coverage}"
+    if not all(torch.equal(got[i], want[i]) for i in (0, 2, 4)):
+        raise AssertionError(f"{what}: counts, cand or probe_ok differ")
+    err = _assert_sums_close(got[3], want[3], scale[3], what + " cand_dist")
+    _assert_sums_close(got[1], want[1], scale[1], what + " dist")
+    if coverage == "full":
+        two = fts.fused_two_stage(lut, table, codes, valid, cids, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got[:4], two)):
+            raise AssertionError(f"{what}: != fused_two_stage at full coverage")
+    probe_ok = got[4]
+    # bytes the work needs: the kept probes' distinct clusters' valid rows
+    # and valid points' codes, their int8 tables, each probe's slot planes,
+    # the LUT at the C candidates, the outputs once
+    kept_rows = torch.unique(cids[probe_ok])
+    kept_valid = valid[cids] & probe_ok[..., None]
+    n_kept = int(kept_valid.sum())
+    w = n_probe * p
+    n_bytes = (kept_rows.numel() * p + int(valid[kept_rows].sum()) * s
+               + int(probe_ok.sum()) * s * e + q * n_probe * (8 + 4 + 12)
+               + 12 * q + q * cap_c * s * 4 + q * w * 8 + q * cap_c * 8
+               + q * n_probe)
+    bnd, by = bound_ms(n_bytes, n_kept * s + q * cap_c * s)
+    return {"metric": metric, "coverage": coverage, "Q": q, "np": n_probe,
+            "P": p, "S": s, "E": e, "C": cap_c, "max_abs_err": err,
+            "probes_kept": float(probe_ok.float().mean()),
+            "ms": time_ms(lambda: f3s.fused_three_stage(
+                lut, table, codes, valid, cids, *sphere, **kw)),
+            "plain_ms": time_ms(lambda: f3s.fused_three_stage_plain(
+                lut, table, codes[cids], valid[cids], *sphere, **kw)),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "bytes": n_bytes, "kept_valid_points": n_kept}
+
+
 def check_ivf_filter(q: int, c: int, d: int, gen) -> dict:
     """Stage A's GEMM (the ``ivf_filter`` TPU kernel, not ported): the
     port's plain arithmetic against one ``torch.addmm`` call."""
@@ -409,6 +576,14 @@ def phase_kernels(seed: int) -> dict:
         for label, n_probe, s in (("M/L l2", 8, 48), ("M/L ip", 8, 100),
                                   ("composed H2 l2", 16, 48))]
     torch.cuda.empty_cache()
+    rows["sphere_hits"] = [check_sphere_hits(128, 16, 64, gen),
+                           check_sphere_hits(128, 16, 32, gen)]
+    rows["fused_three_stage"] = [
+        check_fused_three_stage(128, 16, 3912, s, 256, 1024, c, metric, cov,
+                                gen)
+        for metric, s in (("l2", 48), ("ip", 100)) for c in (320, 3200)
+        for cov in ("half", "probe0", "full")]
+    torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
             log(f"kernel.{name}", **r)
@@ -430,30 +605,38 @@ def _requests(rng, n_queries: int, n_req: int = 64) -> list[dict]:
     return out
 
 
-def check_results(ids, scores, n_points: int, what: str) -> int:
+def check_results(ids, scores, n_points: int, what: str, *,
+                  rt: bool = False) -> int:
     """Hold one result block to the search's contract: ids lie in
     [0, N) with a finite score, except where the probed clusters held
     fewer than k valid points; such a pad result has id -1 and the
     invalid-slot score (-2^30 as a count, ±inf as a distance or
-    similarity), as in the reference. Returns the number of pad results."""
+    similarity), as in the reference. Under the RT prefilter (``rt``) a
+    result from a pruned probe carries that sentinel score beside the
+    point's real id, as in the reference: there a sentinel score may carry
+    -1 or a real id. Returns the number of sentinel results."""
     ids, scores = np.asarray(ids), np.asarray(scores)
     pad = ids < 0
     sentinel = ~np.isfinite(scores) | (scores == NEG)
-    if (ids[pad] != -1).any() or (ids >= n_points).any() or \
-            (pad != sentinel).any():
+    wrong = (pad & ~sentinel) if rt else (pad != sentinel)
+    if (ids[pad] != -1).any() or (ids >= n_points).any() or wrong.any():
         raise AssertionError(
             f"{what}: {int((pad & ~sentinel).sum())} pad ids with a real "
             f"score, {int((sentinel & ~pad).sum())} real ids with a pad "
             f"score, {int((ids >= n_points).sum())} ids >= N")
-    return int(pad.sum())
+    return int(sentinel.sum())
 
 
 def serve_engine(index, queries, stream, *, metric: str, fused: bool,
-                 n_points: int, trace_path: str) -> dict:
+                 n_points: int, trace_path: str, rt_grid=None) -> dict:
     """Warm-up, one pass with the launch counts read, four more timed
-    passes and one profiled pass of one engine configuration."""
+    passes and one profiled pass of one engine configuration (with
+    ``rt_grid``: ``prefilter="rt"``)."""
+    prefilter = "scan" if rt_grid is None else "rt"
+
     def serve() -> tuple[AnnServeEngine, list, float]:
-        eng = AnnServeEngine(index, metric=metric, fused=fused)
+        eng = AnnServeEngine(index, metric=metric, fused=fused,
+                             prefilter=prefilter, rt_grid=rt_grid)
         reqs = [eng.submit(queries[r["rows"][0]:r["rows"][1]], k=r["k"],
                            recall_target=r["recall_target"]) for r in stream]
         t = time.perf_counter()
@@ -464,28 +647,29 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
     _build.reset_launches()
     eng, reqs, t_serve = serve()
     launches = dict(_build.LAUNCHES)
-    padded = 0
+    sentinels = 0
     for r in reqs:
         if not r.done or r.ids.shape != (r.queries.shape[0], r.k):
             raise AssertionError(f"request {r.rid} not served")
-        padded += check_results(r.ids, r.scores, n_points, f"request {r.rid}")
-    must, must_not = ENGINE_KERNELS[fused]
+        sentinels += check_results(r.ids, r.scores, n_points,
+                                   f"request {r.rid}", rt=rt_grid is not None)
+    must = ENGINE_KERNELS[(prefilter, fused)]
     if any(launches[n] <= 0 for n in must) or \
-            any(launches[n] != 0 for n in must_not):
-        raise AssertionError(f"fused={fused}: launches {launches}, expected "
-                             f"{sorted(must)} and not {sorted(must_not)}")
+            any(launches[n] != 0 for n in set(launches) - must):
+        raise AssertionError(f"{prefilter} fused={fused}: launches "
+                             f"{launches}, expected exactly {sorted(must)}")
     t_repeats = [t_serve] + [serve()[2] for _ in range(4)]
     prof = profile_window(serve, trace_path)
     rows = eng.stats["queries"]
-    return {"fused": fused, "requests": len(reqs), "rows": rows,
-            "ticks": eng.stats["ticks"],
+    return {"prefilter": prefilter, "fused": fused, "requests": len(reqs),
+            "rows": rows, "ticks": eng.stats["ticks"],
             "qps": rows / statistics.median(t_repeats),
             "qps_repeats": [rows / t for t in t_repeats],
             "latency": eng.latency_stats(), "profile": prof,
             "signatures": {str(k): v
                            for k, v in eng.stats["signatures"].items()},
             "tiers": sorted({eng.route(r)[1] for r in reqs}),
-            "padded_results": padded, "launches": launches}
+            "sentinel_results": sentinels, "launches": launches}
 
 
 def _ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, what: str,
@@ -521,32 +705,42 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def tier_table(index, cpu_index, queries, pts, metric: str) -> dict:
+def tier_table(index, cpu_index, queries, pts, metric: str,
+               grid=None) -> dict:
     """Per tier: recall@10-in-100 on 256 queries, QPS of ``search`` over
     1024 (median of three, after a warm-up), and the same 32 queries on
-    the CPU (plain versions); composed H2 against fused H2 at one rerank."""
+    the CPU (plain versions); composed H2 against fused H2 at one rerank.
+    With ``grid`` every search runs ``prefilter="rt"``, and each tier
+    must also return the scan path's ids and scores at full coverage;
+    fused H2 (the three-stage kernel) must equal ``fused3=False``."""
     dev = index.ivf.centroids.device
     q_eval = torch.from_numpy(queries[:1024]).to(dev)
     pts_dev = torch.from_numpy(pts).to(dev)
     _, gt = exact_topk(q_eval[:256], pts_dev, k=10, metric=metric)
     del pts_dev
+    rt_kw, cpu_kw = {}, {}
+    if grid is not None:
+        rt_kw = dict(prefilter="rt", rt_grid=grid)
+        cpu_kw = dict(prefilter="rt", rt_grid=rt.grid_to(grid, "cpu"))
     out = {}
     for tier, kw in TIERS.items():
         kw = dict(kw, k=100, metric=metric)
-        search(index, q_eval, batch=128, **kw)
+        search(index, q_eval, batch=128, **kw, **rt_kw)
         times = []
         for _ in range(3):
             _sync(dev)
             t0 = time.perf_counter()
-            scores, ids = search(index, q_eval, batch=128, **kw)
+            scores, ids = search(index, q_eval, batch=128, **kw, **rt_kw)
             _sync(dev)
             times.append(time.perf_counter() - t0)
-        padded = check_results(ids.cpu(), scores.cpu(), pts.shape[0], tier)
+        sentinels = check_results(ids.cpu(), scores.cpu(), pts.shape[0], tier,
+                                  rt=grid is not None)
         ids = ids[:256]
         recall = recall_n_at_k(ids.long(), gt)
         if tier in ("H", "H2_fused", "H2_composed") and recall < 0.2:
             raise AssertionError(f"{tier}: recall@10-in-100 {recall:.4f}")
-        _, ids_cpu = search(cpu_index, q_eval[:32].cpu(), batch=8, **kw)
+        _, ids_cpu = search(cpu_index, q_eval[:32].cpu(), batch=8, **kw,
+                            **cpu_kw)
         ids_gpu = ids[:32].cpu()
         same = shared_ids(ids_gpu, ids_cpu)
         r_gpu = recall_n_at_k(ids_gpu.long(), gt[:32].cpu())
@@ -556,18 +750,63 @@ def tier_table(index, cpu_index, queries, pts, metric: str) -> dict:
                                  f"recall {r_gpu:.4f} vs {r_cpu:.4f}")
         out[tier] = {"recall10_at_100": recall,
                      "qps": q_eval.shape[0] / statistics.median(times),
-                     "padded_results": padded,
+                     "sentinel_results": sentinels,
                      "cpu_ids_shared": same, "recall_gpu32": r_gpu,
                      "recall_cpu32": r_cpu, **{k: v for k, v in kw.items()
                                                if k != "metric"}}
+        if grid is not None:
+            s_scan, i_scan = search(index, q_eval[:256], batch=128, **kw)
+            s_full, i_full = search(index, q_eval[:256], batch=128,
+                                    rt_scale=FULL, **kw, **rt_kw)
+            if not (torch.equal(i_full, i_scan) and torch.equal(s_full, s_scan)):
+                raise AssertionError(f"rt {tier} at full coverage != scan")
+            out[tier]["full_coverage_equals_scan"] = True
     # composed against fused H2 at the fused engine's rerank budget
-    kw = dict(TIERS["H2_fused"], k=100, metric=metric)
+    kw = dict(TIERS["H2_fused"], k=100, metric=metric, **rt_kw)
     s_f, i_f = search(index, q_eval[:256], batch=128, **kw)
     s_c, i_c = search(index, q_eval[:256], batch=128, **dict(kw, fused=False))
     _ids_equal_up_to_ties(i_c.cpu(), i_f.cpu(), s_c.cpu(), s_f.cpu(),
                           "composed vs fused H2")
     out["composed_equals_fused_at_rerank"] = kw["rerank"]
+    if grid is not None:
+        s_2, i_2 = search(index, q_eval[:256], batch=128, fused3=False, **kw)
+        if not (torch.equal(i_f, i_2) and torch.equal(s_f, s_2)):
+            raise AssertionError("three-stage H2 != fused3=False")
+        out["fused3_equals_composed"] = True
     return out
+
+
+def _probe_tau(index, q: torch.Tensor, metric: str, nprobe: int):
+    """Stage A's probed cluster ids and τ (Q, 1, S) at probe 0, as the
+    search computes them."""
+    _, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
+    res = q - index.ivf.centroids[cids[:, 0]] if metric == "l2" else q
+    tau = density_lib.predict_threshold(
+        index.density, res.reshape(q.shape[0], -1, index.codebook.sub_dim))
+    return cids, tau[:, None]
+
+
+def probe_survival(index, grid, queries, metric: str, nprobe: int = 16
+                   ) -> float:
+    """Mean share of the nprobe probes that survive the sphere test at
+    ``rt_scale`` 1 (probe 0 counted as kept), over 1024 queries."""
+    q = torch.from_numpy(queries[:1024]).to(index.ivf.centroids.device)
+    cids, tau = _probe_tau(index, q, metric, nprobe)
+    return float(_rt_probe_mask(grid, q, tau, cids, 1.0).float().mean())
+
+
+def router_seconds(index, grid, queries, stream, metric: str) -> float:
+    """Host seconds the rt engine's router spends on one pass of the
+    stream: ``route`` of each request, which runs ``rt.probe_budget``
+    (host numpy) once a request."""
+    eng = AnnServeEngine(index, metric=metric, fused=True, prefilter="rt",
+                         rt_grid=grid)
+    reqs = [eng.submit(queries[r["rows"][0]:r["rows"][1]], k=r["k"],
+                       recall_target=r["recall_target"]) for r in stream]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.route(r)
+    return time.perf_counter() - t0
 
 
 def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
@@ -584,25 +823,54 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     t_build = time.perf_counter() - t0
     n, s = index.codes.shape
     p = index.cluster_codes.shape[1]
+    t0 = time.perf_counter()
+    grid = rt.build_grid(index, metric=spec.metric)   # as the engine would
+    torch.cuda.synchronize()
+    grid_info = {"build_s": time.perf_counter() - t0, "cells": grid.n_cells,
+                 "cap": grid.capacity,
+                 "radius_bias": float(grid.radius_bias),
+                 "radius_scale": float(grid.radius_scale),
+                 "probes_kept_at_scale_1": probe_survival(
+                     index, grid, queries, spec.metric)}
+    sphere_row = check_sphere_hits_on_grid(name, index, grid, queries,
+                                           spec.metric)
+    log(f"kernel.sphere_hits.{name}", **sphere_row)
 
     stream = _requests(np.random.default_rng(seed), queries.shape[0])
+    grid_info["router_s_per_pass"] = router_seconds(index, grid, queries,
+                                                    stream, spec.metric)
+    log(f"grid.{name}", **grid_info)
     engines = {}
-    for label, fused in (("fused", True), ("unfused", False)):
+    for label, fused, g in (("fused", True, None), ("unfused", False, None),
+                            ("rt_fused", True, grid),
+                            ("rt_unfused", False, grid)):
         engines[label] = serve_engine(
             index, queries, stream, metric=spec.metric, fused=fused,
-            n_points=n,
+            n_points=n, rt_grid=g,
             trace_path=os.path.join(out_dir, f"trace_{name}_{label}.json"))
         log(f"serve.{name}.{label}", **engines[label])
 
     cpu_index = index_to(index, "cpu")
     tiers = tier_table(index, cpu_index, queries, pts, spec.metric)
     log(f"tiers.{name}", **tiers)
+    rt_tiers = tier_table(index, cpu_index, queries, pts, spec.metric, grid)
+    log(f"tiers_rt.{name}", **rt_tiers)
+    # rt beside scan from this call, for the record; no claim is attached
+    log(f"rt_vs_scan.{name}",
+        engine_qps={k: e["qps"] for k, e in engines.items()},
+        tier_qps={t: {"scan": tiers[t]["qps"], "rt": rt_tiers[t]["qps"]}
+                  for t in TIERS},
+        tier_recall={t: {"scan": tiers[t]["recall10_at_100"],
+                         "rt": rt_tiers[t]["recall10_at_100"]}
+                     for t in TIERS})
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
+           "grid": grid_info, "sphere_hits": sphere_row,
            "engines": engines, "tiers": tiers,
+           "tiers_rt": rt_tiers,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": card}
-    del index, cpu_index
+    del index, cpu_index, grid
     torch.cuda.empty_cache()
     return out
 
@@ -641,6 +909,9 @@ def main() -> int:
     serves = [phase_serve(name, spec, args.seed, N_POINTS, device["nvidia_smi"],
                           args.out)
               for name, spec in (("l2", DEEP_LIKE), ("ip", TTI_LIKE))]
+    # the sphere test on each index's own grid leads its rows: that is the
+    # main path's shape (cap is the fullest cell's, known after the build)
+    kernels["kernels"]["sphere_hits"][:0] = [s["sphere_hits"] for s in serves]
     line = kernel_line(kernels["kernels"], serves)
     report = {"device": device, **kernels, "serve": serves,
               "seconds": time.perf_counter() - t_start}

@@ -10,9 +10,11 @@ Ported so far: the online query path of tiers H, M, L and H2 — stage A
 (IVF filter), τ from the density model, stage B (the selective LUT and
 the int8 hit table) and stage C (the masked-ADC scan of tier H, the hit
 count of tiers M/L and composed H2, the fused two-stage scan of fused
-H2), each stage B/C step a hand-written CUDA kernel — the offline build
-that feeds it, the artifact reader, and the serving engine in both its
-configurations (``fused=False`` and ``fused=True``). See ROADMAP.md for
-what is still to come.
+H2), each stage B/C step a hand-written CUDA kernel; the RT prefilter
+(``rt/``: the centroid grid, the ``sphere_hits`` kernel, the
+``fused_three_stage`` kernel for fused H2 and the engine's probe-budget
+routing); the offline build that feeds it, the artifact reader, and the
+serving engine in both its configurations (``fused=False`` and
+``fused=True``). See ROADMAP.md for what is still to come.
 """
 from .device import resolve_device  # noqa: F401

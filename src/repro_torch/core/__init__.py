@@ -1,5 +1,5 @@
 """JUNO core of the port: index build and the search of tiers H, M, L
-and H2 (fused and composed).
+and H2 (fused and composed), with or without the RT prefilter.
 
 Public API:
     JunoConfig, JunoIndexData, build, search   — juno.py

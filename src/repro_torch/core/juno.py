@@ -1,9 +1,9 @@
 """The JUNO index: offline build and the online search of every tier.
 
 Port of ``repro/core/juno.py`` (``JunoConfig``, ``JunoIndexData``,
-``build``, ``_calibrate_density``, ``_score_probed``, ``_search_batch``,
-``_score_probed_two_stage``, ``_search_batch_two_stage`` and ``search``),
-without the side buffer and the RT prefilter.
+``build``, ``_calibrate_density``, ``_rt_probe_mask``, ``_score_probed``,
+``_search_batch``, ``_score_probed_two_stage``, ``_search_batch_two_stage``
+and ``search``), without the side buffer.
 
 Offline (:func:`build`): IVF k-means → residual PQ codebooks → padded
 per-cluster codes → density grid and threshold-regressor calibration.
@@ -22,8 +22,14 @@ probed points by tier (paper's JUNO-H/M/L, plus the two-stage H2):
   fused kernel (``fused=True``, ``fused_two_stage``) or composed
   (``hit_count`` kernel, then a plain-torch rerank).
 
-The side buffer and ``prefilter="rt"`` raise ``NotImplementedError``
-naming their ROADMAP item.
+With ``prefilter="rt"`` (the paper's RT-core stage-1 filter, ``rt/``) the
+probes whose cluster disc the query disc misses in the ray plane are
+pruned from stage C: the ``sphere_hits`` kernel gives each probe its
+verdict (probe 0 always kept) and the scans treat a pruned probe's points
+as invalid slots. Fused H2 then runs all three stages in the
+``fused_three_stage`` kernel unless ``fused3=False``.
+
+The side buffer raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..rt import grid as rt_lib
 from . import density as density_lib
 from .ivf import IVFIndex, build_ivf, filter_clusters
 from .pq import PQCodebook, encode, split_subspaces, train_codebook
@@ -226,10 +233,10 @@ def _stage_b(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
              cids: torch.Tensor, *, metric: str, thres_scale: float):
     """τ and stage B over the probed clusters.
 
-    Returns ``(mlut, table, probe_base)``: the masked LUT (Q, np, S, E)
-    f32, the int8 reward/penalty hit table of the same shape, and the
-    per-probe score offset (Q, np) that ip adds to a point's LUT total
-    (``<q, c_probe>``; ``None`` for l2).
+    Returns ``(mlut, table, probe_base, tau)``: the masked LUT
+    (Q, np, S, E) f32, the int8 reward/penalty hit table of the same
+    shape, the per-probe score offset (Q, np) that ip adds to a point's LUT
+    total (``<q, c_probe>``; ``None`` for l2), and τ (Q, np, S).
     """
     nq, nprobe = cids.shape
     m = index.codebook.sub_dim
@@ -244,7 +251,25 @@ def _stage_b(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
     mlut, table = ops.build_selective_lut(
         qsub, index.codebook.entries, index.codebook.entry_sq, tau,
         metric=metric)
-    return mlut, table, probe_base
+    return mlut, table, probe_base, tau
+
+
+def _rt_probe_mask(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
+                   tau: torch.Tensor, cids: torch.Tensor,
+                   rt_scale: float) -> torch.Tensor:
+    """Stage-1 spatial pruning: which probed clusters survive the RT test.
+
+    The radius comes from the probe-0 row of the thresholds ``tau``
+    (Q, np, S) the search already computed; the sphere test's (Q, C)
+    survivor mask is gathered at the probed cluster ids ``cids``. Probe 0
+    is always kept, so a query whose disc misses everything degrades to an
+    nprobe-1 search. Returns (Q, np) bool.
+    """
+    radius = rt_lib.query_radius(rt_grid, tau[:, 0, :], rt_scale)
+    hits = rt_lib.survivor_mask(rt_grid, q, radius)             # (Q, C)
+    probe_ok = torch.gather(hits, 1, cids) > 0
+    probe_ok[:, 0] = True
+    return probe_ok
 
 
 def _top_k(scores: torch.Tensor, k: int, higher_better: bool
@@ -259,21 +284,30 @@ def _top_k(scores: torch.Tensor, k: int, higher_better: bool
 
 def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                   cids: torch.Tensor, *, k: int, mode: str, metric: str,
-                  thres_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+                  thres_scale: float, prefilter: str = "scan",
+                  rt_grid: rt_lib.CentroidGrid | None = None,
+                  rt_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """Modes "H", "M" and "L": τ, stage B and a scan of every probed point.
 
     ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The scan
     kernels read the probed clusters' codes through ``cids``; ids are
-    gathered for the k results only. Returns (scores (Q, k), ids (Q, k)
-    int32): l2 H scores are distances (lower better), every other score
-    is higher-better (ip similarity, or hit count as f32).
+    gathered for the k results only. Under ``prefilter="rt"`` the scans
+    score the points of pruned probes as invalid slots
+    (:func:`_rt_probe_mask`); their ids still come back beside the
+    sentinel score, as in the reference. Returns (scores (Q, k), ids
+    (Q, k) int32): l2 H scores are distances (lower better), every other
+    score is higher-better (ip similarity, or hit count as f32).
     """
     nq = q.shape[0]
-    mlut, table, probe_base = _stage_b(index, q, base, cids, metric=metric,
-                                       thres_scale=thres_scale)
+    mlut, table, probe_base, tau = _stage_b(index, q, base, cids,
+                                            metric=metric,
+                                            thres_scale=thres_scale)
+    probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
+                if prefilter == "rt" else None)
     if mode == "H":
         pt_scores = ops.masked_adc_scan(mlut, index.cluster_codes,
-                                        index.ivf.valid, cids, metric=metric)
+                                        index.ivf.valid, cids, metric=metric,
+                                        probe_ok=probe_ok)
         if probe_base is not None:
             pt_scores = pt_scores + probe_base[..., None]
         higher_better = metric == "ip"
@@ -281,7 +315,8 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
         if mode == "L":  # plain count: clip penalty/inner to {0, 1}
             table = (table >= 0).to(torch.int8)
         pt_scores = ops.hit_count_scan(table, index.cluster_codes,
-                                       index.ivf.valid, cids).float()
+                                       index.ivf.valid, cids,
+                                       probe_ok=probe_ok).float()
         higher_better = True
     out_scores, sel = _top_k(pt_scores.reshape(nq, -1), k, higher_better)
     p = index.cluster_codes.shape[1]
@@ -291,51 +326,74 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
 
 def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
                   nprobe: int, k: int, mode: str, metric: str,
-                  thres_scale: float):
+                  thres_scale: float, prefilter: str = "scan",
+                  rt_grid: rt_lib.CentroidGrid | None = None,
+                  rt_scale: float = 1.0):
     """One query batch of mode "H", "M" or "L": stage A, then
     :func:`_score_probed`. Returns (scores (Q, k) f32, ids (Q, k) int32).
     """
     q = queries.float()
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
     return _score_probed(index, q, base, cids, k=k, mode=mode, metric=metric,
-                         thres_scale=thres_scale)
+                         thres_scale=thres_scale, prefilter=prefilter,
+                         rt_grid=rt_grid, rt_scale=rt_scale)
 
 
 def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                             base: torch.Tensor, cids: torch.Tensor, *, k: int,
                             metric: str, thres_scale: float, rerank: int = 0,
-                            fused: bool = False
+                            fused: bool = False, fused3: bool | None = None,
+                            prefilter: str = "scan",
+                            rt_grid: rt_lib.CentroidGrid | None = None,
+                            rt_scale: float = 1.0
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mode "H2": τ, stage B, hit-count prefilter → top-C → masked ADC.
 
     ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The C
-    candidates are the top-C points by hit count; both forms select the
+    candidates are the top-C points by hit count; every form selects the
     same set, so they return the same ids up to score ties:
 
     * ``fused=True``: one ``fused_two_stage`` kernel counts, thresholds,
       compacts the candidates (index-ascending) and sums their LUT entries;
+      under ``prefilter="rt"`` the ``fused_three_stage`` kernel also runs
+      the sphere test, per probe, in front (unless ``fused3=False``, which
+      composes :func:`_rt_probe_mask` with the two-stage kernel);
     * ``fused=False``: the ``hit_count`` kernel counts, a stable sort takes
       the top C in (count desc, index asc) order, and the C candidates'
       LUT entries are gathered and summed in plain torch.
 
-    Only the candidates' codes, validity and ids are gathered. Returns
-    (scores (Q, k), ids (Q, k) int32).
+    A candidate of a pruned probe is invalid, as in the reference, whose
+    ``valid`` is already masked. Only the candidates' codes, validity and
+    ids are gathered. Returns (scores (Q, k), ids (Q, k) int32).
     """
     nq, nprobe = cids.shape
-    mlut, table, probe_base = _stage_b(index, q, base, cids, metric=metric,
-                                       thres_scale=thres_scale)
+    mlut, table, probe_base, tau = _stage_b(index, q, base, cids,
+                                            metric=metric,
+                                            thres_scale=thres_scale)
+    use_fused3 = fused and prefilter == "rt" and fused3 is not False
+    probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
+                if prefilter == "rt" and not use_fused3 else None)
     p = index.cluster_codes.shape[1]
     cap = min(rerank or 4 * k, nprobe * p)
     if fused:
-        _, _, cand, exact = ops.fused_two_stage_scan(
-            mlut, table, index.cluster_codes, index.ivf.valid, cids,
-            cap_c=cap, metric=metric)
+        if use_fused3:
+            radius = rt_lib.query_radius(rt_grid, tau[:, 0, :], rt_scale)
+            qp2 = q @ rt_grid.proj                                  # (Q, 2)
+            _, _, cand, exact, probe_ok = ops.fused_three_stage_scan(
+                mlut, table, index.cluster_codes, index.ivf.valid, cids,
+                qp2[:, 0], qp2[:, 1], radius, rt_grid.cell_c0,
+                rt_grid.cell_c1, rt_grid.slot_reach, rt_grid.slot_of[cids],
+                cap_c=cap, metric=metric)
+        else:
+            _, _, cand, exact = ops.fused_two_stage_scan(
+                mlut, table, index.cluster_codes, index.ivf.valid, cids,
+                cap_c=cap, metric=metric, probe_ok=probe_ok)
         cand = cand.long()
         cand_probe = cand // p
         cand_cid = torch.gather(cids, 1, cand_probe)
     else:
         counts = ops.hit_count_scan(table, index.cluster_codes,
-                                    index.ivf.valid, cids)
+                                    index.ivf.valid, cids, probe_ok=probe_ok)
         _, cand = _top_k(counts.reshape(nq, -1), cap, True)
         cand_probe = cand // p
         cand_cid = torch.gather(cids, 1, cand_probe)
@@ -346,6 +404,8 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                     cand_codes]                                     # (Q, C, S)
         exact = vals.sum(-1)
     cand_valid = index.ivf.valid[cand_cid, cand % p]
+    if probe_ok is not None:
+        cand_valid = cand_valid & torch.gather(probe_ok, 1, cand_probe)
     cand_ids = index.ivf.point_ids[cand_cid, cand % p]
     higher_better = metric == "ip"
     if probe_base is not None:
@@ -359,7 +419,10 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
 def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
                             nprobe: int, k: int, metric: str,
                             thres_scale: float, rerank: int = 0,
-                            fused: bool = False):
+                            fused: bool = False, fused3: bool | None = None,
+                            prefilter: str = "scan",
+                            rt_grid: rt_lib.CentroidGrid | None = None,
+                            rt_scale: float = 1.0):
     """One query batch of mode "H2": stage A, then the two-stage tail.
 
     Returns (scores (Q, k) f32, ids (Q, k) int32).
@@ -368,13 +431,16 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
     return _score_probed_two_stage(index, q, base, cids, k=k, metric=metric,
                                    thres_scale=thres_scale, rerank=rerank,
-                                   fused=fused)
+                                   fused=fused, fused3=fused3,
+                                   prefilter=prefilter, rt_grid=rt_grid,
+                                   rt_scale=rt_scale)
 
 
 def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
            mode: str = "H", metric: str = "l2", thres_scale: float = 1.0,
            batch: int = 64, rerank: int = 0, fused: bool = False,
-           side=None, prefilter: str = "scan"
+           fused3: bool | None = None, side=None, prefilter: str = "scan",
+           rt_grid: rt_lib.CentroidGrid | None = None, rt_scale: float = 1.0
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Search the index — the online API (paper Alg. 2).
 
@@ -407,9 +473,25 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
     fused : bool
         Mode "H2" only: both stages in the ``fused_two_stage`` kernel
         instead of the composed hit count → rerank; the ids are the same
-        up to score ties.
-    side, prefilter
-        Only ``None`` and ``"scan"`` are ported.
+        up to score ties. With ``prefilter="rt"`` this runs the
+        three-stage kernel unless ``fused3=False``.
+    fused3 : bool, optional
+        ``None`` (default) takes the ``fused_three_stage`` kernel whenever
+        ``fused=True`` and ``prefilter="rt"``; ``False`` composes the RT
+        probe mask with the two-stage kernel (the same ids and scores);
+        ``True`` also checks that the combination applies.
+    side
+        Only ``None`` is ported.
+    prefilter : str
+        "scan" (every probed cluster is scanned) or "rt" (probes whose
+        cluster disc the query disc misses in the ray plane are pruned;
+        at full-coverage radii the results equal "scan").
+    rt_grid : repro_torch.rt.CentroidGrid, optional
+        The centroid grid ``prefilter="rt"`` needs (``rt.build_grid``), on
+        the index's device.
+    rt_scale : float
+        Radius multiplier for "rt" (monotone: larger keeps more probes;
+        very large values keep every probe).
 
     Returns
     -------
@@ -421,10 +503,11 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
     Raises
     ------
     ValueError
-        For ``fused=True`` with a mode other than "H2", or an unknown
-        mode or prefilter.
+        For ``fused=True`` with a mode other than "H2", an unknown mode or
+        prefilter, ``prefilter="rt"`` without ``rt_grid``, or
+        ``fused3=True`` without ``fused=True`` and ``prefilter="rt"``.
     NotImplementedError
-        For ``prefilter="rt"`` or a side buffer (not ported yet).
+        For a side buffer (not ported yet).
     """
     if mode not in ("H", "M", "L", "H2"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -432,8 +515,12 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         raise ValueError(f"fused=True requires mode='H2', got mode={mode!r}")
     if prefilter not in ("scan", "rt"):
         raise ValueError(f"unknown prefilter {prefilter!r}")
-    if prefilter == "rt":
-        raise _not_ported("prefilter='rt'", "item 5, RT prefilter")
+    if prefilter == "rt" and rt_grid is None:
+        raise ValueError("prefilter='rt' requires rt_grid (rt.build_grid)")
+    if fused3 and not (fused and prefilter == "rt"):
+        raise ValueError("fused3=True requires fused=True and "
+                         "prefilter='rt' (the three-stage kernel folds the "
+                         "RT test into the fused scan)")
     if side is not None:
         raise _not_ported("the side buffer", "item 7, mutability and freshness")
     dev = index.ivf.centroids.device
@@ -444,10 +531,11 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         pad = batch - qb.shape[0]
         if pad:
             qb = torch.cat([qb, qb[-1:].expand(pad, -1)])
-        kw = dict(nprobe=nprobe, k=k, metric=metric, thres_scale=thres_scale)
+        kw = dict(nprobe=nprobe, k=k, metric=metric, thres_scale=thres_scale,
+                  prefilter=prefilter, rt_grid=rt_grid, rt_scale=rt_scale)
         if mode == "H2":
             s, ids = _search_batch_two_stage(index, qb, rerank=rerank,
-                                             fused=fused, **kw)
+                                             fused=fused, fused3=fused3, **kw)
         else:
             s, ids = _search_batch(index, qb, mode=mode, **kw)
         out_s.append(s[:batch - pad])

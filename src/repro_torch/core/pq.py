@@ -1,8 +1,9 @@
-"""Product quantization: per-subspace codebook training and encoding.
+"""Product quantization: codebook training, encoding and decoding.
 
-Port of ``repro/core/pq.py``. The D-dim residual space is split into
-S = D/M subspaces of M = 2 dims (the JUNO setup); the S codebooks train as
-one batched k-means instead of a ``vmap``.
+Port of ``repro/core/pq.py`` (``decode`` included: the RT grid build
+measures cluster reach from the codes). The D-dim residual space is split
+into S = D/M subspaces of M = 2 dims (the JUNO setup); the S codebooks
+train as one batched k-means instead of a ``vmap``.
 """
 from __future__ import annotations
 
@@ -81,3 +82,10 @@ def encode(residuals: torch.Tensor, codebook: PQCodebook) -> torch.Tensor:
     sub = split_subspaces(residuals, codebook.sub_dim).transpose(0, 1)
     codes = assign(sub, codebook.entries)                         # (S, N)
     return codes.transpose(0, 1).to(torch.uint8).contiguous()
+
+
+def decode(codes: torch.Tensor, codebook: PQCodebook) -> torch.Tensor:
+    """Reconstruct residuals from codes: (N, S) uint8 -> (N, S·M) f32."""
+    n, s = codes.shape
+    s_idx = torch.arange(s, device=codes.device)
+    return codebook.entries[s_idx, codes.long()].reshape(n, -1)

@@ -1,4 +1,5 @@
 """Hand-written Hopper kernels of the port, their plain PyTorch versions
 and the wrappers that dispatch between them (``ops``): ``selective_lut``
-(stage B), ``fused_two_stage`` (fused H2), ``pq_scan`` (tier H) and
-``hit_count`` (tiers M/L, composed H2)."""
+(stage B), ``fused_two_stage`` (fused H2), ``pq_scan`` (tier H),
+``hit_count`` (tiers M/L, composed H2), ``sphere_hits`` (the RT
+prefilter) and ``fused_three_stage`` (fused H2 under the RT prefilter)."""

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("selective_lut", "fused_two_stage", "pq_scan", "hit_count")
+SOURCES = ("selective_lut", "fused_two_stage", "pq_scan", "hit_count",
+           "sphere_hits", "fused_three_stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,6 +122,14 @@ def checked(name: str, t: torch.Tensor, dtype: torch.dtype,
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     return t
+
+
+def optional(name: str, t: torch.Tensor | None, dtype: torch.dtype,
+             shape: tuple[int, ...], device: torch.device) -> int | None:
+    """The data pointer of an optional kernel argument: ``None`` (a null
+    pointer) for ``None``, else that of :func:`checked`'s tensor."""
+    return None if t is None else checked(name, t, dtype, shape,
+                                           device).data_ptr()
 
 
 def stream_ptr(device) -> int:

@@ -8,6 +8,8 @@
 // and slot p of the probed cluster cid = cids[q, probe]:
 //   out[q, probe, p] = valid[cid, p] ? sum_s table[q, probe, s, codes[cid, p, s]]
 //                                    : -2^30                          (int32)
+// and -2^30 for every slot of a probe the RT prefilter pruned
+// (probe_ok[q, probe] false; probe_ok null keeps every probe).
 //
 // Codes are not gathered per probe beforehand: the kernel takes the
 // index's (n_clusters, P, S) codes and (n_clusters, P) valid mask with the
@@ -36,18 +38,23 @@ __global__ void hit_count_kernel(const int8_t* __restrict__ table,    // (Q*np, 
                                  const uint8_t* __restrict__ codes,   // (n_cl, P, S)
                                  const uint8_t* __restrict__ valid,   // (n_cl, P)
                                  const int64_t* __restrict__ cids,    // (Q*np)
+                                 const uint8_t* __restrict__ probe_ok,  // (Q*np) or null
                                  int32_t* __restrict__ out,           // (Q*np, P)
                                  int P, int S, int E) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int8_t* tab = reinterpret_cast<const int8_t*>(smem);
   const int64_t qp = blockIdx.x;
+  int32_t* orow = out + qp * P;
+  if (!scan::probe_kept(probe_ok, qp)) {   // block-uniform: the whole block leaves
+    for (int p = threadIdx.x; p < P; p += blockDim.x) orow[p] = scan::kNeg;
+    return;
+  }
   scan::stage(smem, table + qp * S * E, S * E);
   __syncthreads();
 
   const int64_t cid = cids[qp];
   const uint8_t* crow = codes + cid * (int64_t)P * S;
   const uint8_t* vrow = valid + cid * (int64_t)P;
-  int32_t* orow = out + qp * P;
   for (int p = threadIdx.x; p < P; p += blockDim.x)
     orow[p] = vrow[p] ? scan::gather_sum<int>(tab, crow + (int64_t)p * S, S, E) : scan::kNeg;
 }
@@ -55,9 +62,11 @@ __global__ void hit_count_kernel(const int8_t* __restrict__ table,    // (Q*np, 
 }  // namespace
 
 // table: (Q, np, S, E) int8; codes: (n_cl, P, S) uint8; valid: (n_cl, P)
-// bool; cids: (Q, np) int64 cluster ids; out: (Q, np, P) int32, written.
+// bool; cids: (Q, np) int64 cluster ids; probe_ok: (Q, np) bool or null;
+// out: (Q, np, P) int32, written.
 extern "C" int hit_count_launch(const void* table, const void* codes,
-                                const void* valid, const void* cids, void* out,
+                                const void* valid, const void* cids,
+                                const void* probe_ok, void* out,
                                 int Q, int n_probe, int P, int S, int E,
                                 void* stream) {
   const size_t smem = (size_t)S * E;
@@ -65,6 +74,6 @@ extern "C" int hit_count_launch(const void* table, const void* codes,
   if (err) return err;
   hit_count_kernel<<<(unsigned)(Q * n_probe), kThreads, smem, (cudaStream_t)stream>>>(
       (const int8_t*)table, (const uint8_t*)codes, (const uint8_t*)valid,
-      (const int64_t*)cids, (int32_t*)out, P, S, E);
+      (const int64_t*)cids, (const uint8_t*)probe_ok, (int32_t*)out, P, S, E);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,8 @@
 // slot p of the probed cluster cid = cids[q, probe]:
 //   out[q, probe, p] = valid[cid, p] ? sum_s lut[q, probe, s, codes[cid, p, s]]
 //                                    : bad      (+inf for l2, -inf for ip)
+// and bad for every slot of a probe the RT prefilter pruned
+// (probe_ok[q, probe] false; probe_ok null keeps every probe).
 // with s ascending, one f32 rounding per add. The plain version sums in
 // another order, so the two agree within ~S ulps of the sum of the terms'
 // magnitudes.
@@ -40,18 +42,23 @@ __global__ void pq_scan_kernel(const float* __restrict__ lut,       // (Q*np, S,
                                const uint8_t* __restrict__ codes,   // (n_cl, P, S)
                                const uint8_t* __restrict__ valid,   // (n_cl, P)
                                const int64_t* __restrict__ cids,    // (Q*np)
+                               const uint8_t* __restrict__ probe_ok,  // (Q*np) or null
                                float* __restrict__ out,             // (Q*np, P)
                                int P, int S, int E, float bad) {
   extern __shared__ __align__(16) unsigned char smem[];
   const float* tab = reinterpret_cast<const float*>(smem);
   const int64_t qp = blockIdx.x;
+  float* orow = out + qp * P;
+  if (!scan::probe_kept(probe_ok, qp)) {   // block-uniform: the whole block leaves
+    for (int p = threadIdx.x; p < P; p += blockDim.x) orow[p] = bad;
+    return;
+  }
   scan::stage(smem, lut + qp * S * E, S * E * (int)sizeof(float));
   __syncthreads();
 
   const int64_t cid = cids[qp];
   const uint8_t* crow = codes + cid * (int64_t)P * S;
   const uint8_t* vrow = valid + cid * (int64_t)P;
-  float* orow = out + qp * P;
   for (int p = threadIdx.x; p < P; p += blockDim.x)
     orow[p] = vrow[p] ? scan::gather_sum<float>(tab, crow + (int64_t)p * S, S, E) : bad;
 }
@@ -59,9 +66,11 @@ __global__ void pq_scan_kernel(const float* __restrict__ lut,       // (Q*np, S,
 }  // namespace
 
 // lut: (Q, np, S, E) f32; codes: (n_cl, P, S) uint8; valid: (n_cl, P)
-// bool; cids: (Q, np) int64 cluster ids; out: (Q, np, P) f32, written.
+// bool; cids: (Q, np) int64 cluster ids; probe_ok: (Q, np) bool or null;
+// out: (Q, np, P) f32, written.
 extern "C" int pq_scan_launch(const void* lut, const void* codes,
-                              const void* valid, const void* cids, void* out,
+                              const void* valid, const void* cids,
+                              const void* probe_ok, void* out,
                               int Q, int n_probe, int P, int S, int E,
                               float bad, void* stream) {
   const size_t smem = (size_t)S * E * sizeof(float);
@@ -69,6 +78,6 @@ extern "C" int pq_scan_launch(const void* lut, const void* codes,
   if (err) return err;
   pq_scan_kernel<<<(unsigned)(Q * n_probe), kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)lut, (const uint8_t*)codes, (const uint8_t*)valid,
-      (const int64_t*)cids, (float*)out, P, S, E, bad);
+      (const int64_t*)cids, (const uint8_t*)probe_ok, (float*)out, P, S, E, bad);
   return (int)cudaGetLastError();
 }

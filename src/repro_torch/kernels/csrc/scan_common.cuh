@@ -1,6 +1,7 @@
 // Device code shared by the per-point table scans (hit_count.cu,
-// pq_scan.cu, fused_two_stage.cu): staging one probe's table in shared
-// memory, and summing one point's S table entries through its code bytes.
+// pq_scan.cu, two_stage.cuh): staging one probe's table in shared memory,
+// summing one point's S table entries through its code bytes, and the RT
+// prefilter's per-probe mask.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -8,6 +9,14 @@
 namespace scan {
 
 constexpr int kNeg = -(1 << 30);       // invalid-point count sentinel
+
+// Whether probe qp (= q * np + probe) is scanned: every probe when
+// probe_ok is null, else probe_ok[qp] (the RT prefilter's (Q, np) bool
+// verdict). A pruned probe's points score as invalid slots, as the
+// reference's `valid & probe_ok[..., None]` makes them.
+__device__ __forceinline__ bool probe_kept(const uint8_t* __restrict__ probe_ok, int64_t qp) {
+  return probe_ok == nullptr || probe_ok[qp] != 0;
+}
 
 // Copy n_bytes from global src to shared dst with the whole block, in
 // 16-byte words when the size and the source allow it. The caller

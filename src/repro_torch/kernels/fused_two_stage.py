@@ -10,9 +10,10 @@ off-TPU serving path ``fused_two_stage_host`` (l.259-335):
 * ``dist`` holds ADC totals only at ``cand`` and ``bad`` elsewhere;
 * ``cap_c`` is clamped to ``max(1, min(cap_c, np·P))``.
 
-The kernel (``csrc/fused_two_stage.cu``) takes the index's per-cluster
-codes and the probed cluster ids and indexes them itself; the plain
-version takes codes already gathered per probe, as the reference does.
+The kernel (``csrc/fused_two_stage.cu``, its count and select kernels in
+``csrc/two_stage.cuh``) takes the index's per-cluster codes and the
+probed cluster ids and indexes them itself; the plain version takes codes
+already gathered per probe, as the reference does.
 """
 from __future__ import annotations
 
@@ -78,15 +79,18 @@ def fused_two_stage_plain(lut: torch.Tensor, table: torch.Tensor,
 
 def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
                     cluster_codes: torch.Tensor, cluster_valid: torch.Tensor,
-                    cids: torch.Tensor, *, cap_c: int, metric: str = "l2"):
+                    cids: torch.Tensor, *, cap_c: int, metric: str = "l2",
+                    probe_ok: torch.Tensor | None = None):
     """Launch the CUDA kernel (CUDA tensors only).
 
     lut (Q, np, S, E) f32, table (Q, np, S, E) int8 with entries in
     {-1, 0, +1}, cluster_codes (n_clusters, P, S) uint8, cluster_valid
     (n_clusters, P) bool, cids (Q, np) int64 probed cluster ids in
-    [0, n_clusters). Returns what :func:`fused_two_stage_plain` returns
-    for ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``.
-    Counts one launch in ``_build.LAUNCHES["fused_two_stage"]``.
+    [0, n_clusters), probe_ok (Q, np) bool or ``None`` (every probe kept).
+    Returns what :func:`fused_two_stage_plain` returns for
+    ``codes = cluster_codes[cids]``,
+    ``valid = cluster_valid[cids] & probe_ok[..., None]``. Counts one
+    launch in ``_build.LAUNCHES["fused_two_stage"]``.
     """
     bad = bad_score(metric)
     dev = lut.device
@@ -104,12 +108,13 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
         ("cluster_codes", cluster_codes, torch.uint8, (n_cl, p, s)),
         ("cluster_valid", cluster_valid, torch.bool, (n_cl, p)),
         ("cids", cids, torch.int64, (q, n_probe)))]
+    pok = _build.optional("probe_ok", probe_ok, torch.bool, (q, n_probe), dev)
     counts = torch.empty((q, n_probe, p), dtype=torch.int32, device=dev)
     dist = torch.empty((q, n_probe, p), dtype=torch.float32, device=dev)
     cand = torch.empty((q, cap_c), dtype=torch.int32, device=dev)
     cand_dist = torch.empty((q, cap_c), dtype=torch.float32, device=dev)
     hist = torch.zeros((q, 2 * s + 2), dtype=torch.int32, device=dev)
-    rc = _launcher()(*[a.data_ptr() for a in args], counts.data_ptr(),
+    rc = _launcher()(*[a.data_ptr() for a in args], pok, counts.data_ptr(),
                      dist.data_ptr(), cand.data_ptr(), cand_dist.data_ptr(),
                      hist.data_ptr(), q, n_probe, p, s, e, cap_c, bad,
                      _build.stream_ptr(dev))
@@ -122,6 +127,6 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
 def _launcher():
     fn = _build.library("fused_two_stage").fused_two_stage_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, vp]
+    fn.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_float, vp]
     fn.restype = ci
     return fn

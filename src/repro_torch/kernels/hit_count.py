@@ -25,15 +25,17 @@ hit_count_plain = hit_count_ref
 
 
 def hit_count(table: torch.Tensor, cluster_codes: torch.Tensor,
-              cluster_valid: torch.Tensor, cids: torch.Tensor
-              ) -> torch.Tensor:
+              cluster_valid: torch.Tensor, cids: torch.Tensor, *,
+              probe_ok: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors only).
 
     table (Q, np, S, E) int8, cluster_codes (n_clusters, P, S) uint8,
     cluster_valid (n_clusters, P) bool, cids (Q, np) int64 probed cluster
-    ids in [0, n_clusters). Returns what :func:`hit_count_plain` returns
-    for ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``.
-    Counts one launch in ``_build.LAUNCHES["hit_count"]``.
+    ids in [0, n_clusters), probe_ok (Q, np) bool or ``None`` (every probe
+    kept). Returns what :func:`hit_count_plain` returns for
+    ``codes = cluster_codes[cids]``,
+    ``valid = cluster_valid[cids] & probe_ok[..., None]``. Counts one
+    launch in ``_build.LAUNCHES["hit_count"]``.
     """
     dev = table.device
     if dev.type != "cuda":
@@ -47,8 +49,9 @@ def hit_count(table: torch.Tensor, cluster_codes: torch.Tensor,
         ("cluster_codes", cluster_codes, torch.uint8, (n_cl, p, s)),
         ("cluster_valid", cluster_valid, torch.bool, (n_cl, p)),
         ("cids", cids, torch.int64, (q, n_probe)))]
+    pok = _build.optional("probe_ok", probe_ok, torch.bool, (q, n_probe), dev)
     out = torch.empty((q, n_probe, p), dtype=torch.int32, device=dev)
-    rc = _launcher()(*[a.data_ptr() for a in args], out.data_ptr(), q,
+    rc = _launcher()(*[a.data_ptr() for a in args], pok, out.data_ptr(), q,
                      n_probe, p, s, e, _build.stream_ptr(dev))
     _build.check(rc, "hit_count")
     _build.LAUNCHES["hit_count"] += 1
@@ -59,6 +62,6 @@ def hit_count(table: torch.Tensor, cluster_codes: torch.Tensor,
 def _launcher():
     fn = _build.library("hit_count").hit_count_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    fn.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     fn.restype = ci
     return fn

@@ -1,36 +1,49 @@
 """Public wrappers over the ported kernels.
 
 Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
-``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135) and
-``fused_two_stage_scan`` (l.147). Dispatch follows the tensors' device: a
-CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
-to the hand-written CUDA kernel, or the call raises. There is no fallback
+``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135),
+``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183) and
+``rt_sphere_hits`` (l.225). Dispatch follows the tensors' device: a CPU
+tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes to
+the hand-written CUDA kernel, or the call raises. There is no fallback
 from a kernel to its plain version.
 
-The three scans take the whole index (``codes (n_clusters, P, S)``,
+The scans take the whole index (``codes (n_clusters, P, S)``,
 ``valid (n_clusters, P)``) and the probed cluster ids ``cids (Q, np)``
 int64: the kernels read the probed rows through ``cids`` and never
 materialise the gathered copy the reference scans; the plain versions
-scan ``codes[cids]``.
+scan ``codes[cids]``. The three single-pass scans take an optional
+``probe_ok (Q, np)`` bool, the RT prefilter's verdict: a pruned probe's
+points score as invalid slots, as the reference's
+``valid & probe_ok[..., None]`` makes them.
 """
 from __future__ import annotations
 
 import torch
 
+from .fused_three_stage import fused_three_stage, fused_three_stage_plain
 from .fused_two_stage import fused_two_stage, fused_two_stage_plain
 from .hit_count import hit_count, hit_count_plain
 from .pq_scan import pq_scan, pq_scan_plain
 from .selective_lut import selective_lut, selective_lut_plain
+from .sphere_hits import sphere_hits, sphere_hits_plain
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    devices = {t.device for t in tensors}
+def _on_cuda(*tensors: torch.Tensor | None) -> bool:
+    devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     (dev,) = devices
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cuda"
+
+
+def _probed_valid(valid: torch.Tensor, cids: torch.Tensor,
+                  probe_ok: torch.Tensor | None) -> torch.Tensor:
+    """``valid[cids]``, masked by ``probe_ok`` when given (plain path)."""
+    v = valid[cids]
+    return v if probe_ok is None else v & probe_ok[..., None]
 
 
 def build_selective_lut(qsub: torch.Tensor, entries: torch.Tensor,
@@ -60,37 +73,48 @@ def build_selective_lut(qsub: torch.Tensor, entries: torch.Tensor,
 
 def masked_adc_scan(mlut: torch.Tensor, codes: torch.Tensor,
                     valid: torch.Tensor, cids: torch.Tensor, *,
-                    metric: str = "l2") -> torch.Tensor:
+                    metric: str = "l2",
+                    probe_ok: torch.Tensor | None = None) -> torch.Tensor:
     """Tier H: every probed point's masked-LUT total.
 
-    mlut (Q, np, S, E) f32 -> (Q, np, P) f32; invalid slots get +inf (l2)
-    or -inf (ip).
+    mlut (Q, np, S, E) f32 -> (Q, np, P) f32; invalid slots and the slots
+    of pruned probes get +inf (l2) or -inf (ip).
     """
-    if _on_cuda(mlut, codes, valid, cids):
+    if _on_cuda(mlut, codes, valid, cids, probe_ok):
         return pq_scan(mlut.contiguous(), codes.contiguous(),
-                       valid.contiguous(), cids.contiguous(), metric=metric)
-    return pq_scan_plain(mlut, codes[cids], valid[cids], metric=metric)
+                       valid.contiguous(), cids.contiguous(), metric=metric,
+                       probe_ok=None if probe_ok is None
+                       else probe_ok.contiguous())
+    return pq_scan_plain(mlut, codes[cids], _probed_valid(valid, cids, probe_ok),
+                         metric=metric)
 
 
 def hit_count_scan(table: torch.Tensor, codes: torch.Tensor,
-                   valid: torch.Tensor, cids: torch.Tensor) -> torch.Tensor:
+                   valid: torch.Tensor, cids: torch.Tensor, *,
+                   probe_ok: torch.Tensor | None = None) -> torch.Tensor:
     """Tiers M/L and composed H2: every probed point's hit count.
 
-    table (Q, np, S, E) int8 -> (Q, np, P) int32; invalid slots get -2^30.
+    table (Q, np, S, E) int8 -> (Q, np, P) int32; invalid slots and the
+    slots of pruned probes get -2^30.
     """
-    if _on_cuda(table, codes, valid, cids):
+    if _on_cuda(table, codes, valid, cids, probe_ok):
         return hit_count(table.contiguous(), codes.contiguous(),
-                         valid.contiguous(), cids.contiguous())
-    return hit_count_plain(table, codes[cids], valid[cids])
+                         valid.contiguous(), cids.contiguous(),
+                         probe_ok=None if probe_ok is None
+                         else probe_ok.contiguous())
+    return hit_count_plain(table, codes[cids],
+                           _probed_valid(valid, cids, probe_ok))
 
 
 def fused_two_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
                          codes: torch.Tensor, valid: torch.Tensor,
                          cids: torch.Tensor, *, cap_c: int,
-                         metric: str = "l2"):
+                         metric: str = "l2",
+                         probe_ok: torch.Tensor | None = None):
     """Stage C: hit-count prefilter → survivor threshold → top-C → ADC.
 
-    mlut/table (Q, np, S, E); codes, valid and cids as for the other scans.
+    mlut/table (Q, np, S, E); codes, valid, cids and probe_ok as for the
+    other scans.
 
     Returns
     -------
@@ -101,9 +125,60 @@ def fused_two_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
         ``cand_dist`` its masked-LUT totals (``fused_two_stage_host``'s
         contract).
     """
-    if _on_cuda(mlut, table, codes, valid, cids):
+    if _on_cuda(mlut, table, codes, valid, cids, probe_ok):
         return fused_two_stage(mlut.contiguous(), table.contiguous(),
                                codes.contiguous(), valid.contiguous(),
-                               cids.contiguous(), cap_c=cap_c, metric=metric)
-    return fused_two_stage_plain(mlut, table, codes[cids], valid[cids],
+                               cids.contiguous(), cap_c=cap_c, metric=metric,
+                               probe_ok=None if probe_ok is None
+                               else probe_ok.contiguous())
+    return fused_two_stage_plain(mlut, table, codes[cids],
+                                 _probed_valid(valid, cids, probe_ok),
                                  cap_c=cap_c, metric=metric)
+
+
+def fused_three_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
+                           codes: torch.Tensor, valid: torch.Tensor,
+                           cids: torch.Tensor, q0: torch.Tensor,
+                           q1: torch.Tensor, radius: torch.Tensor,
+                           cell_c0: torch.Tensor, cell_c1: torch.Tensor,
+                           slot_reach: torch.Tensor, slot_idx: torch.Tensor,
+                           *, cap_c: int, metric: str = "l2"):
+    """RT sphere test → hit-count prefilter → top-C → ADC in one pass.
+
+    The :func:`fused_two_stage_scan` contract with the RT probe filter
+    folded in as stage 0: ``q0``/``q1``/``radius`` (Q,) are the ray-plane
+    queries, ``cell_c0``/``cell_c1``/``slot_reach`` (n_cells, cap) the
+    ``CentroidGrid`` slot planes and ``slot_idx`` (Q, np) int32 the probed
+    clusters' grid slots (``grid.slot_of[cids]``). Returns the two-stage
+    4-tuple plus ``probe_ok`` (Q, np) bool, probe 0 always True — equal
+    to composing :func:`rt_sphere_hits`, the probe gather and
+    :func:`fused_two_stage_scan` with that mask. The grid's boxes and cell
+    reaches, which the TPU kernel's cell walk reads, are not needed: the
+    test runs once per probe, at its slot.
+    """
+    args = (q0, q1, radius, cell_c0, cell_c1, slot_reach, slot_idx)
+    if _on_cuda(mlut, table, codes, valid, cids, *args):
+        return fused_three_stage(
+            mlut.contiguous(), table.contiguous(), codes.contiguous(),
+            valid.contiguous(), cids.contiguous(),
+            *(a.contiguous() for a in args[:-1]),
+            slot_idx.to(torch.int32).contiguous(), cap_c=cap_c, metric=metric)
+    return fused_three_stage_plain(mlut, table, codes[cids], valid[cids],
+                                   *args, cap_c=cap_c, metric=metric)
+
+
+def rt_sphere_hits(q0: torch.Tensor, q1: torch.Tensor, radius: torch.Tensor,
+                   c0: torch.Tensor, c1: torch.Tensor,
+                   slot_reach: torch.Tensor) -> torch.Tensor:
+    """The RT stage-1 filter: query disc vs every grid slot's cluster disc.
+
+    q0, q1, radius (Q,) f32 ray-plane queries and radii; c0, c1, slot_reach
+    (n_cells, cap) f32 centroid planes and reaches (``-inf`` = pad) ->
+    (Q, n_cells·cap) int8, cell-major. Takes what the reference's host path
+    ``sphere_hits_host`` takes: the cell boxes of its TPU cell walk are not
+    needed (see ``csrc/sphere_hits.cu``).
+    """
+    args = (q0, q1, radius, c0, c1, slot_reach)
+    if _on_cuda(*args):
+        return sphere_hits(*(a.contiguous() for a in args))
+    return sphere_hits_plain(*args)

@@ -27,14 +27,17 @@ pq_scan_plain = pq_scan_ref
 
 def pq_scan(lut: torch.Tensor, cluster_codes: torch.Tensor,
             cluster_valid: torch.Tensor, cids: torch.Tensor, *,
-            metric: str = "l2") -> torch.Tensor:
+            metric: str = "l2", probe_ok: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors only).
 
     lut (Q, np, S, E) f32, cluster_codes (n_clusters, P, S) uint8,
     cluster_valid (n_clusters, P) bool, cids (Q, np) int64 probed cluster
-    ids in [0, n_clusters). Returns what :func:`pq_scan_plain` returns for
-    ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``.
-    Counts one launch in ``_build.LAUNCHES["pq_scan"]``.
+    ids in [0, n_clusters), probe_ok (Q, np) bool or ``None`` (every probe
+    kept). Returns what :func:`pq_scan_plain` returns for
+    ``codes = cluster_codes[cids]``,
+    ``valid = cluster_valid[cids] & probe_ok[..., None]``. Counts one
+    launch in ``_build.LAUNCHES["pq_scan"]``.
     """
     bad = bad_score(metric)
     dev = lut.device
@@ -49,8 +52,9 @@ def pq_scan(lut: torch.Tensor, cluster_codes: torch.Tensor,
         ("cluster_codes", cluster_codes, torch.uint8, (n_cl, p, s)),
         ("cluster_valid", cluster_valid, torch.bool, (n_cl, p)),
         ("cids", cids, torch.int64, (q, n_probe)))]
+    pok = _build.optional("probe_ok", probe_ok, torch.bool, (q, n_probe), dev)
     out = torch.empty((q, n_probe, p), dtype=torch.float32, device=dev)
-    rc = _launcher()(*[a.data_ptr() for a in args], out.data_ptr(), q,
+    rc = _launcher()(*[a.data_ptr() for a in args], pok, out.data_ptr(), q,
                      n_probe, p, s, e, bad, _build.stream_ptr(dev))
     _build.check(rc, "pq_scan")
     _build.LAUNCHES["pq_scan"] += 1
@@ -61,6 +65,6 @@ def pq_scan(lut: torch.Tensor, cluster_codes: torch.Tensor,
 def _launcher():
     fn = _build.library("pq_scan").pq_scan_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
+    fn.argtypes = [vp] * 6 + [ci] * 5 + [ctypes.c_float, vp]
     fn.restype = ci
     return fn

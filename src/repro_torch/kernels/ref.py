@@ -1,7 +1,8 @@
 """Dense oracles for the ported kernels (the semantics of record).
 
 Port of ``repro/kernels/ref.py:selective_lut_ref`` (l.12), ``pq_scan_ref``
-(l.33), ``hit_count_ref`` (l.42) and ``fused_two_stage_ref`` (l.50). The
+(l.33), ``hit_count_ref`` (l.42), ``fused_two_stage_ref`` (l.50),
+``fused_three_stage_ref`` (l.83) and ``rt_sphere_hits_ref`` (l.104). The
 two scans are batched over leading (Q, np) axes; they are also the
 semantics of ``repro/core/scan.py:adc_scan`` and ``hit_count_scan``, which
 the port therefore does not copy. Every top-k is a stable descending sort,
@@ -102,3 +103,54 @@ def fused_two_stage_ref(lut, table, codes, valid, *, cap_c, metric="l2"):
     dist = torch.where(keep, totals, torch.full_like(totals, bad))
     cand_dist = torch.gather(dist.reshape(q, w), 1, cand)
     return counts, dist, cand.to(torch.int32), cand_dist
+
+
+def fused_three_stage_ref(lut, table, codes, valid, q0, q1, radius,
+                          cell_c0, cell_c1, slot_reach, slot_idx, *,
+                          cap_c, metric="l2"):
+    """Dense oracle for the three-stage RT → hit-count → ADC scan.
+
+    The two-stage oracle with phase 0 in front: the dense sphere test
+    (:func:`rt_sphere_hits_ref`) gathered at ``slot_idx`` (Q, np) — the
+    grid slot of each probed cluster — gives ``probe_ok``; probe 0 is
+    forced True (the nearest probe is always scanned); ``valid`` is masked
+    by it before :func:`fused_two_stage_ref`. Returns that oracle's
+    4-tuple + probe_ok (Q, np) bool.
+    """
+    probe_ok = probe_verdicts(rt_sphere_hits_ref(q0, q1, radius, cell_c0,
+                                                 cell_c1, slot_reach), slot_idx)
+    counts, dist, cand, cand_dist = fused_two_stage_ref(
+        lut, table, codes, valid & probe_ok[:, :, None], cap_c=cap_c,
+        metric=metric)
+    return counts, dist, cand, cand_dist, probe_ok
+
+
+def probe_verdicts(hits: torch.Tensor, slot_idx: torch.Tensor) -> torch.Tensor:
+    """The sphere test's verdict per probe, probe 0 forced True.
+
+    hits (Q, n_slots) int8 from :func:`rt_sphere_hits_ref`, slot_idx
+    (Q, np) int grid slots of the probed clusters -> (Q, np) bool.
+    """
+    probe_ok = torch.gather(hits, 1, slot_idx.long()) > 0
+    probe_ok[:, 0] = True
+    return probe_ok
+
+
+def rt_sphere_hits_ref(q0, q1, radius, c0, c1, slot_reach):
+    """Dense oracle for the RT sphere-intersection filter.
+
+    (Q,),(Q,),(Q,) f32 ray-plane queries and radii; (n_cells, cap) f32
+    centroid planes and reaches -> (Q, n_cells·cap) int8, cell-major.
+    hit = ``‖qp − cp‖ ≤ R + reach`` by the signed squared compare
+    (``thr >= 0`` keeps the ``-inf`` pad slots from ever hitting).
+
+    Rounded as the reference's oracle is on its CPU backend: the squared
+    distance is ``fma(dx, dx, dy*dy)`` — evaluated in float64, where
+    ``dx*dx`` is exact, and rounded to float32 once — and every other step
+    rounds on its own.
+    """
+    dx = q0[:, None] - c0.reshape(1, -1)
+    dy = q1[:, None] - c1.reshape(1, -1)
+    d2 = (dx.double() * dx.double() + (dy * dy).double()).float()
+    thr = radius[:, None] + slot_reach.reshape(1, -1)
+    return ((thr >= 0.0) & (d2 <= thr * thr)).to(torch.int8)

@@ -19,9 +19,14 @@ the same signature ``(k, mode, nprobe)`` into one search call:
   fused-H2 signature with rerank budget ``FUSED_RERANK_MULT · k``. With
   ``fused=False`` (the default, as in the reference) H runs the masked
   ADC scan and H2 the composed hit count → rerank of C = 4k.
+* **RT-prefilter serving** (``prefilter="rt"``) — every search prunes
+  probes by the sphere test (``rt/``; fused H2 through the three-stage
+  kernel), and the router shrinks each request's probe budget to the
+  smallest ``RT_NPROBE_BUCKETS`` entry covering its queries' last
+  surviving probe (``rt.probe_budget``, host numpy, once a request).
 
-Mutation, the RT prefilter, the freshness tiers, observability and index
-swaps are later slices (ROADMAP.md).
+Mutation (and with it the router's mutation epochs), the freshness tiers,
+observability and index swaps are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.juno import JunoIndexData, _search_batch, _search_batch_two_stage
+from ..rt import grid as rt_lib
 
 
 @dataclasses.dataclass
@@ -51,6 +57,7 @@ class AnnRequest:
     mode: str = "auto"                  # "H" | "M" | "L" | "H2" | "auto"
     nprobe: int = 0                     # 0 → engine default for the mode
     recall_target: float = 0.9          # router input when mode == "auto"
+    rt_probes: int = -1                 # cached rt probe budget (-1 unset)
     scores: Optional[np.ndarray] = None
     ids: Optional[np.ndarray] = None
     done: bool = False
@@ -70,6 +77,9 @@ class AnnServeEngine:
 
     K_BUCKETS = (10, 100)
     NPROBE_BUCKETS = (4, 8, 16, 32)
+    # the lattice the rt shrink may route down onto: explicit client knobs
+    # still quantize to NPROBE_BUCKETS
+    RT_NPROBE_BUCKETS = (2,) + NPROBE_BUCKETS
     BATCH_BUCKETS = (8, 32, 128)
     MODE_NPROBE = {"L": 8, "M": 8, "H2": 16, "H": 16}
     # recall_target lower bound → mode, checked in order
@@ -80,7 +90,9 @@ class AnnServeEngine:
     def __init__(self, index: JunoIndexData, *, metric: str = "l2",
                  thres_scale: float = 1.0,
                  batch_buckets: tuple[int, ...] | None = None,
-                 fused: bool = False):
+                 fused: bool = False, fused3: bool | None = None,
+                 prefilter: str = "scan", rt_scale: float = 1.0,
+                 rt_grid: rt_lib.CentroidGrid | None = None):
         """Wrap a built or loaded index in a serving engine.
 
         Parameters
@@ -97,9 +109,35 @@ class AnnServeEngine:
             Serve tier H2 through the fused kernel and fold tier H into it
             (rerank ``FUSED_RERANK_MULT · k``); ``False`` serves H by the
             masked ADC scan and H2 composed (C = 4k).
+        fused3 : bool, optional
+            With ``fused=True`` and ``prefilter="rt"``, ``None`` serves H2
+            through the three-stage kernel and ``False`` through the RT
+            probe mask composed with the two-stage kernel (same results).
+        prefilter : str
+            "scan" | "rt". With "rt" every search prunes probes by the
+            sphere test and the router shrinks each request's probe
+            budget (see the module docstring).
+        rt_scale : float
+            Radius knob for "rt" (monotone; large values prune nothing).
+        rt_grid : repro_torch.rt.CentroidGrid, optional
+            The grid for "rt"; ``None`` builds one from the index
+            (``rt.build_grid``), as the reference's ``ensure_rt_grid``
+            does.
         """
+        if prefilter not in ("scan", "rt"):
+            raise ValueError(f"unknown prefilter {prefilter!r}")
         self.index = index
         self.fused = fused
+        self.fused3 = fused3
+        self.prefilter = prefilter
+        self.rt_scale = rt_scale
+        self.rt_grid = None
+        #: host snapshot of what probe_budget reads (rt.routing_state)
+        self._rt_state = None
+        if prefilter == "rt":
+            self.rt_grid = (rt_grid if rt_grid is not None
+                            else rt_lib.build_grid(index, metric=metric))
+            self._rt_state = rt_lib.routing_state(self.rt_grid, index)
         self.metric = metric
         self.thres_scale = thres_scale
         self.batch_buckets = tuple(batch_buckets or self.BATCH_BUCKETS)
@@ -147,7 +185,10 @@ class AnnServeEngine:
         """Resolve a request's knobs to one signature ``(k, mode, nprobe)``.
 
         With ``fused=True`` the H tier folds into H2, so H and H2 requests
-        batch together.
+        batch together. With ``prefilter="rt"`` the probe budget shrinks to
+        the smallest ``RT_NPROBE_BUCKETS`` entry covering the request's
+        last surviving probe (``rt.probe_budget``, computed once a request
+        and cached in ``req.rt_probes``).
         """
         mode = req.mode
         if mode == "auto":
@@ -158,6 +199,16 @@ class AnnServeEngine:
         nprobe = req.nprobe or self.MODE_NPROBE[mode]
         nprobe = next((b for b in self.NPROBE_BUCKETS if b >= nprobe),
                       self.NPROBE_BUCKETS[-1])
+        if self.prefilter == "rt":
+            if req.rt_probes < 0:
+                req.rt_probes = int(rt_lib.probe_budget(
+                    self.rt_grid, self.index, req.queries, metric=self.metric,
+                    scale=self.rt_scale, thres_scale=self.thres_scale,
+                    max_probes=nprobe, state=self._rt_state).max())
+            shrunk = next((b for b in self.RT_NPROBE_BUCKETS
+                           if b >= max(req.rt_probes, 1)),
+                          self.RT_NPROBE_BUCKETS[-1])
+            nprobe = min(nprobe, shrunk)
         return k, mode, min(nprobe, self.index.ivf.centroids.shape[0])
 
     def step(self) -> int:
@@ -218,10 +269,11 @@ class AnnServeEngine:
     def _dispatch(self, qb: torch.Tensor, k: int, mode: str, nprobe: int):
         """Run one padded batch through the search of its tier."""
         kw = dict(nprobe=nprobe, k=k, metric=self.metric,
-                  thres_scale=self.thres_scale)
+                  thres_scale=self.thres_scale, prefilter=self.prefilter,
+                  rt_grid=self.rt_grid, rt_scale=self.rt_scale)
         if mode == "H2":
             return _search_batch_two_stage(
-                self.index, qb, fused=self.fused,
+                self.index, qb, fused=self.fused, fused3=self.fused3,
                 rerank=self.FUSED_RERANK_MULT * k if self.fused else 0, **kw)
         return _search_batch(self.index, qb, mode=mode, **kw)
 

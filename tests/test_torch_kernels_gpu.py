@@ -5,7 +5,8 @@ has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-The LUT, the hit table, counts and candidates must be equal; ``cand_dist``
+The LUT, the hit table, the sphere hits, ``probe_ok``, counts and
+candidates must be equal; ``cand_dist``
 and ``dist`` agree within rtol 1e-5 (f32 sums over S in another order),
 plus atol 1e-6: these LUTs hold N(0, 1) entries, so a sum of S <= 8 of them
 can cancel to near 0, where a few ulps of the terms exceed rtol. The
@@ -16,11 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_rt_grids import synth_grid
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import fused_three_stage as pf3
 from repro_torch.kernels import fused_two_stage as pfused
 from repro_torch.kernels import hit_count as phit
 from repro_torch.kernels import pq_scan as ppq
 from repro_torch.kernels import selective_lut as pslut
+from repro_torch.kernels import sphere_hits as psph
 
 RTOL = 1e-5
 ATOL = 1e-6
@@ -172,5 +176,89 @@ def test_launch_counts(cuda):
     ops.masked_adc_scan(lut, codes, valid, cids)
     ops.hit_count_scan(table, codes, valid, cids)
     ops.hit_count_scan(table, codes, valid, cids)
+    grid = [torch.from_numpy(a).to(cuda) for a in synth_grid(3, 3, 8, 3, 4)]
+    psph.sphere_hits_plain(*grid[:3], *grid[5:8])
+    ops.rt_sphere_hits(*grid[:3], *grid[5:8])
+    ops.fused_three_stage_scan(lut, table, codes, valid, cids, *grid[:3],
+                               *grid[5:9], cap_c=10)
     assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0,
-                               "pq_scan": 1, "hit_count": 2}
+                               "pq_scan": 1, "hit_count": 2,
+                               "sphere_hits": 1, "fused_three_stage": 1}
+
+
+@pytest.mark.parametrize("g,cap,q", [(16, 64, 128), (3, 8, 17), (3, 5, 9),
+                                     (1, 8, 1)])
+def test_sphere_hits_kernel_matches_plain(cuda, g, cap, q):
+    """Empty and full cells, pad slots, radii 0, 1e6 and on a disc's
+    boundary; (3, 5) has 45 slots, not a multiple of 4 (byte stores)."""
+    q0, q1, r, _, _, c0, c1, reach, _ = (
+        torch.from_numpy(a).to(cuda) for a in synth_grid(g * cap + q, g, cap, q))
+    got = psph.sphere_hits(q0, q1, r, c0, c1, reach)
+    want = psph.sphere_hits_plain(q0, q1, r, c0, c1, reach)
+    torch.cuda.synchronize()
+    assert got.shape == (q, g * g * cap) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert not got[:, ~torch.isfinite(reach.reshape(-1))].any()
+
+
+def _close_to_plain(got, want, scale):
+    """±inf placement equal, finite sums within RTOL of Σ|terms|."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin], want[~fin])
+    assert ((got - want)[fin].abs() <= RTOL * scale[fin] + ATOL).all()
+
+
+@pytest.mark.parametrize("radii", ["mixed", "full", "none"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("s", [8, 48])
+def test_fused_three_stage_kernel_matches_plain(cuda, radii, metric, s):
+    lut, table, codes, valid, cids = _index_form(70 + s, 0.5, s=s, q=8,
+                                                 n_probe=6,
+                                                 signed=metric == "ip")
+    grid = [torch.from_numpy(a).to(cuda)
+            for a in synth_grid(s, 4, 16, 8, 6, radii=radii)]
+    sph = (*grid[:3], *grid[5:9])
+    for cap_c in (1, 40, 5000):
+        kw = dict(cap_c=cap_c, metric=metric)
+        got = ops.fused_three_stage_scan(lut, table, codes, valid, cids, *sph,
+                                         **kw)
+        want = pf3.fused_three_stage_plain(lut, table, codes[cids],
+                                           valid[cids], *sph, **kw)
+        scale = pf3.fused_three_stage_plain(lut.abs(), table, codes[cids],
+                                            valid[cids], *sph, **kw)
+        torch.cuda.synchronize()
+        for i in (0, 2, 4):                        # counts, cand, probe_ok
+            assert torch.equal(got[i], want[i])
+        _close_to_plain(got[3], want[3], scale[3])
+        _close_to_plain(got[1], want[1], scale[1])
+        if radii == "full":    # every probe kept: the two-stage kernel's output
+            two = ops.fused_two_stage_scan(lut, table, codes, valid, cids,
+                                           **kw)
+            assert got[4].all()
+            for a, b in zip(got[:4], two):
+                assert torch.equal(a, b)
+        if radii == "none":
+            assert torch.equal(got[4][:, 0], torch.ones_like(got[4][:, 0]))
+            assert not got[4][:, 1:].any()
+
+
+def test_scans_with_probe_mask(cuda):
+    """pq_scan, hit_count and fused_two_stage with a probe_ok mask equal
+    their plain versions over ``valid[cids] & probe_ok[..., None]``."""
+    lut, table, codes, valid, cids = _index_form(80, 0.5, s=8, e=32)
+    pok = torch.rand(cids.shape, device=cuda) < 0.5
+    pok[0] = False                                 # a query with no probe
+    masked = valid[cids] & pok[..., None]
+    got = ops.hit_count_scan(table, codes, valid, cids, probe_ok=pok)
+    assert torch.equal(got, phit.hit_count_plain(table, codes[cids], masked))
+    got = ops.masked_adc_scan(lut, codes, valid, cids, probe_ok=pok)
+    _close_to_plain(got, ppq.pq_scan_plain(lut, codes[cids], masked),
+                    ppq.pq_scan_plain(lut.abs(), codes[cids], masked))
+    for cap_c in (1, 50):
+        got = ops.fused_two_stage_scan(lut, table, codes, valid, cids,
+                                       cap_c=cap_c, probe_ok=pok)
+        want = pfused.fused_two_stage_plain(lut, table, codes[cids], masked,
+                                            cap_c=cap_c)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)

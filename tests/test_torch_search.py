@@ -91,7 +91,7 @@ def test_fused_outside_h2_raises_value_error(indexed):
 
 
 def test_unported_options_raise(indexed):
+    """The side buffer is not ported (the RT prefilter is: test_torch_rt.py)."""
     metric, q, _, port = indexed
-    for kw in (dict(prefilter="rt"), dict(side=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            search(port, q[:2], k=10, metric=metric, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        search(port, q[:2], k=10, metric=metric, side=object())
