@@ -6,30 +6,48 @@
 Phases, each raising on failure:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — all six CUDA kernels compiled from
+2. build — all seven CUDA kernels compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, in
    parallel;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes (LUT, hit table, sphere hits, ``probe_ok``,
    counts and candidates equal; ADC sums within 1e-5 of the sum of their
-   terms' magnitudes), timed with CUDA events (median of 20) beside the
-   plain version, one PyTorch call that computes the same sums where
-   there is one, and the least time the card could take; plus the stage-A
-   GEMM (``ivf_filter``, not ported) against ``torch.addmm``;
+   terms' magnitudes; ``ivf_filter``'s scores within 1e-5 of
+   ``Σ_d |q_d c_d|``, twice that for l2, plus the csq term's ulp, its
+   top-16 ids equal away from a tie, at (Q, C, D) = (128, 1024, 96) and
+   (128, 1024, 200) for a search batch and (1000, 1024, 96) for an insert
+   batch, l2 and ip), timed with CUDA events (median of 20) beside the
+   plain version, one PyTorch call that computes the same result where
+   there is one (``embedding_bag``, ``addmm``/``mm``), and the least time
+   the card could take;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
    rt router's host time over the request stream), served by four engines —
    ``fused`` True and False, each with ``prefilter`` "scan" and "rt" — on
    a stream of 64 requests that routes to tiers H, H2, M and L: each
-   engine's kernel launches over one pass, QPS, latency and signatures;
-   then per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
-   three-stage kernel) recall@10-in-100 against ``exact_topk`` and QPS,
-   composed H2 against fused H2 at the same rerank (ids equal up to score
-   ties), and the ids of 32 queries against the same search on the CPU
-   (plain versions); under rt also the scan path's ids at full coverage
-   and the three-stage kernel against ``fused3=False``;
-5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100);
+   engine's kernel launches over one pass (``ivf_filter`` for stage A in
+   all four), QPS, latency and signatures; then per tier (H, fused H2,
+   composed H2, M, L; under rt fused H2 is the three-stage kernel)
+   recall@10-in-100 against ``exact_topk`` and QPS, composed H2 against
+   fused H2 at the same rerank (ids equal up to score ties), and the ids
+   of 32 queries against the same search on the CPU (plain versions);
+   under rt also the scan path's ids at full coverage and the three-stage
+   kernel against ``fused3=False``; then ``mutate.l2`` on the same index:
+   a default engine and an rt fused engine over one ``MutableJunoIndex``;
+   20 rounds of 1,000 inserts (``ivf_filter`` once a batch), 500 deletes
+   and one pass of the stream through each engine (no deleted id in a
+   result; the rt router recomputes its state after each insert batch);
+   inserted points found as their own queries as often as build points
+   (−0.02); a forced spill of 200 points into the side buffer, with which
+   QPS is read and every tier is held against the CPU (≥ 99% ids) and, at
+   ``rt_scale`` 1e6, against the scan path; ``compact()`` and
+   ``swap_index()`` (the rebuild, timed) keep tiers H, M and L (ids up to
+   score ties; H2's changed rows printed); the freshness tiers
+   (``max_minors=2``) take 3 × 256 spills at a constant delta capacity,
+   equal ``rebuild_index`` of the same state, and fold back;
+5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100),
+   then ``mutate.ip``;
 6. the kernel line, then the card line, then the result line.
 
 It needs a CUDA card and the repo's ``src/``; without either it exits
@@ -41,8 +59,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gzip
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,16 +75,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch import rt  # noqa: E402
+from repro_torch.build import rebuild_index  # noqa: E402
 from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
                               index_to, recall_n_at_k, search)
 from repro_torch.core import density as density_lib  # noqa: E402
 from repro_torch.core.ivf import filter_clusters  # noqa: E402
-from repro_torch.core.juno import _rt_probe_mask  # noqa: E402
+from repro_torch.core.juno import (MutableJunoIndex, SideBuffer,  # noqa: E402
+                                   _rt_probe_mask)
 from repro_torch.data import DEEP_LIKE, TTI_LIKE, make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
 from repro_torch.kernels import fused_two_stage as fts  # noqa: E402
 from repro_torch.kernels import hit_count as hc  # noqa: E402
+from repro_torch.kernels import ivf_filter as ivff  # noqa: E402
 from repro_torch.kernels import pq_scan as pqs  # noqa: E402
 from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
@@ -75,6 +98,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
 RTOL = 1e-5                    # f32 sums over S in another order
 N_POINTS = 1_000_000
+SIDE = 256                     # side-buffer capacity of the mutable index
+ROUNDS = 20                    # mutate phase: insert/delete/serve rounds
+INSERT_BATCH = 1000
+DELETE_BATCH = 500
+SPILL = 200                    # side points live while requests are served
 FULL = 1e6                     # rt_scale at which every disc covers every cluster
 SOURCES = {
     "selective_lut": ("src/repro_torch/kernels/csrc/selective_lut.cu",
@@ -89,15 +117,19 @@ SOURCES = {
                     "src/repro/rt/intersect.py:68"),
     "fused_three_stage": ("src/repro_torch/kernels/csrc/fused_three_stage.cu",
                           "src/repro/kernels/fused_three_stage.py:203"),
+    "ivf_filter": ("src/repro_torch/kernels/csrc/ivf_filter.cu",
+                   "src/repro/kernels/ivf_filter.py:43"),
 }
 # the kernels each engine configuration (prefilter, fused) must launch; it
 # must launch no other
 ENGINE_KERNELS = {
-    ("scan", True): {"selective_lut", "fused_two_stage", "hit_count"},
-    ("scan", False): {"selective_lut", "pq_scan", "hit_count"},
-    ("rt", True): {"selective_lut", "fused_three_stage", "hit_count",
-                   "sphere_hits"},
-    ("rt", False): {"selective_lut", "sphere_hits", "pq_scan", "hit_count"},
+    ("scan", True): {"ivf_filter", "selective_lut", "fused_two_stage",
+                     "hit_count"},
+    ("scan", False): {"ivf_filter", "selective_lut", "pq_scan", "hit_count"},
+    ("rt", True): {"ivf_filter", "selective_lut", "fused_three_stage",
+                   "hit_count", "sphere_hits"},
+    ("rt", False): {"ivf_filter", "selective_lut", "sphere_hits", "pq_scan",
+                    "hit_count"},
 }
 # the tiers whose recall and QPS are read, as search() arguments (k=100);
 # under prefilter="rt" fused H2 runs the three-stage kernel
@@ -147,7 +179,8 @@ def profile_window(fn, trace_path: str) -> dict:
 
     Returns the window's host wall time, the summed device time of its
     kernels and copies, the idle share ``1 - busy / wall`` and the top
-    kernels by device time; the Chrome trace goes to ``trace_path``.
+    kernels by device time; the Chrome trace goes to ``trace_path``,
+    gzipped (``.gz`` appended).
     The profiler adds host time of its own, so ``wall`` (and the idle
     share) is an upper bound of the unprofiled run's.
     """
@@ -161,6 +194,10 @@ def profile_window(fn, trace_path: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace_path)
+    with open(trace_path, "rb") as src, gzip.open(trace_path + ".gz",
+                                                    "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(trace_path)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
@@ -538,25 +575,51 @@ def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
             "bytes": n_bytes, "kept_valid_points": n_kept}
 
 
-def check_ivf_filter(q: int, c: int, d: int, gen) -> dict:
-    """Stage A's GEMM (the ``ivf_filter`` TPU kernel, not ported): the
-    port's plain arithmetic against one ``torch.addmm`` call."""
+def check_ivf_filter(q: int, c: int, d: int, metric: str, gen) -> dict:
+    """The ``ivf_filter`` kernel against its plain version: every score
+    within 1e-5 of ``Σ_d |q_d c_d|`` (twice that for l2) plus the csq
+    term's ulp, and the top-16 ids equal except where the 16th and 17th
+    scores lie within that bound. Timed beside ``torch.addmm`` (l2) or
+    ``torch.mm`` (ip), which compute the same matrix."""
     dev = torch.device("cuda")
     qs = torch.randn((q, d), generator=gen, device=dev)
     cent = torch.randn((c, d), generator=gen, device=dev)
     csq = torch.sum(cent * cent, dim=-1)
-
-    def plain():
-        return csq[None, :] - 2.0 * (qs @ cent.T)
+    got = ivff.ivf_filter(qs, cent, csq, metric=metric)
+    want = ivff.ivf_filter_plain(qs, cent, csq, metric=metric)
+    torch.cuda.synchronize()
+    bound = (2.0 if metric == "l2" else 1.0) * RTOL * (qs.abs() @ cent.abs().T)
+    if metric == "l2":
+        bound = bound + torch.finfo(torch.float32).eps * csq.abs()[None]
+    err = (got - want).abs()
+    what = f"ivf_filter {metric} Q={q} C={c} D={d}"
+    if (err > bound).any():
+        raise AssertionError(f"{what}: {int((err > bound).sum())} scores "
+                             f"beyond their bound")
+    key, key_p = (-got, -want) if metric == "l2" else (got, want)
+    ids = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :16]
+    srt, ids_p = torch.sort(key_p, dim=1, descending=True, stable=True)
+    tie = (srt[:, 15] - srt[:, 16]).abs() <= bound.max(dim=1).values
+    same = (torch.sort(ids, dim=1).values
+            == torch.sort(ids_p[:, :16], dim=1).values).all(dim=1)
+    if not (same | tie).all():
+        raise AssertionError(f"{what}: top-16 ids differ away from a tie")
 
     def library():
-        return torch.addmm(csq[None, :], qs, cent.T, alpha=-2.0)
+        if metric == "l2":
+            return torch.addmm(csq[None, :], qs, cent.T, alpha=-2.0)
+        return torch.mm(qs, cent.T)
 
-    err = float((plain() - library()).abs().max())
     n_bytes = 4 * (q * d + c * d + c + q * c)
     bnd, by = bound_ms(n_bytes, 2 * q * c * d)
-    return {"Q": q, "C": c, "D": d, "max_abs_err": err, "ms": None,
-            "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+    return {"metric": metric, "Q": q, "C": c, "D": d,
+            "max_abs_err": float(err.max()),
+            "top16_rows_tied": int((~same).sum()),
+            "ms": time_ms(lambda: ivff.ivf_filter(qs, cent, csq,
+                                                  metric=metric)),
+            "plain_ms": time_ms(lambda: ivff.ivf_filter_plain(
+                qs, cent, csq, metric=metric)),
+            "library_ms": time_ms(library),
             "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
 
 
@@ -584,13 +647,14 @@ def phase_kernels(seed: int) -> dict:
         for metric, s in (("l2", 48), ("ip", 100)) for c in (320, 3200)
         for cov in ("half", "probe0", "full")]
     torch.cuda.empty_cache()
+    # stage A of a search batch (D = 96, 200) and of an insert batch
+    rows["ivf_filter"] = [check_ivf_filter(q, 1024, d, metric, gen)
+                          for q, d in ((128, 96), (128, 200), (1000, 96))
+                          for metric in ("l2", "ip")]
     for name, rs in rows.items():
         for r in rs:
             log(f"kernel.{name}", **r)
-    ivf = [check_ivf_filter(128, 1024, d, gen) for d in (96, 200)]
-    for r in ivf:
-        log("kernel.ivf_filter", **r)
-    return {"kernels": rows, "ivf_filter": ivf}
+    return {"kernels": rows}
 
 
 def _requests(rng, n_queries: int, n_req: int = 64) -> list[dict]:
@@ -631,7 +695,9 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
                  n_points: int, trace_path: str, rt_grid=None) -> dict:
     """Warm-up, one pass with the launch counts read, four more timed
     passes and one profiled pass of one engine configuration (with
-    ``rt_grid``: ``prefilter="rt"``)."""
+    ``rt_grid``: ``prefilter="rt"``) over ``index``, a
+    ``MutableJunoIndex`` the engines share (its bookkeeping is built
+    once)."""
     prefilter = "scan" if rt_grid is None else "rt"
 
     def serve() -> tuple[AnnServeEngine, list, float]:
@@ -673,22 +739,33 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
 
 
 def _ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, what: str,
-                          rtol: float = 1e-5, atol: float = 1e-6) -> None:
+                          rtol: float = 1e-5, atol: float = 1e-6, *,
+                          compare: int | None = None) -> None:
     """Scores within tolerance; ids equal except inside runs of tied
-    reference scores (the rule of the CPU tests' parity helper)."""
+    reference scores (the rule of the CPU tests' parity helper). With
+    ``compare``, the inputs hold more columns than are compared: ids are
+    compared in the first ``compare`` only, and a tie with the next score
+    counts, so two sides may return different ids at the last compared
+    place when its score ties with the first one left out."""
     ids, ref_ids = np.asarray(ids), np.asarray(ref_ids)
     scores, ref_scores = np.asarray(scores), np.asarray(ref_scores)
-    close = lambda a, b: (a == b) | (np.abs(a - b) <= atol + rtol * np.abs(b))  # noqa: E731
+
+    def close(a, b):
+        with np.errstate(invalid="ignore"):      # inf - inf where a == b
+            return (a == b) | (np.abs(a - b) <= atol + rtol * np.abs(b))
     if not close(scores, ref_scores).all():
         raise AssertionError(f"{what}: scores differ beyond rtol {rtol}")
     tie_prev = np.zeros(ref_scores.shape, bool)
     tie_prev[:, 1:] = close(ref_scores[:, 1:], ref_scores[:, :-1])
     tie_next = np.zeros(ref_scores.shape, bool)
     tie_next[:, :-1] = tie_prev[:, 1:]
-    bad = (ids != ref_ids) & ~(tie_prev | tie_next)
+    bad = ((ids != ref_ids) & ~(tie_prev | tie_next))[:, :compare]
     if bad.any():
-        raise AssertionError(f"{what}: {int(bad.sum())} ids differ outside "
-                             f"score ties")
+        r, c = np.argwhere(bad)[0]
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} ids differ outside score ties, first "
+            f"at row {r} place {c}: ids {ids[r, c]} vs {ref_ids[r, c]}, "
+            f"reference scores {ref_scores[r, max(c - 1, 0):c + 2].tolist()}")
 
 
 def shared_ids(ids: torch.Tensor, ref_ids: torch.Tensor) -> float:
@@ -761,12 +838,13 @@ def tier_table(index, cpu_index, queries, pts, metric: str,
             if not (torch.equal(i_full, i_scan) and torch.equal(s_full, s_scan)):
                 raise AssertionError(f"rt {tier} at full coverage != scan")
             out[tier]["full_coverage_equals_scan"] = True
-    # composed against fused H2 at the fused engine's rerank budget
-    kw = dict(TIERS["H2_fused"], k=100, metric=metric, **rt_kw)
+    # composed against fused H2 at the fused engine's rerank budget; one
+    # result more than compared, for a tie across the 100th place
+    kw = dict(TIERS["H2_fused"], k=101, metric=metric, **rt_kw)
     s_f, i_f = search(index, q_eval[:256], batch=128, **kw)
     s_c, i_c = search(index, q_eval[:256], batch=128, **dict(kw, fused=False))
     _ids_equal_up_to_ties(i_c.cpu(), i_f.cpu(), s_c.cpu(), s_f.cpu(),
-                          "composed vs fused H2")
+                          "composed vs fused H2", compare=100)
     out["composed_equals_fused_at_rerank"] = kw["rerank"]
     if grid is not None:
         s_2, i_2 = search(index, q_eval[:256], batch=128, fused3=False, **kw)
@@ -809,6 +887,301 @@ def router_seconds(index, grid, queries, stream, metric: str) -> float:
     return time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# mutate phase
+# ---------------------------------------------------------------------------
+def fresh_points(pts: np.ndarray, n: int, rng, sigma: float,
+                 metric: str) -> np.ndarray:
+    """``n`` new points in the index's distribution: random points of the
+    build moved by N(0, (0.1·σ)²) noise in every coordinate, rescaled to
+    their base point's norm for ip (as the generator normalises)."""
+    base = pts[rng.integers(0, len(pts), n)]
+    out = base + np.float32(0.1 * sigma) * rng.standard_normal(
+        base.shape, dtype=np.float32)
+    if metric == "ip":
+        out *= (np.linalg.norm(base, axis=1, keepdims=True)
+                / np.linalg.norm(out, axis=1, keepdims=True))
+    return out.astype(np.float32)
+
+
+def spill_points(mut, c: int, n: int, rng, sigma: float) -> np.ndarray:
+    """``n`` points whose owning cluster is ``c``: its centroid moved by
+    N(0, (0.05·σ)²) noise, kept where ``_label_encode`` (the ``ivf_filter``
+    kernel) assigns them to ``c``."""
+    cent = mut.data.ivf.centroids[c].cpu().numpy()
+    out = np.empty((0, cent.shape[0]), np.float32)
+    while len(out) < n:
+        cand = (cent + np.float32(0.05 * sigma) * rng.standard_normal(
+            (2 * n, cent.shape[0]), dtype=np.float32)).astype(np.float32)
+        lab, _ = mut._labels_codes(torch.from_numpy(cand).to(
+            mut.data.ivf.centroids.device))
+        out = np.concatenate([out, cand[lab.cpu().numpy() == c]])
+    return out[:n]
+
+
+def fullest(mut) -> int:
+    return int(np.argmin([mut.free_slots(c)
+                          for c in range(mut.data.ivf.n_clusters)]))
+
+
+def serve_pass(eng, queries, stream, deleted: np.ndarray, n_ids: int
+               ) -> tuple[float, int, int]:
+    """One pass of the stream through ``eng``: every request served, no
+    deleted id among the results, every id below the id watermark. A
+    tombstoned slot keeps its id, as in the reference, so where the probed
+    clusters hold fewer than k live points a pad result (the invalid-slot
+    score) may carry a deleted id; those are counted, not results.
+    Returns (seconds, rows, deleted ids on pads)."""
+    reqs = [eng.submit(queries[r["rows"][0]:r["rows"][1]], k=r["k"],
+                       recall_target=r["recall_target"]) for r in stream]
+    t0 = time.perf_counter()
+    rows = eng.run()
+    secs = time.perf_counter() - t0
+    pads = 0
+    for r in reqs:
+        if not r.done or r.ids.shape != (r.queries.shape[0], r.k):
+            raise AssertionError(f"request {r.rid} not served")
+        dead = np.isin(r.ids, deleted)
+        sentinel = ~np.isfinite(r.scores) | (r.scores == NEG)
+        if (dead & ~sentinel).any():
+            raise AssertionError(f"request {r.rid} returned a deleted id")
+        pads += int(dead.sum())
+        if (r.ids >= n_ids).any():
+            raise AssertionError(f"request {r.rid}: id >= {n_ids}")
+    return secs, rows, pads
+
+
+def self_rate(mut, points: np.ndarray, ids: np.ndarray, metric: str) -> float:
+    """Share of points found among their own top-10 (tier H, nprobe 16)."""
+    _, got = mut.search(points, metric=metric, mode="H", k=10, nprobe=16,
+                        batch=128)
+    return float(np.mean([i in row for i, row in
+                          zip(ids.tolist(), got.cpu().numpy().tolist())]))
+
+
+def tier_results(mut, q: torch.Tensor, metric: str, **kw) -> dict:
+    """Each tier's (scores, ids) on the current state (side included), at
+    k = 101: :func:`compare_tiers` compares the first 100."""
+    return {t: mut.search(q, batch=128, **dict(TIERS[t], k=101, metric=metric,
+                                               **kw))
+            for t in TIERS}
+
+
+def compare_tiers(a: dict, b: dict, what: str) -> dict:
+    """Tiers H, M and L: counts exactly, distances or similarities within
+    the tolerance the composed-vs-fused check uses; ids up to score ties.
+    Tier H2: the number of rows whose ids changed (printed, not gated: side
+    points bypass the count prefilter, in-cluster points do not)."""
+    out = {}
+    for t in TIERS:
+        (s0, i0), (s1, i1) = a[t], b[t]
+        if t in ("H", "M", "L"):
+            if t != "H" and not torch.equal(s0, s1):
+                raise AssertionError(f"{what} {t}: counts changed")
+            _ids_equal_up_to_ties(i1.cpu(), i0.cpu(), s1.cpu(), s0.cpu(),
+                                  f"{what} {t}", compare=100)
+        else:
+            out[f"{t}_rows_changed"] = int(
+                (i0[:, :100] != i1[:, :100]).any(dim=1).sum())
+    return out
+
+
+def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
+                 queries: np.ndarray, stream, seed: int) -> dict:
+    """The mutable index at 1M points, on the index the serve phase used:
+    a default engine (fused=False, scan) and an rt fused engine over it.
+    Raises on the first failed check; see the module docstring."""
+    dev = mut.data.ivf.centroids.device
+    rng = np.random.default_rng(seed + 101)
+    sigma = float(pts[::16].std())
+    eng = AnnServeEngine(mut, metric=metric)
+    reng = AnnServeEngine(mut, metric=metric, fused=True, prefilter="rt",
+                          rt_grid=grid)
+    orig = rng.choice(len(pts), INSERT_BATCH, replace=False)
+    base_rate = self_rate(mut, pts[orig], orig, metric)
+    deleted: list[int] = []
+    inserted: dict[int, np.ndarray] = {}
+    ins_s, ins_launch, states, side_fills = [], [], [], []
+    compactions = dead_pads = 0
+
+    # stream: insert, delete, serve both engines
+    _build.reset_launches()
+    for _ in range(ROUNDS):
+        new = fresh_points(pts, INSERT_BATCH, rng, sigma, metric)
+        muts = mut.rt_mutations
+        n0 = _build.LAUNCHES["ivf_filter"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        ids = eng.insert(new)
+        _sync(dev)
+        ins_s.append(time.perf_counter() - t0)
+        ins_launch.append(_build.LAUNCHES["ivf_filter"] - n0)
+        if mut.rt_mutations != muts + 1:
+            raise AssertionError("an insert batch did not bump rt_mutations")
+        inserted.update(zip(ids, new))
+        cand = rng.choice(mut._next_id, 4 * DELETE_BATCH, replace=False)
+        victims = [int(i) for i in cand if int(i) in mut._loc][:DELETE_BATCH]
+        eng.delete(victims)
+        deleted += victims
+        for i in victims:
+            inserted.pop(i, None)
+        dead = np.asarray(deleted)
+        for e in (eng, reng):
+            dead_pads += serve_pass(e, queries, stream, dead,
+                                    mut._next_id)[2]
+        if reng._rt_state[0] is not mut.rt_grid or \
+                reng._rt_state[2] != mut.rt_mutations:
+            raise AssertionError("the rt router kept a pre-insert state")
+        states.append(reng._rt_state)      # kept alive: ids stay distinct
+        side_fills.append(mut.side_fill)
+        if mut.side_fill > SIDE // 2:
+            # the stream's own spills (inserts into full clusters): fold
+            # them into slots the deletes freed, rebuilding if some stick
+            eng.compact()
+            compactions += 1
+    stream_launches = dict(_build.LAUNCHES)
+    if any(n != 1 for n in ins_launch):
+        raise AssertionError(f"ivf_filter launches per insert {ins_launch}")
+    if len({id(st[1]) for st in states}) != ROUNDS:
+        raise AssertionError("the rt router did not recompute its state "
+                             "after every insert batch")
+    del states
+    dead = np.asarray(deleted)
+    pick = rng.choice(sorted(inserted), INSERT_BATCH, replace=False)
+    new_rate = self_rate(mut, np.stack([inserted[i] for i in pick]), pick,
+                         metric)
+    if new_rate < base_rate - 0.02:
+        raise AssertionError(f"inserted points found at {new_rate:.4f}, "
+                             f"build points at {base_rate:.4f}")
+    launches_pass = {}
+    for label, e in (("scan", eng), ("rt_fused", reng)):
+        _build.reset_launches()
+        serve_pass(e, queries, stream, dead, mut._next_id)
+        launches_pass[label] = _build.LAUNCHES["ivf_filter"]
+
+    # a forced spill: SPILL points live in the side buffer
+    eng.compact()
+    swaps_before = eng.generation
+    c = fullest(mut)
+    spill = spill_points(mut, c, mut.free_slots(c) + SPILL, rng, sigma)
+    eng.insert(spill)
+    if mut.side_fill != SPILL:
+        raise AssertionError(f"side fill {mut.side_fill}, expected {SPILL}")
+    qps_live = statistics.median(
+        rows / t for t, rows, _ in (serve_pass(eng, queries, stream, dead,
+                                               mut._next_id)
+                                    for _ in range(5)))
+    q = torch.from_numpy(np.concatenate([queries[:64], spill[-64:]])).to(dev)
+
+    # card vs CPU on the same state, side buffer live
+    cpu_data = index_to(mut.data, "cpu")
+    cpu_side = SideBuffer(*(t.cpu() for t in mut.delta_view()))
+    cpu_grid = rt.grid_to(mut.ensure_rt_grid(metric=metric), "cpu")
+    cpu_shared = {}
+    qc = torch.cat([q[:16], q[-16:]])       # 16 of them near the side points
+    for pf in ("scan", "rt"):
+        for t in TIERS:
+            kw = dict(TIERS[t], k=100, metric=metric, prefilter=pf, batch=8)
+            _, i_gpu = mut.search(qc, **kw)
+            _, i_cpu = search(cpu_data, qc.cpu(), side=cpu_side,
+                              rt_grid=cpu_grid if pf == "rt" else None, **kw)
+            cpu_shared[f"{pf}.{t}"] = shared_ids(i_gpu.cpu(), i_cpu)
+    del cpu_data, cpu_side, cpu_grid
+    if min(cpu_shared.values()) < 0.99:
+        raise AssertionError(f"card vs CPU with the side buffer live: "
+                             f"{cpu_shared}")
+
+    # rt at full coverage = scan, side buffer live
+    for t in TIERS:
+        kw = dict(TIERS[t], k=100, metric=metric, batch=128)
+        s_scan, i_scan = mut.search(q, **kw)
+        s_full, i_full = mut.search(q, prefilter="rt", rt_scale=FULL, **kw)
+        if not (torch.equal(i_full, i_scan) and torch.equal(s_full, s_scan)):
+            raise AssertionError(f"{t}: rt at full coverage != scan with the "
+                                 f"side buffer live")
+
+    # compact(): free slots in the spill cluster, then fold the side points
+    in_c = mut.data.ivf.point_ids[c][mut.data.ivf.valid[c]].tolist()
+    keep = set(int(i) for i in mut.side.ids[mut.side.valid].tolist())
+    victims = [i for i in in_c if i not in keep][:SPILL + 50]
+    eng.delete(victims)
+    dead = np.concatenate([dead, victims])
+    before = tier_results(mut, q, metric)
+    moved = eng.compact(rebuild=False)
+    if mut.side_fill != 0 or moved != SPILL:
+        raise AssertionError(f"compact moved {moved}, {mut.side_fill} left")
+    compact = compare_tiers(before, tier_results(mut, q, metric), "compact")
+    qps_empty = statistics.median(
+        rows / t for t, rows, _ in (serve_pass(eng, queries, stream, dead,
+                                               mut._next_id)
+                                    for _ in range(5)))
+
+    # swap_index(): the online rebuild, installed between ticks
+    before = tier_results(mut, q, metric)
+    p_old = mut.data.cluster_codes.shape[1]
+    gen0 = eng.generation
+    _sync(dev)
+    t0 = time.perf_counter()
+    gen = eng.swap_index()
+    _sync(dev)
+    swap_s = time.perf_counter() - t0
+    if gen != gen0 + 1 or mut.rt_grid is not None:
+        raise AssertionError("swap_index: generation or rt grid not reset")
+    swap = compare_tiers(before, tier_results(mut, q, metric), "swap_index")
+    serve_pass(reng, queries, stream, dead, mut._next_id)   # grid rebuilt
+    if mut.rt_grid is None:
+        raise AssertionError("the rt grid was not rebuilt after the swap")
+
+    # the freshness tiers: 3 × SIDE forced spills with max_minors=2
+    teng = AnnServeEngine(mut, metric=metric, max_minors=2)
+    c = fullest(mut)
+    caps = []
+    for i in range(3):
+        extra = mut.free_slots(c) + SIDE if i == 0 else SIDE
+        teng.insert(spill_points(mut, c, extra, rng, sigma))
+        caps.append(mut.delta_view().capacity)
+        serve_pass(teng, queries, stream, dead, mut._next_id)
+    if caps != [SIDE * 3] * 3 or len(mut._minors) != 2:
+        raise AssertionError(f"delta capacities {caps}, "
+                             f"{len(mut._minors)} minors")
+    in_c = mut.data.ivf.point_ids[c][mut.data.ivf.valid[c]].tolist()
+    victims = in_c[:3 * SIDE + 32]
+    teng.delete(victims)
+    dead = np.concatenate([dead, victims])
+    tiered = tier_results(mut, q, metric)
+    rebuilt = MutableJunoIndex(rebuild_index(mut), side_capacity=SIDE)
+    want = tier_results(rebuilt, q, metric)
+    compare_tiers(tiered, want, "tiers vs rebuild")
+    pending = mut.delta_fill
+    moved_tiers = teng.compact()
+    if mut.delta_fill != 0 or mut._minors or teng.generation != 0:
+        raise AssertionError(f"the scheduler left {mut.delta_fill} delta "
+                             f"points, {len(mut._minors)} minors")
+    compare_tiers(tier_results(mut, q, metric), want, "drained vs rebuild")
+    del rebuilt, want
+    out = {"rounds": ROUNDS, "inserted": ROUNDS * INSERT_BATCH,
+           "deleted": len(deleted), "stream_compactions": compactions,
+           "deleted_ids_on_pads": dead_pads, "side_fill_per_round": side_fills,
+           "swaps_before_spill": swaps_before,
+           "self_rate_build": base_rate, "self_rate_inserted": new_rate,
+           "insert_points_per_s": INSERT_BATCH / statistics.median(ins_s),
+           "insert_s": ins_s, "ivf_filter_per_insert": ins_launch[0],
+           "ivf_filter_per_pass": launches_pass,
+           "side_live": SPILL, "qps_side_live": qps_live,
+           "qps_side_empty": qps_empty, "cpu_ids_shared": cpu_shared,
+           "compact_moved": moved, "compact": compact,
+           "swap_s": swap_s, "swap_capacity_kept":
+               mut.data.cluster_codes.shape[1] == p_old, "swap": swap,
+           "tiers_delta_capacity": caps, "tiers_pending": pending,
+           "tiers_moved": moved_tiers,
+           "scheduler": teng.scheduler.stats,
+           "engine_stats": {k: eng.stats[k] for k in
+                            ("inserts", "deletes", "swaps", "ticks")},
+           "launches": stream_launches}
+    log(f"mutate.{name}", **out)
+    return out
+
+
 def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                 out_dir: str) -> dict:
     t0 = time.perf_counter()
@@ -837,7 +1210,8 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     log(f"kernel.sphere_hits.{name}", **sphere_row)
 
     stream = _requests(np.random.default_rng(seed), queries.shape[0])
-    grid_info["router_s_per_pass"] = router_seconds(index, grid, queries,
+    mut = MutableJunoIndex(index, side_capacity=SIDE)
+    grid_info["router_s_per_pass"] = router_seconds(mut, grid, queries,
                                                     stream, spec.metric)
     log(f"grid.{name}", **grid_info)
     engines = {}
@@ -845,7 +1219,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                             ("rt_fused", True, grid),
                             ("rt_unfused", False, grid)):
         engines[label] = serve_engine(
-            index, queries, stream, metric=spec.metric, fused=fused,
+            mut, queries, stream, metric=spec.metric, fused=fused,
             n_points=n, rt_grid=g,
             trace_path=os.path.join(out_dir, f"trace_{name}_{label}.json"))
         log(f"serve.{name}.{label}", **engines[label])
@@ -863,14 +1237,17 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
         tier_recall={t: {"scan": tiers[t]["recall10_at_100"],
                          "rt": rt_tiers[t]["recall10_at_100"]}
                      for t in TIERS})
+    del cpu_index
+    mutate = phase_mutate(name, spec.metric, mut, grid, pts, queries, stream,
+                          seed)
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
            "grid": grid_info, "sphere_hits": sphere_row,
            "engines": engines, "tiers": tiers,
-           "tiers_rt": rt_tiers,
+           "tiers_rt": rt_tiers, "mutate": mutate,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": card}
-    del index, cpu_index, grid
+    del index, mut, grid
     torch.cuda.empty_cache()
     return out
 
@@ -884,7 +1261,8 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(e["launches"][name] for s in serves
-                            for e in s["engines"].values()),
+                            for e in s["engines"].values())
+            + sum(s["mutate"]["launches"][name] for s in serves),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -7,14 +7,16 @@ it needs. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.
 
 Ported so far: the online query path of tiers H, M, L and H2 — stage A
-(IVF filter), τ from the density model, stage B (the selective LUT and
-the int8 hit table) and stage C (the masked-ADC scan of tier H, the hit
-count of tiers M/L and composed H2, the fused two-stage scan of fused
-H2), each stage B/C step a hand-written CUDA kernel; the RT prefilter
+(the IVF filter), τ from the density model, stage B (the selective LUT
+and the int8 hit table) and stage C (the masked-ADC scan of tier H, the
+hit count of tiers M/L and composed H2, the fused two-stage scan of fused
+H2), each stage A/B/C step a hand-written CUDA kernel; the RT prefilter
 (``rt/``: the centroid grid, the ``sphere_hits`` kernel, the
 ``fused_three_stage`` kernel for fused H2 and the engine's probe-budget
-routing); the offline build that feeds it, the artifact reader, and the
-serving engine in both its configurations (``fused=False`` and
-``fused=True``). See ROADMAP.md for what is still to come.
+routing); the mutable index (side buffer, insert/delete/compact, the LSM
+freshness tiers, the online rebuild and hot swap); the offline build, the
+artifact reader, and the serving engine in both its configurations
+(``fused=False`` and ``fused=True``) with its mutation plane. See
+ROADMAP.md for what is still to come.
 """
 from .device import resolve_device  # noqa: F401

@@ -10,6 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .kmeans import assign, kmeans_subsampled
 
 
@@ -133,10 +134,12 @@ def filter_clusters(queries: torch.Tensor, index: IVFIndex, *, nprobe: int,
                     metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
     """Stage A: the nprobe closest (l2) or most similar (ip) centroids.
 
-    One full-f32 GEMM plus a top-nprobe, as the reference leaves it to
-    XLA (``repro/core/ivf.py:143``). The top-nprobe is a stable
-    descending sort, which reproduces ``lax.top_k``'s (value desc,
-    index asc) tie order.
+    The (Q, C) score matrix comes from ``ops.filter_scores`` (the
+    ``ivf_filter`` kernel on the card; on the CPU the plain
+    ``csq − 2·(q @ cᵀ)``, as the reference computes it at
+    ``repro/core/ivf.py:143``). The top-nprobe is a stable descending
+    sort, which reproduces ``lax.top_k``'s (value desc, index asc) tie
+    order.
 
     Returns
     -------
@@ -144,12 +147,10 @@ def filter_clusters(queries: torch.Tensor, index: IVFIndex, *, nprobe: int,
         ``(scores (Q, nprobe) f32, cluster_ids (Q, nprobe) int64)``;
         scores are lower-is-better for l2 and higher-is-better for ip.
     """
-    qc = queries.float() @ index.centroids.T                     # (Q, C)
+    scores = ops.filter_scores(queries.float(), index.centroids,
+                               index.centroid_sq, metric=metric)
     if metric == "l2":
-        d = index.centroid_sq[None, :] - 2.0 * qc
-        vals, ids = torch.sort(-d, dim=1, descending=True, stable=True)
+        vals, ids = torch.sort(-scores, dim=1, descending=True, stable=True)
         return -vals[:, :nprobe], ids[:, :nprobe]
-    if metric == "ip":
-        vals, ids = torch.sort(qc, dim=1, descending=True, stable=True)
-        return vals[:, :nprobe], ids[:, :nprobe]
-    raise ValueError(f"unknown metric {metric!r}")
+    vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :nprobe], ids[:, :nprobe]

@@ -1,9 +1,10 @@
 """The JUNO index: offline build and the online search of every tier.
 
 Port of ``repro/core/juno.py`` (``JunoConfig``, ``JunoIndexData``,
-``build``, ``_calibrate_density``, ``_rt_probe_mask``, ``_score_probed``,
-``_search_batch``, ``_score_probed_two_stage``, ``_search_batch_two_stage``
-and ``search``), without the side buffer.
+``build``, ``_calibrate_density``, ``_rt_probe_mask``, ``SideBuffer``,
+``_side_gather``, ``_score_probed``, ``_search_batch``,
+``_score_probed_two_stage``, ``_search_batch_two_stage``, ``search``,
+``_label_encode``, ``MutableIndexBase`` and ``MutableJunoIndex``).
 
 Offline (:func:`build`): IVF k-means → residual PQ codebooks → padded
 per-cluster codes → density grid and threshold-regressor calibration.
@@ -11,9 +12,10 @@ Every random draw of the build is injectable (:class:`BuildDraws`), so a
 build can reproduce another implementation's sample and init indices.
 
 Online (:func:`search`): stage A filters the nprobe nearest clusters
-(one GEMM), τ comes from the density model, stage B builds the masked LUT
-and the int8 hit table (``selective_lut`` kernel), and stage C scores the
-probed points by tier (paper's JUNO-H/M/L, plus the two-stage H2):
+(``ivf_filter`` kernel, then a stable sort), τ comes from the density
+model, stage B builds the masked LUT and the int8 hit table
+(``selective_lut`` kernel), and stage C scores the probed points by tier
+(paper's JUNO-H/M/L, plus the two-stage H2):
 
 * "H": masked ADC of every probed point (``pq_scan`` kernel), top-k;
 * "M": reward/penalty hit count (``hit_count`` kernel), top-k by count;
@@ -29,7 +31,14 @@ verdict (probe 0 always kept) and the scans treat a pruned probe's points
 as invalid slots. Fused H2 then runs all three stages in the
 ``fused_three_stage`` kernel unless ``fused3=False``.
 
-The side buffer raises ``NotImplementedError`` naming its ROADMAP item.
+Mutation (:class:`MutableJunoIndex`): ``insert`` labels new points with
+the ``ivf_filter`` kernel and encodes them with the existing codebooks into
+free padded slots of their owning cluster, spilling into a fixed-capacity
+:class:`SideBuffer` when the cluster is full; ``delete`` tombstones slots;
+``compact`` folds spills back into freed slots. Side points are scored
+with the same LUT or hit-table gather as their in-cluster siblings (and,
+under rt, with their probe's verdict), in every tier. The index's tensors
+are updated in place; the freshness tiers are ``core/freshness.py``.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.ref import NEG, bad_score
 from ..rt import grid as rt_lib
 from . import density as density_lib
 from .ivf import IVFIndex, build_ivf, filter_clusters
@@ -87,9 +97,96 @@ class BuildDraws(NamedTuple):
     calib_noise: np.ndarray           # (nq, D) unscaled N(0, 1) noise
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
+class SideBuffer(NamedTuple):
+    """Fixed-capacity overflow store for online inserts.
+
+    When an insert's owning cluster has no free padded slot, the point
+    spills here. A side point is scored only when its owning cluster is
+    probed, with the same LUT or hit-table gather an in-cluster point gets,
+    so ``compact()`` (which moves it back into a freed cluster slot) does
+    not change the search's results.
+    """
+
+    codes: torch.Tensor     # (B, S) uint8 — PQ codes of spilled points
+    cluster: torch.Tensor   # (B,) int32 — owning cluster (-1 = empty slot)
+    ids: torch.Tensor       # (B,) int32 — global point id
+    valid: torch.Tensor     # (B,) bool
+
+    @property
+    def capacity(self) -> int:
+        """Fixed slot count B of the buffer."""
+        return self.ids.shape[0]
+
+
+def empty_side_buffer(capacity: int, n_subspaces: int,
+                      device=None) -> SideBuffer:
+    """An all-empty :class:`SideBuffer` of ``capacity`` slots on ``device``
+    (``None`` = the CPU): codes 0, cluster and ids -1, valid False."""
+    return SideBuffer(
+        codes=torch.zeros((capacity, n_subspaces), dtype=torch.uint8,
+                          device=device),
+        cluster=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        ids=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=device))
+
+
+def _side_set(side: SideBuffer, pos: torch.Tensor, **fields) -> SideBuffer:
+    """A copy of ``side`` with ``fields`` written at positions ``pos``
+    (the buffer is small; the original is left as it was)."""
+    out = {}
+    for name, val in fields.items():
+        t = getattr(side, name).clone()
+        t[pos] = val
+        out[name] = t
+    return side._replace(**out)
+
+
+def _side_gather(table: torch.Tensor, cids: torch.Tensor, side: SideBuffer
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score side-buffer points against a per-probe LUT or hit table.
+
+    table (Q, np, S, E) f32 or int8, cids (Q, np). A side point takes
+    part only when its owning cluster is among the probed ones, the
+    condition under which it would have been scanned in its cluster, and
+    its score is the same gather and sum over S: f32 as
+    ``kernels/ref.py:pq_scan_ref`` sums (on the CPU bit-equal to the plain
+    scan), int32 for a hit table. Plain torch, as in the reference
+    (``repro/core/juno.py:110``).
+
+    Returns (totals (Q, B), probe (Q, B) int64 — the first matching
+    probe, ok (Q, B) bool).
+    """
+    nq = cids.shape[0]
+    match = cids[:, :, None] == side.cluster.long()[None, None]  # (Q, np, B)
+    ok = match.any(dim=1) & side.valid[None, :]
+    probe = torch.argmax(match.to(torch.uint8), dim=1)              # (Q, B)
+    qi = torch.arange(nq, device=cids.device)[:, None, None]
+    si = torch.arange(table.shape[2], device=cids.device)[None, None, :]
+    codes = side.codes.long()[None]                                 # (1, B, S)
+    vals = table[qi, probe[:, :, None], si, codes]                  # (Q, B, S)
+    if table.dtype == torch.int8:
+        return vals.to(torch.int32).sum(-1, dtype=torch.int32), probe, ok
+    return vals.float().sum(-1), probe, ok
+
+
+def _side_scores(table: torch.Tensor, cids: torch.Tensor, side: SideBuffer,
+                 probe_ok: torch.Tensor | None,
+                 probe_base: torch.Tensor | None, bad
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Side points' scores as the scans give in-cluster points: the
+    :func:`_side_gather` totals, plus the probe's ip offset, and ``bad``
+    (the invalid-slot sentinel) where the owning cluster is not probed,
+    the slot is empty or (under rt) the probe was pruned. Returns
+    (scores (Q, B), ok (Q, B))."""
+    tot, probe, ok = _side_gather(table, cids, side)
+    if probe_ok is not None:
+        ok = ok & torch.gather(probe_ok, 1, probe)
+    if probe_base is not None:
+        tot = tot + torch.gather(probe_base, 1, probe)
+    return torch.where(ok, tot, torch.tensor(bad, dtype=tot.dtype,
+                                             device=tot.device)), ok
+
+
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -284,7 +381,8 @@ def _top_k(scores: torch.Tensor, k: int, higher_better: bool
 
 def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                   cids: torch.Tensor, *, k: int, mode: str, metric: str,
-                  thres_scale: float, prefilter: str = "scan",
+                  thres_scale: float, side: SideBuffer | None = None,
+                  prefilter: str = "scan",
                   rt_grid: rt_lib.CentroidGrid | None = None,
                   rt_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """Modes "H", "M" and "L": τ, stage B and a scan of every probed point.
@@ -294,9 +392,11 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
     gathered for the k results only. Under ``prefilter="rt"`` the scans
     score the points of pruned probes as invalid slots
     (:func:`_rt_probe_mask`); their ids still come back beside the
-    sentinel score, as in the reference. Returns (scores (Q, k), ids
-    (Q, k) int32): l2 H scores are distances (lower better), every other
-    score is higher-better (ip similarity, or hit count as f32).
+    sentinel score, as in the reference. ``side`` points join the flat
+    score vector after the probed slots (:func:`_side_scores`). Returns
+    (scores (Q, k), ids (Q, k) int32): l2 H scores are distances (lower
+    better), every other score is higher-better (ip similarity, or hit
+    count as f32).
     """
     nq = q.shape[0]
     mlut, table, probe_base, tau = _stage_b(index, q, base, cids,
@@ -318,15 +418,29 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                                        index.ivf.valid, cids,
                                        probe_ok=probe_ok).float()
         higher_better = True
-    out_scores, sel = _top_k(pt_scores.reshape(nq, -1), k, higher_better)
+    flat = pt_scores.reshape(nq, -1)
+    if side is not None:
+        if mode == "H":
+            side_s, _ = _side_scores(mlut, cids, side, probe_ok, probe_base,
+                                     bad_score(metric))
+        else:
+            side_s, _ = _side_scores(table, cids, side, probe_ok, None, NEG)
+        flat = torch.cat([flat, side_s.float()], dim=1)
+    out_scores, sel = _top_k(flat, k, higher_better)
     p = index.cluster_codes.shape[1]
-    sel_cid = torch.gather(cids, 1, sel // p)
-    return out_scores, index.ivf.point_ids[sel_cid, sel % p]
+    n_in = cids.shape[1] * p
+    in_cl = sel < n_in
+    s_in = torch.where(in_cl, sel, 0)
+    ids = index.ivf.point_ids[torch.gather(cids, 1, s_in // p), s_in % p]
+    if side is not None:
+        ids = torch.where(in_cl, ids, side.ids[(sel - n_in).clamp(min=0)])
+    return out_scores, ids
 
 
 def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
                   nprobe: int, k: int, mode: str, metric: str,
-                  thres_scale: float, prefilter: str = "scan",
+                  thres_scale: float, side: SideBuffer | None = None,
+                  prefilter: str = "scan",
                   rt_grid: rt_lib.CentroidGrid | None = None,
                   rt_scale: float = 1.0):
     """One query batch of mode "H", "M" or "L": stage A, then
@@ -335,14 +449,16 @@ def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
     q = queries.float()
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
     return _score_probed(index, q, base, cids, k=k, mode=mode, metric=metric,
-                         thres_scale=thres_scale, prefilter=prefilter,
-                         rt_grid=rt_grid, rt_scale=rt_scale)
+                         thres_scale=thres_scale, side=side,
+                         prefilter=prefilter, rt_grid=rt_grid,
+                         rt_scale=rt_scale)
 
 
 def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                             base: torch.Tensor, cids: torch.Tensor, *, k: int,
                             metric: str, thres_scale: float, rerank: int = 0,
                             fused: bool = False, fused3: bool | None = None,
+                            side: SideBuffer | None = None,
                             prefilter: str = "scan",
                             rt_grid: rt_lib.CentroidGrid | None = None,
                             rt_scale: float = 1.0
@@ -364,7 +480,11 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
 
     A candidate of a pruned probe is invalid, as in the reference, whose
     ``valid`` is already masked. Only the candidates' codes, validity and
-    ids are gathered. Returns (scores (Q, k), ids (Q, k) int32).
+    ids are gathered. ``side`` points bypass the count prefilter and join
+    the rerank pool directly, as in the reference (``repro/core/juno.py``
+    l.522); under rt they take the probe verdict the cluster lanes got (for
+    the three-stage kernel, the ``probe_ok`` it returns). Returns
+    (scores (Q, k), ids (Q, k) int32).
     """
     nq, nprobe = cids.shape
     mlut, table, probe_base, tau = _stage_b(index, q, base, cids,
@@ -410,6 +530,12 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
     higher_better = metric == "ip"
     if probe_base is not None:
         exact = exact + torch.gather(probe_base, 1, cand_probe)
+    if side is not None:
+        side_s, side_ok = _side_scores(mlut, cids, side, probe_ok, probe_base,
+                                       bad_score(metric))
+        exact = torch.cat([exact, side_s], dim=1)
+        cand_valid = torch.cat([cand_valid, side_ok], dim=1)
+        cand_ids = torch.cat([cand_ids, side.ids[None].expand(nq, -1)], dim=1)
     exact = torch.where(cand_valid, exact,
                         float("-inf") if higher_better else float("inf"))
     out_scores, sel = _top_k(exact, k, higher_better)
@@ -420,6 +546,7 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
                             nprobe: int, k: int, metric: str,
                             thres_scale: float, rerank: int = 0,
                             fused: bool = False, fused3: bool | None = None,
+                            side: SideBuffer | None = None,
                             prefilter: str = "scan",
                             rt_grid: rt_lib.CentroidGrid | None = None,
                             rt_scale: float = 1.0):
@@ -431,7 +558,7 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
     return _score_probed_two_stage(index, q, base, cids, k=k, metric=metric,
                                    thres_scale=thres_scale, rerank=rerank,
-                                   fused=fused, fused3=fused3,
+                                   fused=fused, fused3=fused3, side=side,
                                    prefilter=prefilter, rt_grid=rt_grid,
                                    rt_scale=rt_scale)
 
@@ -439,7 +566,8 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
 def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
            mode: str = "H", metric: str = "l2", thres_scale: float = 1.0,
            batch: int = 64, rerank: int = 0, fused: bool = False,
-           fused3: bool | None = None, side=None, prefilter: str = "scan",
+           fused3: bool | None = None, side: SideBuffer | None = None,
+           prefilter: str = "scan",
            rt_grid: rt_lib.CentroidGrid | None = None, rt_scale: float = 1.0
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Search the index — the online API (paper Alg. 2).
@@ -480,8 +608,10 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         ``fused=True`` and ``prefilter="rt"``; ``False`` composes the RT
         probe mask with the two-stage kernel (the same ids and scores);
         ``True`` also checks that the combination applies.
-    side
-        Only ``None`` is ported.
+    side : SideBuffer, optional
+        Overflow buffer of online inserts (``MutableJunoIndex``), on the
+        index's device, merged into the final top-k with the scoring its
+        points would get in their clusters.
     prefilter : str
         "scan" (every probed cluster is scanned) or "rt" (probes whose
         cluster disc the query disc misses in the ray plane are pruned;
@@ -506,8 +636,6 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         For ``fused=True`` with a mode other than "H2", an unknown mode or
         prefilter, ``prefilter="rt"`` without ``rt_grid``, or
         ``fused3=True`` without ``fused=True`` and ``prefilter="rt"``.
-    NotImplementedError
-        For a side buffer (not ported yet).
     """
     if mode not in ("H", "M", "L", "H2"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -521,8 +649,6 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         raise ValueError("fused3=True requires fused=True and "
                          "prefilter='rt' (the three-stage kernel folds the "
                          "RT test into the fused scan)")
-    if side is not None:
-        raise _not_ported("the side buffer", "item 7, mutability and freshness")
     dev = index.ivf.centroids.device
     q_all = _as_tensor(queries).to(dev)
     out_s, out_i = [], []
@@ -532,7 +658,8 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         if pad:
             qb = torch.cat([qb, qb[-1:].expand(pad, -1)])
         kw = dict(nprobe=nprobe, k=k, metric=metric, thres_scale=thres_scale,
-                  prefilter=prefilter, rt_grid=rt_grid, rt_scale=rt_scale)
+                  side=side, prefilter=prefilter, rt_grid=rt_grid,
+                  rt_scale=rt_scale)
         if mode == "H2":
             s, ids = _search_batch_two_stage(index, qb, rerank=rerank,
                                              fused=fused, fused3=fused3, **kw)
@@ -541,3 +668,463 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
         out_s.append(s[:batch - pad])
         out_i.append(ids[:batch - pad])
     return torch.cat(out_s), torch.cat(out_i)
+
+
+def _label_encode(pts: torch.Tensor, ivf: IVFIndex, codebook: PQCodebook
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Insert-time (labels, codes) of a point batch (B, D).
+
+    The owning cluster is the first minimum of ``csq − 2·p·cᵀ``
+    (``ops.filter_scores``: the ``ivf_filter`` kernel on the card), as
+    ``jnp.argmin`` takes it in the reference (``repro/core/juno.py:687``);
+    the codes are the residuals' PQ codes under the existing codebooks.
+    Returns (labels (B,) int32, codes (B, S) uint8).
+    """
+    d = ops.filter_scores(pts, ivf.centroids, ivf.centroid_sq, metric="l2")
+    labels = torch.argmin(d, dim=-1)
+    return (labels.to(torch.int32),
+            encode(pts - ivf.centroids[labels], codebook))
+
+
+class MutableIndexBase:
+    """Host-side slot bookkeeping of a mutable index.
+
+    Port of ``repro/core/juno.py:MutableIndexBase``: per-cluster free-slot
+    lists, an id → (cluster, slot) map (cluster −1 = a side-buffer
+    position, ≤ −2 = a minor generation), and a plan-then-commit
+    discipline, so that an ``insert``/``delete``/``compact`` that fails
+    raises before any host or device state is touched. Subclasses supply
+    the data plane: ``_labels_codes`` (insert-time encoding) and
+    ``_apply_insert``/``_apply_delete`` (device writes).
+    """
+
+    side: SideBuffer
+
+    def _init_bookkeeping(self, ivf_valid: torch.Tensor,
+                          point_ids: torch.Tensor, *, side_capacity: int,
+                          first_new_id: int, n_subspaces: int) -> None:
+        valid = ivf_valid.cpu().numpy()
+        pids = point_ids.cpu().numpy()
+        self.side = empty_side_buffer(side_capacity, n_subspaces,
+                                      ivf_valid.device)
+        self._free = [np.flatnonzero(~row)[::-1].tolist() for row in valid]
+        cs, ss = np.nonzero(valid)
+        #: id -> (cluster, slot); cluster -1 = side-buffer position
+        self._loc: dict[int, tuple[int, int]] = dict(zip(
+            pids[cs, ss].tolist(), zip(cs.tolist(), ss.tolist())))
+        self._side_free = list(range(side_capacity))[::-1]
+        self._next_id = first_new_id
+        # LSM delta tiers (core/freshness.py). A swap keeps the tier
+        # configuration; the epoch and rt counters are monotone across
+        # swaps, so a cached view or routing state never aliases a new
+        # generation's
+        self._minors: list = []
+        self._max_minors: int = getattr(self, "_max_minors", 0)
+        self._minor_gen: int = getattr(self, "_minor_gen", 0)
+        self._delta_epoch: int = getattr(self, "_delta_epoch", 0) + 1
+        self._delta_cache: tuple[int, SideBuffer] | None = None
+        self._rt_muts: int = getattr(self, "_rt_muts", -1) + 1
+
+    # ---- data-plane hooks (subclasses) ----------------------------------
+    def _labels_codes(self, pts: torch.Tensor):
+        raise NotImplementedError
+
+    def _rt_centroids(self) -> torch.Tensor:
+        """(C, D) centroids for rt-grid maintenance."""
+        raise NotImplementedError
+
+    def _apply_insert(self, cl: list[int], sl: list[int], ids: np.ndarray,
+                      codes: torch.Tensor) -> None:
+        raise NotImplementedError
+
+    def _apply_delete(self, cl: list[int], sl: list[int]) -> None:
+        raise NotImplementedError
+
+    def _rt_on_insert(self, pts: torch.Tensor, labels: np.ndarray) -> None:
+        """After a committed insert batch: grow the touched clusters'
+        projected reaches when an rt grid is attached, so the sphere test
+        never drops a cluster holding a fresh point (host numpy, as the
+        reference computes them). Always bumps :attr:`rt_mutations`, so a
+        routing state cached before the insert is never reused after it."""
+        self._rt_muts += 1
+        grid = getattr(self, "rt_grid", None)
+        if grid is None:
+            return
+        res = (pts.cpu().numpy().astype(np.float32)
+               - self._rt_centroids().cpu().numpy()[labels])
+        rp = res @ grid.proj.cpu().numpy()
+        self.rt_grid = rt_lib.update_radii(
+            grid, labels, np.sqrt(np.sum(rp * rp, axis=-1)))
+
+    # ---- introspection --------------------------------------------------
+    @property
+    def n_live(self) -> int:
+        """Number of live (non-tombstoned) points in the index."""
+        return len(self._loc)
+
+    @property
+    def side_fill(self) -> int:
+        """Number of occupied side-buffer slots."""
+        return self.side.capacity - len(self._side_free)
+
+    def free_slots(self, cluster: int) -> int:
+        """Free padded slots remaining in ``cluster``."""
+        return len(self._free[cluster])
+
+    @property
+    def rt_mutations(self) -> int:
+        """Monotone count of rt-relevant mutations (insert batches and
+        generation swaps); the engine's routing cache keys on it."""
+        return self._rt_muts
+
+    # ---- LSM delta tiers (core/freshness.py) ----------------------------
+    def enable_tiers(self, max_minors: int, *, minor_store=None) -> None:
+        """Turn on the LSM freshness tiers (``core/freshness.py``).
+
+        With ``max_minors > 0`` a full L0 side buffer no longer makes
+        ``insert`` raise: it is promoted into one of up to ``max_minors``
+        sealed minor generations, which a ``MergeScheduler`` folds back
+        into the base.
+
+        Parameters
+        ----------
+        max_minors : int
+            Maximum concurrent minor generations (0 disables tiering).
+        minor_store
+            Artifact-backed minors are not ported: anything but ``None``
+            raises ``NotImplementedError``.
+        """
+        if minor_store is not None:
+            raise NotImplementedError(
+                "artifact-backed minor generations are not ported to "
+                "repro_torch yet (ROADMAP.md, queue 1: item 8, ArtifactStore)")
+        self._max_minors = int(max_minors)
+        self._delta_cache = None
+        self._delta_epoch += 1
+
+    @property
+    def delta_fill(self) -> int:
+        """Live points across all delta tiers (L0 + minor generations)."""
+        return self.side_fill + sum(m.live for m in self._minors)
+
+    def delta_view(self) -> SideBuffer | None:
+        """The delta tiers as one :class:`SideBuffer`, ``None`` when empty.
+
+        Without tiers this is the side buffer itself. With tiers, L0 and
+        every minor generation are concatenated and padded to the constant
+        capacity ``B · (1 + max_minors)`` (so the search's shapes do not
+        change across merge cycles), cached until the next tier mutation.
+        """
+        if self._max_minors <= 0:
+            return None if self.side_fill == 0 else self.side
+        if self.side_fill == 0 and not self._minors:
+            return None
+        if (self._delta_cache is None
+                or self._delta_cache[0] != self._delta_epoch):
+            from .freshness import combined_delta
+            self._delta_cache = (
+                self._delta_epoch,
+                combined_delta(self.side, self._minors, self._max_minors))
+        return self._delta_cache[1]
+
+    def delta_snapshot(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                      np.ndarray]:
+        """Host ``(valid, cluster, ids, codes)`` over L0 + minors, unpadded
+        (what ``build.rebuild.live_points`` folds in)."""
+        tiers = [self.side, *self._minors]
+        host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np.asarray(a)  # noqa: E731
+        return tuple(np.concatenate([host(getattr(t, f)) for t in tiers])
+                     for f in ("valid", "cluster", "ids", "codes"))
+
+    # ---- mutation -------------------------------------------------------
+    def _placement_fits(self, labels: np.ndarray, side_slots: int) -> bool:
+        """Whether a batch with these owning clusters is placeable given
+        ``side_slots`` free L0 positions (reads, mutates nothing)."""
+        cs, counts = np.unique(labels, return_counts=True)
+        spill = sum(max(0, int(n) - len(self._free[int(c)]))
+                    for c, n in zip(cs, counts))
+        return spill <= side_slots
+
+    def insert(self, points) -> list[int]:
+        """Insert a (B, D) batch; returns the assigned global ids.
+
+        Raises ``RuntimeError`` before mutating anything when the batch
+        cannot be placed (an owning cluster is full and the delta tier
+        cannot take the rest; call ``compact()`` or raise
+        ``side_capacity``). With the tiers on, a full L0 is first promoted
+        into a minor generation, only when the batch then provably fits.
+        The commit writes the device first (the side buffer as a new copy,
+        the cluster slots through ``_apply_insert``) and the host
+        bookkeeping last, so a device write that raises leaves the host
+        bookkeeping and the side buffer unchanged.
+        """
+        dev = self.side.codes.device
+        pts = _as_tensor(points).to(dev)
+        if pts.dim() == 1:
+            pts = pts[None]
+        labels_t, codes = self._labels_codes(pts)               # (B,), (B, S)
+        labels = labels_t.cpu().numpy()
+
+        if not self._placement_fits(labels, len(self._side_free)):
+            if (self._max_minors > 0 and self.side_fill > 0
+                    and len(self._minors) < self._max_minors
+                    and self._placement_fits(labels, self.side.capacity)):
+                from .freshness import promote_l0
+                promote_l0(self)
+            else:
+                raise RuntimeError(
+                    "insert batch does not fit: cluster padding and side "
+                    "buffer exhausted — call compact() or raise side_capacity")
+
+        # plan: per-cluster free slots from the free lists' tails, in
+        # order, then side-buffer positions
+        taken: dict[int, int] = {}
+        side_need = 0
+        placements: list[tuple[int, int]] = []   # (cluster, slot) | (-1, pos)
+        for c in labels.tolist():
+            used = taken.get(c, 0)
+            if used < len(self._free[c]):
+                placements.append((c, self._free[c][-1 - used]))
+                taken[c] = used + 1
+            else:                 # _placement_fits guarantees a position
+                placements.append((-1, self._side_free[-1 - side_need]))
+                side_need += 1
+
+        new_ids = list(range(self._next_id, self._next_id + pts.shape[0]))
+        ids_np = np.asarray(new_ids, np.int32)
+        cl, sl, sel, s_pos, s_sel = [], [], [], [], []
+        for i, (c, slot) in enumerate(placements):
+            if c >= 0:
+                cl.append(c)
+                sl.append(slot)
+                sel.append(i)
+            else:
+                s_pos.append(slot)
+                s_sel.append(i)
+
+        # commit: device first (the side buffer as a new copy) …
+        new_side = None
+        if s_pos:
+            pos_t = torch.as_tensor(s_pos, device=dev)
+            sel_t = torch.as_tensor(s_sel, device=dev)
+            new_side = _side_set(
+                self.side, pos_t, codes=codes[sel_t],
+                cluster=labels_t[sel_t],
+                ids=torch.as_tensor(ids_np[s_sel], device=dev), valid=True)
+        if cl:
+            self._apply_insert(cl, sl, ids_np[sel],
+                               codes[torch.as_tensor(sel, device=dev)])
+        # … then the host bookkeeping, which cannot fail
+        if new_side is not None:
+            self.side = new_side
+        for c, cnt in taken.items():
+            del self._free[c][-cnt:]
+        if side_need:
+            del self._side_free[-side_need:]
+        for i, (c, slot) in enumerate(placements):
+            self._loc[new_ids[i]] = (c, slot)
+        self._next_id += pts.shape[0]
+        if s_pos:
+            self._delta_epoch += 1
+        self._rt_on_insert(pts, labels)
+        return new_ids
+
+    def delete(self, ids) -> int:
+        """Tombstone points by global id; returns how many were removed.
+
+        Freed cluster slots become insert targets; nothing moves. An
+        unknown, already deleted or duplicated id raises ``KeyError``
+        before any state is touched. A point in a minor generation is
+        tombstoned in that generation's host mask; a generation left empty
+        is dropped.
+        """
+        pids = [int(p) for p in np.atleast_1d(np.asarray(ids, np.int64))]
+        if len(set(pids)) != len(pids):
+            raise KeyError(f"duplicate ids in delete batch: {pids}")
+        locs = [self._loc[p] for p in pids]      # KeyError = unknown id
+        cl, sl, s_pos = [], [], []
+        m_pos: dict[int, list[int]] = {}         # minor gen -> positions
+        for c, slot in locs:
+            if c >= 0:
+                cl.append(c)
+                sl.append(slot)
+            elif c == -1:
+                s_pos.append(slot)
+            else:
+                m_pos.setdefault(-2 - c, []).append(slot)
+        # device first …
+        if cl:
+            self._apply_delete(cl, sl)
+        if s_pos:
+            pos_t = torch.as_tensor(s_pos, device=self.side.valid.device)
+            self.side = _side_set(self.side, pos_t, valid=False)
+        # … then the host bookkeeping
+        if m_pos:
+            by_gen = {m.gen: m for m in self._minors}
+            for g, poss in m_pos.items():
+                by_gen[g].valid[np.asarray(poss)] = False
+            self._minors = [m for m in self._minors if m.live]
+        for pid in pids:
+            del self._loc[pid]
+        for c, slot in locs:
+            if c >= 0:
+                self._free[c].append(slot)
+            elif c == -1:
+                self._side_free.append(slot)
+        if s_pos or m_pos:
+            self._delta_epoch += 1
+        return len(pids)
+
+    def compact(self) -> int:
+        """Fold side-buffer points into freed slots of their owning cluster.
+
+        Returns how many points moved; points whose cluster is still full
+        stay in the buffer. The search's results do not change (same
+        scoring). The plan is built (one stable argsort groups side
+        positions by cluster; each cluster gives its free-list tail) and
+        checked before anything mutates: a free slot listed twice
+        (double-free) or a fold from a side position already on the free
+        list (reused slot) raises ``RuntimeError`` with all state
+        unchanged. Device first, host last, as ``insert``.
+        """
+        side_valid = self.side.valid.cpu().numpy()
+        side_cluster = self.side.cluster.cpu().numpy()
+        side_ids = self.side.ids.cpu().numpy()
+        pos_all = np.flatnonzero(side_valid)
+        if pos_all.size == 0:
+            return 0
+        pos_sorted = pos_all[np.argsort(side_cluster[pos_all], kind="stable")]
+        cs, starts, counts = np.unique(side_cluster[pos_sorted],
+                                       return_index=True, return_counts=True)
+        cl: list[int] = []
+        sl: list[int] = []
+        pos_l: list[int] = []
+        plan: list[tuple[int, int]] = []         # (cluster, take)
+        for c, st, n in zip(cs.tolist(), starts.tolist(), counts.tolist()):
+            take = min(n, len(self._free[c]))
+            if not take:
+                continue
+            cl += [c] * take
+            sl += [int(s) for s in self._free[c][-take:][::-1]]
+            pos_l += pos_sorted[st:st + take].tolist()
+            plan.append((c, take))
+        if not pos_l:
+            return 0
+        if len(set(zip(cl, sl))) != len(sl):
+            raise RuntimeError(
+                "compact plan references a cluster slot twice (corrupted "
+                "free list / double-free); refusing to fold")
+        if set(pos_l) & set(self._side_free):
+            raise RuntimeError(
+                "compact plan folds a side position already on the free "
+                "list (reused-slot aliasing); refusing to fold")
+        pos_t = torch.as_tensor(pos_l, device=self.side.valid.device)
+        self._apply_insert(cl, sl, side_ids[pos_l].astype(np.int32),
+                           self.side.codes[pos_t])
+        self.side = _side_set(self.side, pos_t, valid=False)
+        for c, take in plan:
+            del self._free[c][-take:]
+        for c, slot, pos in zip(cl, sl, pos_l):
+            self._loc[int(side_ids[pos])] = (c, slot)
+        self._side_free.extend(pos_l)
+        self._delta_epoch += 1
+        return len(pos_l)
+
+
+class MutableJunoIndex(MutableIndexBase):
+    """Online-mutable wrapper over a built :class:`JunoIndexData`.
+
+    ``insert`` encodes new points with the existing codebooks into free
+    padded slots of their owning cluster, spilling into a fixed-capacity
+    :class:`SideBuffer` when a cluster is full; ``delete`` tombstones them
+    through ``valid``; ``compact()`` folds spills back into freed slots.
+    None of them changes the search's shapes.
+
+    The index's tensors are updated **in place** (a copy of the 400 MB
+    ``cluster_codes`` a batch is not affordable): the wrapper owns
+    ``data``, and a caller who needs the index as built passes a copy.
+    A batch writes ``cluster_codes``, then ``point_ids``, then ``valid``
+    last, so a write that fails part-way leaves only invisible slots.
+
+    An optional :class:`repro_torch.rt.CentroidGrid` rides along for
+    ``prefilter="rt"`` (attached, or built by :meth:`ensure_rt_grid`);
+    inserts grow the touched clusters' reaches, deletes leave them.
+    """
+
+    def __init__(self, data: JunoIndexData, *, side_capacity: int = 256,
+                 rt_grid: rt_lib.CentroidGrid | None = None):
+        self.data = data
+        self.rt_grid = rt_grid
+        self._init_bookkeeping(data.ivf.valid, data.ivf.point_ids,
+                               side_capacity=side_capacity,
+                               first_new_id=int(data.codes.shape[0]),
+                               n_subspaces=int(data.codes.shape[1]))
+
+    def _labels_codes(self, pts):
+        return _label_encode(pts, self.data.ivf, self.data.codebook)
+
+    def swap_data(self, new_data: JunoIndexData, *,
+                  side_capacity: int | None = None) -> None:
+        """Install a rebuilt :class:`JunoIndexData` in one assignment.
+
+        The bookkeeping is rederived from its ``point_ids``/``valid``, the
+        side buffer is reset to empty (a rebuild drains it, see
+        ``build.rebuild``), and the id counter is kept so ids never repeat.
+        The rt grid is dropped and rebuilt at the next ``prefilter="rt"``
+        search (:meth:`ensure_rt_grid`).
+
+        Parameters
+        ----------
+        new_data : JunoIndexData
+            The replacement index; its point ids are already global.
+        side_capacity : int, optional
+            Capacity of the fresh side buffer (default: the current one's).
+        """
+        pids = new_data.ivf.point_ids
+        first_new = max(self._next_id,
+                        int(pids.max()) + 1 if pids.numel() else 0)
+        self.data = new_data
+        self.rt_grid = None
+        self._init_bookkeeping(
+            new_data.ivf.valid, pids,
+            side_capacity=(self.side.capacity if side_capacity is None
+                           else side_capacity),
+            first_new_id=first_new,
+            n_subspaces=int(new_data.codes.shape[1]))
+
+    def ensure_rt_grid(self, *, metric: str = "l2", **kw
+                       ) -> rt_lib.CentroidGrid:
+        """Build and attach the centroid grid if none is attached
+        (``rt.build_grid(self.data, metric=metric, **kw)``); returns it."""
+        if self.rt_grid is None:
+            self.rt_grid = rt_lib.build_grid(self.data, metric=metric, **kw)
+        return self.rt_grid
+
+    def _rt_centroids(self):
+        return self.data.ivf.centroids
+
+    def _apply_insert(self, cl, sl, ids, codes):
+        dev = self.data.cluster_codes.device
+        cl_t = torch.as_tensor(cl, device=dev)
+        sl_t = torch.as_tensor(sl, device=dev)
+        ids_t = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
+        codes = codes.to(dev)
+        # valid last: a write that fails part-way leaves invisible slots
+        self.data.cluster_codes[cl_t, sl_t] = codes
+        self.data.ivf.point_ids[cl_t, sl_t] = ids_t
+        self.data.ivf.valid[cl_t, sl_t] = True
+
+    def _apply_delete(self, cl, sl):
+        dev = self.data.ivf.valid.device
+        self.data.ivf.valid[torch.as_tensor(cl, device=dev),
+                            torch.as_tensor(sl, device=dev)] = False
+
+    def search(self, queries, *, prefilter: str = "scan", **kw):
+        """:func:`search` over the current state, side buffer included
+        (``None`` when empty); ``prefilter="rt"`` builds the grid at first
+        use. Keyword arguments go to :func:`search`."""
+        if prefilter == "rt" and kw.get("rt_grid") is None:
+            kw["rt_grid"] = self.ensure_rt_grid(metric=kw.get("metric", "l2"))
+        return search(self.data, queries, side=self.delta_view(),
+                      prefilter=prefilter, **kw)

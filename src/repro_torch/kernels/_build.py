@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("selective_lut", "fused_two_stage", "pq_scan", "hit_count",
-           "sphere_hits", "fused_three_stage")
+           "sphere_hits", "fused_three_stage", "ivf_filter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

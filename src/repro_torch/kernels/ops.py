@@ -2,11 +2,12 @@
 
 Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
 ``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135),
-``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183) and
-``rt_sphere_hits`` (l.225). Dispatch follows the tensors' device: a CPU
-tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes to
-the hand-written CUDA kernel, or the call raises. There is no fallback
-from a kernel to its plain version.
+``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183),
+``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263). Dispatch
+follows the tensors' device: a CPU tensor goes to the kernel's plain
+PyTorch version; a CUDA tensor goes to the hand-written CUDA kernel, or
+the call raises. There is no fallback from a kernel to its plain
+version.
 
 The scans take the whole index (``codes (n_clusters, P, S)``,
 ``valid (n_clusters, P)``) and the probed cluster ids ``cids (Q, np)``
@@ -24,6 +25,7 @@ import torch
 from .fused_three_stage import fused_three_stage, fused_three_stage_plain
 from .fused_two_stage import fused_two_stage, fused_two_stage_plain
 from .hit_count import hit_count, hit_count_plain
+from .ivf_filter import ivf_filter, ivf_filter_plain
 from .pq_scan import pq_scan, pq_scan_plain
 from .selective_lut import selective_lut, selective_lut_plain
 from .sphere_hits import sphere_hits, sphere_hits_plain
@@ -182,3 +184,18 @@ def rt_sphere_hits(q0: torch.Tensor, q1: torch.Tensor, radius: torch.Tensor,
     if _on_cuda(*args):
         return sphere_hits(*(a.contiguous() for a in args))
     return sphere_hits_plain(*args)
+
+
+def filter_scores(queries: torch.Tensor, centroids: torch.Tensor,
+                  centroid_sq: torch.Tensor, *, metric: str = "l2"
+                  ) -> torch.Tensor:
+    """Stage A's score matrix: every query against every centroid.
+
+    queries (Q, D) f32, centroids (C, D) f32, centroid_sq (C,) f32 ->
+    (Q, C) f32: ``csq − 2·q·cᵀ`` for l2 (lower is better, ‖q‖² left out),
+    ``q·cᵀ`` for ip (higher is better).
+    """
+    args = (queries, centroids, centroid_sq)
+    if _on_cuda(*args):
+        return ivf_filter(*(a.contiguous() for a in args), metric=metric)
+    return ivf_filter_plain(*args, metric=metric)

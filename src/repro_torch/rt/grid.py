@@ -301,6 +301,46 @@ def survivor_mask(grid: CentroidGrid, queries: torch.Tensor,
     return hits[:, grid.slot_of.long()]
 
 
+def update_radii(grid: CentroidGrid, clusters, reaches) -> CentroidGrid:
+    """Grow the reaches of the clusters that took inserted points.
+
+    Inserts never move centroids, so cell membership is stable: only the
+    owning cluster's reach can grow (a new point may project farther from
+    its centroid than any member). The touched slots' and cells' reaches
+    are recomputed in numpy f32 on the host, as the reference does
+    (``repro/rt/grid.py:343``, bit-equal), and written to new tensors on
+    the grid's device. Deletes never shrink a reach (a stale larger reach
+    only over-covers).
+
+    Parameters
+    ----------
+    grid : CentroidGrid
+        Current grid.
+    clusters : array-like
+        (B,) int — owning cluster of each inserted point.
+    reaches : array-like
+        (B,) f32 — projected residual length of each inserted point
+        (``‖(p − centroid) @ proj‖``).
+
+    Returns
+    -------
+    CentroidGrid
+        A new grid; every untouched tensor is shared with ``grid``.
+    """
+    clusters = np.atleast_1d(np.asarray(clusters, np.int64))
+    reaches = np.atleast_1d(np.asarray(reaches, np.float32))
+    cap = grid.capacity
+    slots = grid.slot_of.cpu().numpy()[clusters]
+    slot_reach = grid.slot_reach.cpu().numpy().copy()
+    np.maximum.at(slot_reach.reshape(-1), slots, reaches)
+    cells = np.unique(slots // cap)
+    cell_reach = grid.cell_reach.cpu().numpy().copy()
+    cell_reach[cells] = slot_reach[cells].max(axis=1)
+    dev = grid.slot_reach.device
+    return grid._replace(slot_reach=torch.from_numpy(slot_reach).to(dev),
+                         cell_reach=torch.from_numpy(cell_reach).to(dev))
+
+
 def routing_state(grid: CentroidGrid, data) -> dict:
     """Host (numpy) snapshot of everything :func:`probe_budget` reads.
 

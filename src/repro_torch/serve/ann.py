@@ -1,7 +1,8 @@
 """Online ANN query serving over tiers H, M, L and H2.
 
 Port of ``repro/serve/ann.py`` (``AnnRequest``, ``AnnServeEngine``:
-``submit``, ``route``, ``step``, ``run``, ``latency_stats``). Requests
+``submit``, ``route``, ``step``, ``run``, ``insert``, ``delete``,
+``compact``, ``swap_index``, ``latency_stats``). Requests
 queue FIFO; each engine tick drains ONE group of requests that resolve to
 the same signature ``(k, mode, nprobe)`` into one search call:
 
@@ -23,10 +24,16 @@ the same signature ``(k, mode, nprobe)`` into one search call:
   probes by the sphere test (``rt/``; fused H2 through the three-stage
   kernel), and the router shrinks each request's probe budget to the
   smallest ``RT_NPROBE_BUCKETS`` entry covering its queries' last
-  surviving probe (``rt.probe_budget``, host numpy, once a request).
+  surviving probe (``rt.probe_budget``, host numpy, once a request and
+  again after each insert batch, which grows the grid's reaches).
+* **Mutation plane** — the engine owns a
+  :class:`~repro_torch.core.juno.MutableJunoIndex`: ``insert``,
+  ``delete`` and ``compact`` run between ticks with no change to any
+  search shape (the delta tiers ride along as one fixed-capacity side
+  buffer); ``swap_index`` installs a rebuilt index; with ``max_minors``
+  a ``MergeScheduler`` folds the freshness tiers back between ticks.
 
-Mutation (and with it the router's mutation epochs), the freshness tiers,
-observability and index swaps are later slices (ROADMAP.md).
+Observability is a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -38,7 +45,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.juno import JunoIndexData, _search_batch, _search_batch_two_stage
+from ..core.freshness import MergeScheduler
+from ..core.juno import (JunoIndexData, MutableIndexBase, MutableJunoIndex,
+                         _search_batch, _search_batch_two_stage)
 from ..rt import grid as rt_lib
 
 
@@ -58,6 +67,7 @@ class AnnRequest:
     nprobe: int = 0                     # 0 → engine default for the mode
     recall_target: float = 0.9          # router input when mode == "auto"
     rt_probes: int = -1                 # cached rt probe budget (-1 unset)
+    rt_epoch: int = -1                  # index rt_mutations the cache is for
     scores: Optional[np.ndarray] = None
     ids: Optional[np.ndarray] = None
     done: bool = False
@@ -73,7 +83,7 @@ class AnnRequest:
 
 
 class AnnServeEngine:
-    """Dynamic-batching ANN serving engine over a JUNO index."""
+    """Dynamic-batching ANN serving engine over a mutable JUNO index."""
 
     K_BUCKETS = (10, 100)
     NPROBE_BUCKETS = (4, 8, 16, 32)
@@ -87,22 +97,28 @@ class AnnServeEngine:
     # fused serving: rerank budget C = FUSED_RERANK_MULT · k
     FUSED_RERANK_MULT = 32
 
-    def __init__(self, index: JunoIndexData, *, metric: str = "l2",
-                 thres_scale: float = 1.0,
+    def __init__(self, index: JunoIndexData | MutableIndexBase, *,
+                 metric: str = "l2", thres_scale: float = 1.0,
+                 side_capacity: int = 256,
                  batch_buckets: tuple[int, ...] | None = None,
                  fused: bool = False, fused3: bool | None = None,
                  prefilter: str = "scan", rt_scale: float = 1.0,
-                 rt_grid: rt_lib.CentroidGrid | None = None):
-        """Wrap a built or loaded index in a serving engine.
+                 rt_grid: rt_lib.CentroidGrid | None = None,
+                 max_minors: int = 0, merge_clusters_per_step: int = 32):
+        """Wrap an index (mutable or not) in a serving engine.
 
         Parameters
         ----------
-        index : JunoIndexData
-            The index to serve; searches run on its device.
+        index : JunoIndexData or MutableIndexBase
+            The index to serve; searches run on its device. A bare
+            ``JunoIndexData`` is wrapped in a ``MutableJunoIndex``, which
+            updates its tensors in place on insert and delete.
         metric : str
             "l2" | "ip".
         thres_scale : float
             Threshold multiplier forwarded to every search.
+        side_capacity : int
+            Side-buffer capacity when wrapping a bare index.
         batch_buckets : tuple of int, optional
             Batch sizes the groups pad up to (default ``BATCH_BUCKETS``).
         fused : bool
@@ -120,32 +136,56 @@ class AnnServeEngine:
         rt_scale : float
             Radius knob for "rt" (monotone; large values prune nothing).
         rt_grid : repro_torch.rt.CentroidGrid, optional
-            The grid for "rt"; ``None`` builds one from the index
-            (``rt.build_grid``), as the reference's ``ensure_rt_grid``
-            does.
+            A grid to attach to the index for "rt"; ``None`` builds one
+            from the index when "rt" needs it (``ensure_rt_grid``).
+        max_minors : int
+            With a value > 0, turn on the LSM freshness tiers
+            (``core/freshness.py``): a full side buffer is promoted into one
+            of up to ``max_minors`` minor generations instead of refusing
+            inserts, and a ``MergeScheduler`` folds them back between
+            ticks. 0 (default) keeps the single side buffer.
+        merge_clusters_per_step : int
+            Fold budget per between-ticks merge step (clusters).
         """
         if prefilter not in ("scan", "rt"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
-        self.index = index
+        self.index = (index if isinstance(index, MutableIndexBase)
+                      else MutableJunoIndex(index,
+                                            side_capacity=side_capacity))
+        if rt_grid is not None:
+            self.index.rt_grid = rt_grid
         self.fused = fused
         self.fused3 = fused3
         self.prefilter = prefilter
         self.rt_scale = rt_scale
-        self.rt_grid = None
-        #: host snapshot of what probe_budget reads (rt.routing_state)
-        self._rt_state = None
-        if prefilter == "rt":
-            self.rt_grid = (rt_grid if rt_grid is not None
-                            else rt_lib.build_grid(index, metric=metric))
-            self._rt_state = rt_lib.routing_state(self.rt_grid, index)
         self.metric = metric
         self.thres_scale = thres_scale
+        #: (grid, routing_state, rt_mutations) of the last route(); the
+        #: grid's identity and the mutation count invalidate it
+        self._rt_state = None
+        if prefilter == "rt":
+            self.index.ensure_rt_grid(metric=metric)
+        #: between-ticks merge scheduler when the freshness tiers are on
+        self.scheduler = None
+        if max_minors:
+            self.index.enable_tiers(max_minors)
+            self.scheduler = MergeScheduler(
+                self.index, clusters_per_step=merge_clusters_per_step)
         self.batch_buckets = tuple(batch_buckets or self.BATCH_BUCKETS)
         self.queue: collections.deque[AnnRequest] = collections.deque()
         self.completed: list[AnnRequest] = []
         self._rid = 0
+        #: bumped by every swap_index(); later results come from the new
+        #: index generation
+        self.generation = 0
         self.stats = {"queries": 0, "requests": 0, "ticks": 0,
-                      "padded_rows": 0, "signatures": collections.Counter()}
+                      "padded_rows": 0, "inserts": 0, "deletes": 0,
+                      "swaps": 0, "signatures": collections.Counter()}
+
+    @property
+    def rt_grid(self) -> rt_lib.CentroidGrid | None:
+        """The centroid grid attached to the served index, if any."""
+        return self.index.rt_grid
 
     def submit(self, queries, *, k: int = 10, mode: str = "auto",
                nprobe: int = 0, recall_target: float = 0.9) -> AnnRequest:
@@ -188,7 +228,7 @@ class AnnServeEngine:
         batch together. With ``prefilter="rt"`` the probe budget shrinks to
         the smallest ``RT_NPROBE_BUCKETS`` entry covering the request's
         last surviving probe (``rt.probe_budget``, computed once a request
-        and cached in ``req.rt_probes``).
+        and cached in ``req.rt_probes`` until the next insert batch).
         """
         mode = req.mode
         if mode == "auto":
@@ -200,16 +240,26 @@ class AnnServeEngine:
         nprobe = next((b for b in self.NPROBE_BUCKETS if b >= nprobe),
                       self.NPROBE_BUCKETS[-1])
         if self.prefilter == "rt":
-            if req.rt_probes < 0:
+            muts = self.index.rt_mutations
+            if req.rt_probes < 0 or req.rt_epoch != muts:
+                # a cached budget holds only for the index state it was
+                # computed on: inserts grow reaches, so a pre-insert budget
+                # could under-probe fresh points
+                grid = self.index.ensure_rt_grid(metric=self.metric)
+                if (self._rt_state is None or self._rt_state[0] is not grid
+                        or self._rt_state[2] != muts):
+                    self._rt_state = (grid, rt_lib.routing_state(
+                        grid, self.index.data), muts)
                 req.rt_probes = int(rt_lib.probe_budget(
-                    self.rt_grid, self.index, req.queries, metric=self.metric,
+                    grid, self.index.data, req.queries, metric=self.metric,
                     scale=self.rt_scale, thres_scale=self.thres_scale,
-                    max_probes=nprobe, state=self._rt_state).max())
+                    max_probes=nprobe, state=self._rt_state[1]).max())
+                req.rt_epoch = muts
             shrunk = next((b for b in self.RT_NPROBE_BUCKETS
                            if b >= max(req.rt_probes, 1)),
                           self.RT_NPROBE_BUCKETS[-1])
             nprobe = min(nprobe, shrunk)
-        return k, mode, min(nprobe, self.index.ivf.centroids.shape[0])
+        return k, mode, min(nprobe, self.index.data.ivf.centroids.shape[0])
 
     def step(self) -> int:
         """Serve one signature group. Returns the number of query rows."""
@@ -235,7 +285,10 @@ class AnnServeEngine:
 
         k, mode, nprobe = sig
         batch = np.concatenate([r.queries for r in picked], axis=0)
-        dev = self.index.ivf.centroids.device
+        dev = self.index.data.ivf.centroids.device
+        # an empty delta tier is left out of the search; with the tiers on
+        # this is the fixed-capacity L0 ⊕ minors view
+        side = self.index.delta_view()
         out_s, out_i = [], []
         for lo in range(0, rows, max_rows):
             chunk = batch[lo:lo + max_rows]
@@ -244,7 +297,7 @@ class AnnServeEngine:
             if n < bucket:
                 chunk = np.pad(chunk, ((0, bucket - n), (0, 0)), mode="edge")
             s, ids = self._dispatch(torch.from_numpy(chunk).to(dev), k, mode,
-                                    nprobe)
+                                    nprobe, side)
             out_s.append(s[:n].cpu().numpy())
             out_i.append(ids[:n].cpu().numpy())
             self.stats["padded_rows"] += bucket - n
@@ -264,18 +317,25 @@ class AnnServeEngine:
         self.stats["queries"] += rows
         self.stats["requests"] += len(picked)
         self.stats["ticks"] += 1
+        if self.scheduler is not None:
+            # one bounded merge step between ticks
+            self.scheduler.maybe_step()
         return rows
 
-    def _dispatch(self, qb: torch.Tensor, k: int, mode: str, nprobe: int):
+    def _dispatch(self, qb: torch.Tensor, k: int, mode: str, nprobe: int,
+                  side):
         """Run one padded batch through the search of its tier."""
+        grid = (self.index.ensure_rt_grid(metric=self.metric)
+                if self.prefilter == "rt" else None)
         kw = dict(nprobe=nprobe, k=k, metric=self.metric,
-                  thres_scale=self.thres_scale, prefilter=self.prefilter,
-                  rt_grid=self.rt_grid, rt_scale=self.rt_scale)
+                  thres_scale=self.thres_scale, side=side,
+                  prefilter=self.prefilter, rt_grid=grid,
+                  rt_scale=self.rt_scale)
         if mode == "H2":
             return _search_batch_two_stage(
-                self.index, qb, fused=self.fused, fused3=self.fused3,
+                self.index.data, qb, fused=self.fused, fused3=self.fused3,
                 rerank=self.FUSED_RERANK_MULT * k if self.fused else 0, **kw)
-        return _search_batch(self.index, qb, mode=mode, **kw)
+        return _search_batch(self.index.data, qb, mode=mode, **kw)
 
     def run(self, max_ticks: int = 100_000) -> int:
         """Drain the queue; returns total query rows served."""
@@ -285,6 +345,76 @@ class AnnServeEngine:
                 break
             total += self.step()
         return total
+
+    # ---- mutation plane (between ticks) ---------------------------------
+    def insert(self, points) -> list[int]:
+        """Insert a (B, D) point batch into the served index; returns the
+        assigned global ids (see ``MutableJunoIndex.insert``)."""
+        ids = self.index.insert(points)
+        self.stats["inserts"] += len(ids)
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone points by global id; returns how many were removed.
+        An unknown or duplicated id raises before any state is touched."""
+        n = self.index.delete(ids)
+        self.stats["deletes"] += n
+        return n
+
+    def compact(self, *, rebuild: bool | str = "auto") -> int:
+        """Fold the delta tiers into the base, rebuilding only if needed.
+
+        With the freshness tiers on, the merge scheduler drains (L0 into
+        free base slots, a full L0 into a minor generation, generations
+        into the base); without them, the side buffer folds into free
+        slots. Then, with ``rebuild="auto"``, side points still stuck
+        (their cluster full) trigger :meth:`swap_index`, so the side
+        buffer always ends empty; ``True`` always rebuilds, ``False``
+        never.
+
+        Returns
+        -------
+        int
+            Total points moved between tiers.
+        """
+        if self.scheduler is not None:
+            moved = self.scheduler.drain()
+        else:
+            moved = self.index.compact()
+        stuck = self.index.side_fill
+        if rebuild is True or (rebuild == "auto" and stuck):
+            self.swap_index()
+            moved += stuck
+        return moved
+
+    def swap_index(self, new_data: JunoIndexData | None = None) -> int:
+        """Install a rebuilt index between ticks (a hot swap).
+
+        Requests served before the call saw the old generation; every
+        later one (queued ones included) sees the new. The rt grid and
+        the router's state are dropped and rebuilt at the next rt search.
+
+        Parameters
+        ----------
+        new_data : JunoIndexData, optional
+            The replacement index. Default: ``build.rebuild_index`` of the
+            live state, which keeps every live point and the results. A
+            caller's index replaces the state wholesale (mutations not in
+            it are dropped).
+
+        Returns
+        -------
+        int
+            The new generation number.
+        """
+        if new_data is None:
+            from ..build.rebuild import rebuild_index
+            new_data = rebuild_index(self.index)
+        self.index.swap_data(new_data)
+        self._rt_state = None
+        self.generation += 1
+        self.stats["swaps"] += 1
+        return self.generation
 
     def latency_stats(self) -> dict:
         """Latency percentiles over completed requests.

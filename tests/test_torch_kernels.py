@@ -11,6 +11,10 @@ oracles.
   N(0, 1) LUT entries of these inputs can cancel to near 0).
 * Against the dense oracle ``ref.fused_two_stage_ref`` the candidate SET
   must match (the oracle orders it by count).
+* ``ivf_filter_plain`` (and ``ops.filter_scores`` on the CPU) against the
+  Pallas ``ivf_filter`` in interpret mode and ``ref.ivf_filter_ref``, at
+  the reference test's shapes, within rtol 1e-5, atol 1e-4 (the products
+  sum over D in another order).
 
 The CUDA kernels against their plain versions are in
 ``test_torch_kernels_gpu.py`` (no JAX there: the card's machine has none).
@@ -23,8 +27,10 @@ import torch
 from repro.core.lut import ip_pruned_fill
 from repro.kernels import ref as jref
 from repro.kernels.fused_two_stage import fused_two_stage_host
+from repro.kernels.ivf_filter import ivf_filter as pallas_ivf_filter
 from repro.kernels.selective_lut import selective_lut as pallas_selective_lut
 from repro_torch.kernels import fused_two_stage as pfused
+from repro_torch.kernels import ivf_filter as pivf
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
 from repro_torch.kernels import selective_lut as pslut
@@ -184,3 +190,33 @@ def test_ops_rejects_mixed_devices():
     with pytest.raises(ValueError):
         ops.fused_two_stage_scan(torch.from_numpy(lut), torch.from_numpy(table),
                                  codes, valid.to("meta"), cids, cap_c=4)
+
+
+@pytest.mark.parametrize("shape", [(64, 96, 128), (17, 40, 37),
+                                   (128, 200, 300), (1, 8, 9)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_filter_plain_matches_reference(shape, metric):
+    nq, d, c = shape
+    rng = np.random.default_rng(nq + d + c)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    cents = rng.standard_normal((c, d)).astype(np.float32)
+    csq = np.sum(cents * cents, -1)
+    got = pivf.ivf_filter_plain(torch.from_numpy(q), torch.from_numpy(cents),
+                                torch.from_numpy(csq), metric=metric).numpy()
+    via_ops = ops.filter_scores(torch.from_numpy(q), torch.from_numpy(cents),
+                                torch.from_numpy(csq), metric=metric).numpy()
+    np.testing.assert_array_equal(via_ops, got)
+    args = (jnp.asarray(q), jnp.asarray(cents), jnp.asarray(csq))
+    for want in (pallas_ivf_filter(*args, metric=metric, interpret=True),
+                 jref.ivf_filter_ref(*args, metric=metric)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+
+
+def test_ivf_filter_wrapper_refuses_cpu_and_bad_metric():
+    """The kernel wrapper never falls back to the plain version."""
+    x = torch.zeros((2, 4))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        pivf.ivf_filter(x, x, torch.zeros(2))
+    with pytest.raises(ValueError, match="unknown metric"):
+        ops.filter_scores(x, x, torch.zeros(2), metric="cos")

@@ -6,7 +6,10 @@ has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 The LUT, the hit table, the sphere hits, ``probe_ok``, counts and
-candidates must be equal; ``cand_dist``
+candidates must be equal; the IVF filter's scores lie within 1e-5 of
+``Σ_d |q_d c_d|`` (twice that for l2) plus the ``csq`` term's ulp, and its
+top-16 ids match except where the 16th and 17th scores lie within that
+bound; ``cand_dist``
 and ``dist`` agree within rtol 1e-5 (f32 sums over S in another order),
 plus atol 1e-6: these LUTs hold N(0, 1) entries, so a sum of S <= 8 of them
 can cancel to near 0, where a few ulps of the terms exceed rtol. The
@@ -22,6 +25,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fused_three_stage as pf3
 from repro_torch.kernels import fused_two_stage as pfused
 from repro_torch.kernels import hit_count as phit
+from repro_torch.kernels import ivf_filter as pivf
 from repro_torch.kernels import pq_scan as ppq
 from repro_torch.kernels import selective_lut as pslut
 from repro_torch.kernels import sphere_hits as psph
@@ -181,9 +185,13 @@ def test_launch_counts(cuda):
     ops.rt_sphere_hits(*grid[:3], *grid[5:8])
     ops.fused_three_stage_scan(lut, table, codes, valid, cids, *grid[:3],
                                *grid[5:9], cap_c=10)
+    x = torch.randn((5, 8), device=cuda)
+    pivf.ivf_filter_plain(x, x, x[:, 0])
+    ops.filter_scores(x, x, x[:, 0].contiguous(), metric="ip")
     assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0,
                                "pq_scan": 1, "hit_count": 2,
-                               "sphere_hits": 1, "fused_three_stage": 1}
+                               "sphere_hits": 1, "fused_three_stage": 1,
+                               "ivf_filter": 1}
 
 
 @pytest.mark.parametrize("g,cap,q", [(16, 64, 128), (3, 8, 17), (3, 5, 9),
@@ -262,3 +270,46 @@ def test_scans_with_probe_mask(cuda):
                                             cap_c=cap_c)
         assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
         torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("shape", [(128, 96, 1024), (128, 200, 1024),
+                                   (1000, 96, 1024), (17, 40, 37),
+                                   (1, 8, 9), (33, 70, 65)])
+def test_ivf_filter_kernel_matches_plain(cuda, metric, shape):
+    """Ragged tiles in Q, C and D included (17, 37, 40; 33, 65, 70)."""
+    nq, d, c = shape
+    rng = np.random.default_rng(nq + d + c)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    cent = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32))
+    q, cent = q.to(cuda), cent.to(cuda)
+    csq = torch.sum(cent * cent, -1)
+    got = pivf.ivf_filter(q, cent, csq, metric=metric)
+    want = pivf.ivf_filter_plain(q, cent, csq, metric=metric)
+    torch.cuda.synchronize()
+    terms = q.abs() @ cent.abs().T
+    mult = 2.0 if metric == "l2" else 1.0
+    bound = mult * RTOL * terms
+    if metric == "l2":
+        bound = bound + torch.finfo(torch.float32).eps * csq.abs()[None]
+    assert ((got - want).abs() <= bound).all()
+    k = min(16, c - 1)
+    key = -got if metric == "l2" else got
+    key_p = -want if metric == "l2" else want
+    ids = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+    srt, ids_p = torch.sort(key_p, dim=1, descending=True, stable=True)
+    near_tie = (srt[:, k - 1] - srt[:, k]).abs() <= bound.max(1).values
+    same = (torch.sort(ids, dim=1).values
+            == torch.sort(ids_p[:, :k], dim=1).values).all(dim=1)
+    assert (same | near_tie).all()
+
+
+def test_ivf_filter_kernel_refuses_bad_input(cuda):
+    x = torch.randn((4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        pivf.ivf_filter(x, x, torch.zeros(3, device=cuda))       # csq shape
+    with pytest.raises(ValueError):
+        pivf.ivf_filter(x.T, x, torch.zeros(4, device=cuda))     # layout
+    with pytest.raises(ValueError):
+        pivf.ivf_filter(x.double(), x.double(),
+                        torch.zeros(4, device=cuda, dtype=torch.float64))

@@ -21,7 +21,7 @@ from _torch_parity import assert_ids_equal_up_to_ties, to_port
 from repro.core import JunoConfig, build
 from repro.core import search as jax_search
 from repro.data import DEEP_LIKE, TTI_LIKE, make_dataset
-from repro_torch.core import search
+from repro_torch.core import MutableJunoIndex, search
 
 
 @pytest.fixture(scope="module", params=["l2", "ip"])
@@ -91,7 +91,10 @@ def test_fused_outside_h2_raises_value_error(indexed):
 
 
 def test_unported_options_raise(indexed):
-    """The side buffer is not ported (the RT prefilter is: test_torch_rt.py)."""
+    """Artifact-backed minor generations are not ported (the side buffer
+    and the in-memory tiers are: test_torch_mutable.py,
+    test_torch_freshness.py)."""
     metric, q, _, port = indexed
+    mut = MutableJunoIndex(port)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search(port, q[:2], k=10, metric=metric, side=object())
+        mut.enable_tiers(2, minor_store=object())

@@ -7,11 +7,18 @@ by tier M or L (hit counts) must match exactly; the others' ids must match
 up to score ties and their scores within rtol 1e-5 (f32 sums over S in
 another order). The engines must batch identically: the same
 ``stats["signatures"]`` lattice points and counts, and the same ticks.
+
+The mutation plane (``insert``, ``delete``, ``compact(rebuild="auto")``,
+``swap_index``, and the freshness tiers with ``max_minors``) is held to
+the reference engine's the same way, with the same ``stats`` and
+``generation``; the rt engine's probe budgets are recomputed after an
+insert batch, as the reference's.
 """
 import jax
 import numpy as np
 import pytest
 
+from _torch_mutable import assert_same_state, fresh_points, near_points
 from _torch_parity import assert_ids_equal_up_to_ties, to_port
 from repro.core import JunoConfig, build
 from repro.data import DEEP_LIKE, TTI_LIKE, make_dataset
@@ -85,3 +92,111 @@ def test_engine_routes_every_tier(served, fused):
         assert peng.route(req) == jeng.route(jeng.submit(q[:3], k=10, **kw))
         assert peng.route(req)[1] == tier
     assert peng.queued_rows == 3 * len(cases)
+
+
+def _serve_both(jeng, peng, stream):
+    jreqs = [jeng.submit(**r) for r in stream]
+    preqs = [peng.submit(**r) for r in stream]
+    assert jeng.run() == peng.run()
+    for jr, pr in zip(jreqs, preqs):
+        if peng.route(pr)[1] in ("M", "L"):
+            np.testing.assert_array_equal(pr.ids, jr.ids)
+            np.testing.assert_array_equal(pr.scores, jr.scores)
+        else:
+            assert_ids_equal_up_to_ties(pr.ids, jr.ids, pr.scores, jr.scores)
+
+
+@pytest.mark.parametrize("max_minors", [0, 2])
+@pytest.mark.parametrize("fused", [True, False])
+def test_engine_mutation_plane_matches_reference(served, fused, max_minors):
+    """Insert, spill past the side buffer's capacity (max_minors=2 promotes
+    it instead of refusing), delete, compact(rebuild="auto") and serve
+    after each: the same results, bookkeeping, stats and generation."""
+    metric, q, ref, _ = served
+    kw = dict(metric=metric, fused=fused, side_capacity=16,
+              max_minors=max_minors)
+    jeng = JaxEngine(ref, **kw)
+    peng = AnnServeEngine(to_port(ref), **kw)
+    stream = _stream(q)[:8]          # every tier, both k
+    rng = np.random.default_rng(7)
+    pts = np.asarray(ref.ivf.centroids)[np.asarray(ref.ivf.labels)]
+    pm = peng.index
+    c = int(np.argmin([pm.free_slots(i) for i in range(16)]))
+    for step in ("insert", "spill", "delete", "compact"):
+        if step == "insert":
+            new = fresh_points(pts, 50, rng)
+            assert peng.insert(new) == jeng.insert(new)
+        elif step == "spill":
+            # with tiers, each later batch promotes the full L0
+            for extra in ((16, 16, 8) if max_minors else (12,)):
+                new = near_points(pm.data.ivf.centroids[c].numpy(),
+                                  pm.free_slots(c) + extra, rng)
+                assert peng.insert(new) == jeng.insert(new)
+            assert len(pm._minors) == (2 if max_minors else 0)
+            assert pm.delta_fill == jeng.index.delta_fill > 0
+        elif step == "delete":
+            ids = pm.data.ivf.point_ids[c][pm.data.ivf.valid[c]][:5].tolist()
+            ids += sorted(set(pm._loc) - set(ids))[:30:3]
+            assert peng.delete(ids) == jeng.delete(ids) == len(ids)
+        else:
+            assert peng.compact() == jeng.compact()
+            assert pm.delta_fill == 0
+        assert_same_state(pm, jeng.index)
+        _serve_both(jeng, peng, stream)
+    assert peng.generation == jeng.generation
+    for key in ("inserts", "deletes", "swaps", "ticks", "signatures"):
+        assert peng.stats[key] == jeng.stats[key], key
+    if max_minors:
+        assert peng.scheduler.stats == jeng.scheduler.stats
+
+
+def test_engine_swap_index(served):
+    """swap_index() with no argument rebuilds from the live state (the
+    results stay); with a caller's index it replaces the state."""
+    metric, q, ref, _ = served
+    jeng = JaxEngine(ref, metric=metric, side_capacity=16)
+    peng = AnnServeEngine(to_port(ref), metric=metric, side_capacity=16)
+    pm = peng.index
+    c = int(np.argmin([pm.free_slots(i) for i in range(16)]))
+    new = near_points(pm.data.ivf.centroids[c].numpy(),
+                      pm.free_slots(c) + 8, np.random.default_rng(8))
+    peng.insert(new)
+    jeng.insert(new)
+    assert peng.swap_index() == jeng.swap_index() == 1
+    assert pm.side_fill == 0 and peng.stats["swaps"] == 1
+    assert_same_state(pm, jeng.index)
+    _serve_both(jeng, peng, _stream(q)[:8])
+    assert peng.swap_index(to_port(ref)) == 2
+    assert pm.n_live == int(np.asarray(ref.ivf.valid).sum())
+    assert pm._next_id == jeng.index._next_id
+
+
+def test_rt_engine_budget_refreshes_after_insert(served):
+    """An insert batch bumps rt_mutations and grows the grid's reaches; the
+    next route() recomputes the routing state and the request's budget,
+    as the reference engine does."""
+    metric, q, ref, _ = served
+    jeng = JaxEngine(ref, metric=metric, prefilter="rt")
+    grid = {f: np.asarray(getattr(jeng.index.rt_grid, f))
+            for f in jeng.index.rt_grid._fields}
+    from repro_torch import rt
+    peng = AnnServeEngine(to_port(ref), metric=metric, prefilter="rt",
+                          rt_grid=rt.grid_from_arrays(grid, "cpu", prefix=""))
+    preq, jreq = peng.submit(q[:6], k=10), jeng.submit(q[:6], k=10)
+    assert peng.route(preq) == jeng.route(jreq)
+    grid0, state0 = peng.rt_grid, peng._rt_state
+    assert preq.rt_epoch == peng.index.rt_mutations == 0
+    # points far out along each probed centroid's residual grow its reach
+    far = (np.asarray(ref.ivf.centroids)[:4] * 1.5).astype(np.float32)
+    peng.insert(far)
+    jeng.insert(far)
+    assert peng.index.rt_mutations == jeng.index.rt_mutations == 1
+    assert peng.rt_grid is not grid0
+    np.testing.assert_array_equal(peng.rt_grid.slot_reach.numpy(),
+                                  np.asarray(jeng.index.rt_grid.slot_reach))
+    assert peng.route(preq) == jeng.route(jreq)
+    assert preq.rt_epoch == 1 and peng._rt_state is not state0
+    assert peng._rt_state[0] is peng.rt_grid
+    peng.run()
+    jeng.run()
+    assert preq.done and preq.ids.shape == jreq.ids.shape
