@@ -38,10 +38,12 @@ Phases, each raising on failure:
    20 rounds of 1,000 inserts (``ivf_filter`` once a batch), 500 deletes
    and one pass of the stream through each engine (no deleted id in a
    result; the rt router recomputes its state after each insert batch);
-   inserted points found as their own queries as often as build points
-   (−0.02); a forced spill of 200 points into the side buffer, with which
-   QPS is read and every tier is held against the CPU (≥ 99% ids) and, at
-   ``rt_scale`` 1e6, against the scan path; ``compact()`` and
+   inserted points, asked for themselves, found in tier H's top-10 as often
+   as build points where the exact top-10 of the live set holds them
+   (4,000 of each; less 4 standard errors of the gap); a forced spill of
+   200 points into the side buffer, with which QPS is read and every tier
+   is held against the CPU (≥ 99% ids) and, at ``rt_scale`` 1e6, against
+   the scan path; ``compact()`` and
    ``swap_index()`` (the rebuild, timed) keep tiers H, M and L (ids up to
    score ties; H2's changed rows printed); the freshness tiers
    (``max_minors=2``) take 3 × 256 spills at a constant delta capacity,
@@ -81,7 +83,7 @@ from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
 from repro_torch.core import density as density_lib  # noqa: E402
 from repro_torch.core.ivf import filter_clusters  # noqa: E402
 from repro_torch.core.juno import (MutableJunoIndex, SideBuffer,  # noqa: E402
-                                   _rt_probe_mask)
+                                   _label_encode, _rt_probe_mask)
 from repro_torch.data import DEEP_LIKE, TTI_LIKE, make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
@@ -102,6 +104,8 @@ SIDE = 256                     # side-buffer capacity of the mutable index
 ROUNDS = 20                    # mutate phase: insert/delete/serve rounds
 INSERT_BATCH = 1000
 DELETE_BATCH = 500
+OWN_QUERIES = 4000             # inserted and build points asked for themselves
+OWN_SIGMAS = 4                 # their gap's limit, in standard errors
 SPILL = 200                    # side points live while requests are served
 FULL = 1e6                     # rt_scale at which every disc covers every cluster
 SOURCES = {
@@ -913,8 +917,8 @@ def spill_points(mut, c: int, n: int, rng, sigma: float) -> np.ndarray:
     while len(out) < n:
         cand = (cent + np.float32(0.05 * sigma) * rng.standard_normal(
             (2 * n, cent.shape[0]), dtype=np.float32)).astype(np.float32)
-        lab, _ = mut._labels_codes(torch.from_numpy(cand).to(
-            mut.data.ivf.centroids.device))
+        lab, _ = _label_encode(torch.from_numpy(cand).to(
+            mut.data.ivf.centroids.device), mut.data.ivf, mut.data.codebook)
         out = np.concatenate([out, cand[lab.cpu().numpy() == c]])
     return out[:n]
 
@@ -951,12 +955,27 @@ def serve_pass(eng, queries, stream, deleted: np.ndarray, n_ids: int
     return secs, rows, pads
 
 
-def self_rate(mut, points: np.ndarray, ids: np.ndarray, metric: str) -> float:
-    """Share of points found among their own top-10 (tier H, nprobe 16)."""
-    _, got = mut.search(points, metric=metric, mode="H", k=10, nprobe=16,
+def own_id_found(mut, points: np.ndarray, ids: np.ndarray,
+                 live: torch.Tensor, live_ids: np.ndarray, metric: str
+                 ) -> dict:
+    """Each point asked for itself: whether its id is among the exact
+    top-10 of the live set (``live``, ids ``live_ids``), and whether tier H
+    (nprobe 16) returns it in its top-10. ``rate`` is the share found among
+    those the exact top-10 holds: an insert that is never found gives 0
+    there at either metric (at ip a point's own top-10 often does not hold
+    it, so the share of all points found cannot tell). ``se`` is its
+    standard error (Agresti–Coull, so that it is not 0 at a rate of 1)."""
+    q = torch.from_numpy(np.ascontiguousarray(points)).to(live.device)
+    _, gt = exact_topk(q, live, k=10, metric=metric)
+    _, got = mut.search(q, metric=metric, mode="H", k=10, nprobe=16,
                         batch=128)
-    return float(np.mean([i in row for i, row in
-                          zip(ids.tolist(), got.cpu().numpy().tolist())]))
+    in_gt = (live_ids[gt.cpu().numpy()] == ids[:, None]).any(axis=1)
+    found = (got.cpu().numpy() == ids[:, None]).any(axis=1)
+    n, x = int(in_gt.sum()), int((found & in_gt).sum())
+    p = (x + 2) / (n + 4)
+    return {"n": len(ids), "in_exact": n, "found": x,
+            "found_any": float(found.mean()), "rate": x / max(n, 1),
+            "se": float(np.sqrt(p * (1 - p) / (n + 4)))}
 
 
 def tier_results(mut, q: torch.Tensor, metric: str, **kw) -> dict:
@@ -997,8 +1016,6 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
     eng = AnnServeEngine(mut, metric=metric)
     reng = AnnServeEngine(mut, metric=metric, fused=True, prefilter="rt",
                           rt_grid=grid)
-    orig = rng.choice(len(pts), INSERT_BATCH, replace=False)
-    base_rate = self_rate(mut, pts[orig], orig, metric)
     deleted: list[int] = []
     inserted: dict[int, np.ndarray] = {}
     ins_s, ins_launch, states, side_fills = [], [], [], []
@@ -1047,12 +1064,25 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
                              "after every insert batch")
     del states
     dead = np.asarray(deleted)
-    pick = rng.choice(sorted(inserted), INSERT_BATCH, replace=False)
-    new_rate = self_rate(mut, np.stack([inserted[i] for i in pick]), pick,
-                         metric)
-    if new_rate < base_rate - 0.02:
-        raise AssertionError(f"inserted points found at {new_rate:.4f}, "
-                             f"build points at {base_rate:.4f}")
+    # inserted and build points asked for themselves, on the live set
+    new_ids = np.asarray(sorted(inserted))
+    old_ids = np.setdiff1d(np.arange(len(pts)), dead)
+    live_ids = np.concatenate([old_ids, new_ids])
+    live = torch.cat([torch.from_numpy(pts[old_ids]).to(dev),
+                      torch.from_numpy(np.stack([inserted[i] for i in
+                                                 new_ids])).to(dev)])
+    pick = rng.choice(new_ids, OWN_QUERIES, replace=False)
+    own_new = own_id_found(mut, np.stack([inserted[i] for i in pick]), pick,
+                           live, live_ids, metric)
+    pick = rng.choice(old_ids, OWN_QUERIES, replace=False)
+    own_old = own_id_found(mut, pts[pick], pick, live, live_ids, metric)
+    del live
+    own_margin = OWN_SIGMAS * float(np.hypot(own_new["se"], own_old["se"]))
+    if (own_new["in_exact"] < OWN_QUERIES // 10
+            or own_new["rate"] < own_old["rate"] - own_margin):
+        raise AssertionError(f"inserted points found as themselves "
+                             f"{own_new}, build points {own_old}, margin "
+                             f"{own_margin:.4f}")
     launches_pass = {}
     for label, e in (("scan", eng), ("rt_fused", reng)):
         _build.reset_launches()
@@ -1163,7 +1193,8 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
            "deleted": len(deleted), "stream_compactions": compactions,
            "deleted_ids_on_pads": dead_pads, "side_fill_per_round": side_fills,
            "swaps_before_spill": swaps_before,
-           "self_rate_build": base_rate, "self_rate_inserted": new_rate,
+           "own_id_build": own_old, "own_id_inserted": own_new,
+           "own_id_margin": own_margin,
            "insert_points_per_s": INSERT_BATCH / statistics.median(ins_s),
            "insert_s": ins_s, "ivf_filter_per_insert": ins_launch[0],
            "ivf_filter_per_pass": launches_pass,

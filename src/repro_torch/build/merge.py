@@ -25,7 +25,7 @@ def fold_step(mid, *, max_clusters: int = 32,
 
     Parameters
     ----------
-    mid : MutableIndexBase
+    mid : MutableJunoIndex
         Tier-enabled mutable index.
     max_clusters : int
         Budget: clusters folded in this call.

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.juno import JunoIndexData, MutableIndexBase
+from ..core.juno import JunoIndexData, MutableJunoIndex
 from ..core.pq import PQCodebook, decode
 
 
@@ -30,7 +30,7 @@ def _reconstructed_sq(centroids: np.ndarray, codebook: PQCodebook,
     return np.sum(pts * pts, axis=-1).astype(np.float32)
 
 
-def live_points(mid: MutableIndexBase, point_ids: np.ndarray,
+def live_points(mid: MutableJunoIndex, point_ids: np.ndarray,
                 valid: np.ndarray, cluster_codes: np.ndarray
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Every live point of a mutable index, in repack order.
@@ -43,7 +43,7 @@ def live_points(mid: MutableIndexBase, point_ids: np.ndarray,
 
     Parameters
     ----------
-    mid : MutableIndexBase
+    mid : MutableJunoIndex
         The live index (supplies the delta tiers).
     point_ids, valid, cluster_codes : np.ndarray
         Host snapshots of the padded storage ((C, P), (C, P), (C, P, S)).
@@ -64,7 +64,7 @@ def live_points(mid: MutableIndexBase, point_ids: np.ndarray,
     return clusters[order], ids[order], codes[order]
 
 
-def rebuild_index(mid: MutableIndexBase) -> JunoIndexData:
+def rebuild_index(mid: MutableJunoIndex) -> JunoIndexData:
     """Re-pack a mutable index's live state into a fresh immutable index.
 
     Centroids, codebooks and the density model carry over (inserts were
@@ -79,7 +79,7 @@ def rebuild_index(mid: MutableIndexBase) -> JunoIndexData:
 
     Parameters
     ----------
-    mid : MutableIndexBase
+    mid : MutableJunoIndex
         A :class:`~repro_torch.core.juno.MutableJunoIndex`.
 
     Returns

@@ -11,6 +11,6 @@ Public API:
 from .freshness import (MergeScheduler, MinorGeneration,  # noqa: F401
                         combined_delta, promote_l0)
 from .juno import (BuildDraws, JunoConfig, JunoIndexData,  # noqa: F401
-                   MutableIndexBase, MutableJunoIndex, SideBuffer, build,
-                   draw_build, empty_side_buffer, index_to, search)
+                   MutableJunoIndex, SideBuffer, build, draw_build,
+                   empty_side_buffer, index_to, search)
 from .ref import exact_topk, recall_n_at_k  # noqa: F401

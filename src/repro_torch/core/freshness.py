@@ -101,7 +101,7 @@ def promote_l0(mid) -> MinorGeneration:
 
     Parameters
     ----------
-    mid : MutableIndexBase
+    mid : MutableJunoIndex
         The index whose L0 to promote (``enable_tiers(max_minors > 0)``).
 
     Returns
@@ -144,24 +144,18 @@ class MergeScheduler:
     oldest minor generations into the base (``build.merge.fold_step``).
     """
 
-    def __init__(self, index, *, clusters_per_step: int = 32,
-                 promote_fill: float = 1.0):
+    def __init__(self, index, *, clusters_per_step: int = 32):
         """Attach a scheduler to a tier-enabled mutable index.
 
         Parameters
         ----------
-        index : MutableIndexBase
+        index : MutableJunoIndex
             The index to merge (``enable_tiers`` already called).
         clusters_per_step : int
             Fold budget: clusters merged per :meth:`step`.
-        promote_fill : float
-            L0 fill fraction that triggers promotion (1.0 = only when
-            full; :meth:`drain` also promotes a partial L0 when nothing
-            else moves).
         """
         self.index = index
         self.clusters_per_step = int(clusters_per_step)
-        self.promote_fill = float(promote_fill)
         self.stats = {"steps": 0, "promotions": 0, "folded": 0,
                       "compacted": 0, "drains": 0}
 
@@ -178,14 +172,13 @@ class MergeScheduler:
     def maybe_step(self) -> int:
         """Between-ticks hook: one :meth:`step` when work is pending.
 
-        Returns the points moved (0 when the tiers are off, or L0 is
-        below the promotion threshold and no minor generation exists).
+        Returns the points moved (0 when the tiers are off, or L0 is not
+        full and no minor generation exists).
         """
         idx = self.index
         if idx._max_minors <= 0:
             return 0
-        if (not idx._minors
-                and idx.side_fill < self.promote_fill * idx.side.capacity):
+        if not idx._minors and idx.side_fill < idx.side.capacity:
             return 0
         return self.step()
 
@@ -195,8 +188,7 @@ class MergeScheduler:
         idx = self.index
         moved = idx.compact()
         self.stats["compacted"] += moved
-        if (idx.side_fill >= self.promote_fill * idx.side.capacity
-                and self._can_promote()):
+        if idx.side_fill >= idx.side.capacity and self._can_promote():
             moved += idx.side_fill
             promote_l0(idx)
             self.stats["promotions"] += 1

@@ -4,7 +4,8 @@ Port of ``repro/core/juno.py`` (``JunoConfig``, ``JunoIndexData``,
 ``build``, ``_calibrate_density``, ``_rt_probe_mask``, ``SideBuffer``,
 ``_side_gather``, ``_score_probed``, ``_search_batch``,
 ``_score_probed_two_stage``, ``_search_batch_two_stage``, ``search``,
-``_label_encode``, ``MutableIndexBase`` and ``MutableJunoIndex``).
+``_label_encode``, and ``MutableIndexBase`` with ``MutableJunoIndex`` as
+one class).
 
 Offline (:func:`build`): IVF k-means → residual PQ codebooks → padded
 per-cluster codes → density grid and threshold-regressor calibration.
@@ -121,7 +122,9 @@ class SideBuffer(NamedTuple):
 def empty_side_buffer(capacity: int, n_subspaces: int,
                       device=None) -> SideBuffer:
     """An all-empty :class:`SideBuffer` of ``capacity`` slots on ``device``
-    (``None`` = the CPU): codes 0, cluster and ids -1, valid False."""
+    (``None`` = ``cuda``, see :func:`repro_torch.device.resolve_device`):
+    codes 0, cluster and ids -1, valid False."""
+    device = resolve_device(device)
     return SideBuffer(
         codes=torch.zeros((capacity, n_subspaces), dtype=torch.uint8,
                           device=device),
@@ -686,19 +689,43 @@ def _label_encode(pts: torch.Tensor, ivf: IVFIndex, codebook: PQCodebook
             encode(pts - ivf.centroids[labels], codebook))
 
 
-class MutableIndexBase:
-    """Host-side slot bookkeeping of a mutable index.
+class MutableJunoIndex:
+    """Online-mutable wrapper over a built :class:`JunoIndexData`.
 
-    Port of ``repro/core/juno.py:MutableIndexBase``: per-cluster free-slot
-    lists, an id → (cluster, slot) map (cluster −1 = a side-buffer
-    position, ≤ −2 = a minor generation), and a plan-then-commit
-    discipline, so that an ``insert``/``delete``/``compact`` that fails
-    raises before any host or device state is touched. Subclasses supply
-    the data plane: ``_labels_codes`` (insert-time encoding) and
-    ``_apply_insert``/``_apply_delete`` (device writes).
+    Port of ``repro/core/juno.py:MutableIndexBase`` and
+    ``MutableJunoIndex`` as one class (the reference's other subclass, the
+    sharded index, is not ported): per-cluster free-slot lists, an
+    id → (cluster, slot) map (cluster −1 = a side-buffer position, ≤ −2 =
+    a minor generation), and a plan-then-commit discipline, so that an
+    ``insert``/``delete``/``compact`` that fails raises before any host or
+    device state is touched.
+
+    ``insert`` encodes new points with the existing codebooks into free
+    padded slots of their owning cluster, spilling into a fixed-capacity
+    :class:`SideBuffer` when a cluster is full; ``delete`` tombstones them
+    through ``valid``; ``compact()`` folds spills back into freed slots.
+    None of them changes the search's shapes.
+
+    The index's tensors are updated **in place** (a copy of the 400 MB
+    ``cluster_codes`` a batch is not affordable): the wrapper owns
+    ``data``, and a caller who needs the index as built passes a copy.
+    A batch writes ``cluster_codes``, then ``point_ids``, then ``valid``
+    last, so a write that fails part-way leaves only invisible slots.
+
+    An optional :class:`repro_torch.rt.CentroidGrid` rides along for
+    ``prefilter="rt"`` (attached, or built by :meth:`ensure_rt_grid`);
+    inserts grow the touched clusters' reaches, deletes leave them.
+
     """
 
-    side: SideBuffer
+    def __init__(self, data: JunoIndexData, *, side_capacity: int = 256,
+                 rt_grid: rt_lib.CentroidGrid | None = None):
+        self.data = data
+        self.rt_grid = rt_grid
+        self._init_bookkeeping(data.ivf.valid, data.ivf.point_ids,
+                               side_capacity=side_capacity,
+                               first_new_id=int(data.codes.shape[0]),
+                               n_subspaces=int(data.codes.shape[1]))
 
     def _init_bookkeeping(self, ivf_valid: torch.Tensor,
                           point_ids: torch.Tensor, *, side_capacity: int,
@@ -725,20 +752,22 @@ class MutableIndexBase:
         self._delta_cache: tuple[int, SideBuffer] | None = None
         self._rt_muts: int = getattr(self, "_rt_muts", -1) + 1
 
-    # ---- data-plane hooks (subclasses) ----------------------------------
-    def _labels_codes(self, pts: torch.Tensor):
-        raise NotImplementedError
+    # ---- device writes ---------------------------------------------------
+    def _apply_insert(self, cl, sl, ids, codes):
+        dev = self.data.cluster_codes.device
+        cl_t = torch.as_tensor(cl, device=dev)
+        sl_t = torch.as_tensor(sl, device=dev)
+        ids_t = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
+        codes = codes.to(dev)
+        # valid last: a write that fails part-way leaves invisible slots
+        self.data.cluster_codes[cl_t, sl_t] = codes
+        self.data.ivf.point_ids[cl_t, sl_t] = ids_t
+        self.data.ivf.valid[cl_t, sl_t] = True
 
-    def _rt_centroids(self) -> torch.Tensor:
-        """(C, D) centroids for rt-grid maintenance."""
-        raise NotImplementedError
-
-    def _apply_insert(self, cl: list[int], sl: list[int], ids: np.ndarray,
-                      codes: torch.Tensor) -> None:
-        raise NotImplementedError
-
-    def _apply_delete(self, cl: list[int], sl: list[int]) -> None:
-        raise NotImplementedError
+    def _apply_delete(self, cl, sl):
+        dev = self.data.ivf.valid.device
+        self.data.ivf.valid[torch.as_tensor(cl, device=dev),
+                            torch.as_tensor(sl, device=dev)] = False
 
     def _rt_on_insert(self, pts: torch.Tensor, labels: np.ndarray) -> None:
         """After a committed insert batch: grow the touched clusters'
@@ -747,11 +776,11 @@ class MutableIndexBase:
         reference computes them). Always bumps :attr:`rt_mutations`, so a
         routing state cached before the insert is never reused after it."""
         self._rt_muts += 1
-        grid = getattr(self, "rt_grid", None)
+        grid = self.rt_grid
         if grid is None:
             return
         res = (pts.cpu().numpy().astype(np.float32)
-               - self._rt_centroids().cpu().numpy()[labels])
+               - self.data.ivf.centroids.cpu().numpy()[labels])
         rp = res @ grid.proj.cpu().numpy()
         self.rt_grid = rt_lib.update_radii(
             grid, labels, np.sqrt(np.sum(rp * rp, axis=-1)))
@@ -863,7 +892,8 @@ class MutableIndexBase:
         pts = _as_tensor(points).to(dev)
         if pts.dim() == 1:
             pts = pts[None]
-        labels_t, codes = self._labels_codes(pts)               # (B,), (B, S)
+        labels_t, codes = _label_encode(pts, self.data.ivf,    # (B,), (B, S)
+                                         self.data.codebook)
         labels = labels_t.cpu().numpy()
 
         if not self._placement_fits(labels, len(self._side_free)):
@@ -1032,38 +1062,6 @@ class MutableIndexBase:
         return len(pos_l)
 
 
-class MutableJunoIndex(MutableIndexBase):
-    """Online-mutable wrapper over a built :class:`JunoIndexData`.
-
-    ``insert`` encodes new points with the existing codebooks into free
-    padded slots of their owning cluster, spilling into a fixed-capacity
-    :class:`SideBuffer` when a cluster is full; ``delete`` tombstones them
-    through ``valid``; ``compact()`` folds spills back into freed slots.
-    None of them changes the search's shapes.
-
-    The index's tensors are updated **in place** (a copy of the 400 MB
-    ``cluster_codes`` a batch is not affordable): the wrapper owns
-    ``data``, and a caller who needs the index as built passes a copy.
-    A batch writes ``cluster_codes``, then ``point_ids``, then ``valid``
-    last, so a write that fails part-way leaves only invisible slots.
-
-    An optional :class:`repro_torch.rt.CentroidGrid` rides along for
-    ``prefilter="rt"`` (attached, or built by :meth:`ensure_rt_grid`);
-    inserts grow the touched clusters' reaches, deletes leave them.
-    """
-
-    def __init__(self, data: JunoIndexData, *, side_capacity: int = 256,
-                 rt_grid: rt_lib.CentroidGrid | None = None):
-        self.data = data
-        self.rt_grid = rt_grid
-        self._init_bookkeeping(data.ivf.valid, data.ivf.point_ids,
-                               side_capacity=side_capacity,
-                               first_new_id=int(data.codes.shape[0]),
-                               n_subspaces=int(data.codes.shape[1]))
-
-    def _labels_codes(self, pts):
-        return _label_encode(pts, self.data.ivf, self.data.codebook)
-
     def swap_data(self, new_data: JunoIndexData, *,
                   side_capacity: int | None = None) -> None:
         """Install a rebuilt :class:`JunoIndexData` in one assignment.
@@ -1100,25 +1098,6 @@ class MutableJunoIndex(MutableIndexBase):
         if self.rt_grid is None:
             self.rt_grid = rt_lib.build_grid(self.data, metric=metric, **kw)
         return self.rt_grid
-
-    def _rt_centroids(self):
-        return self.data.ivf.centroids
-
-    def _apply_insert(self, cl, sl, ids, codes):
-        dev = self.data.cluster_codes.device
-        cl_t = torch.as_tensor(cl, device=dev)
-        sl_t = torch.as_tensor(sl, device=dev)
-        ids_t = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
-        codes = codes.to(dev)
-        # valid last: a write that fails part-way leaves invisible slots
-        self.data.cluster_codes[cl_t, sl_t] = codes
-        self.data.ivf.point_ids[cl_t, sl_t] = ids_t
-        self.data.ivf.valid[cl_t, sl_t] = True
-
-    def _apply_delete(self, cl, sl):
-        dev = self.data.ivf.valid.device
-        self.data.ivf.valid[torch.as_tensor(cl, device=dev),
-                            torch.as_tensor(sl, device=dev)] = False
 
     def search(self, queries, *, prefilter: str = "scan", **kw):
         """:func:`search` over the current state, side buffer included

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..core.freshness import MergeScheduler
-from ..core.juno import (JunoIndexData, MutableIndexBase, MutableJunoIndex,
+from ..core.juno import (JunoIndexData, MutableJunoIndex,
                          _search_batch, _search_batch_two_stage)
 from ..rt import grid as rt_lib
 
@@ -97,7 +97,7 @@ class AnnServeEngine:
     # fused serving: rerank budget C = FUSED_RERANK_MULT · k
     FUSED_RERANK_MULT = 32
 
-    def __init__(self, index: JunoIndexData | MutableIndexBase, *,
+    def __init__(self, index: JunoIndexData | MutableJunoIndex, *,
                  metric: str = "l2", thres_scale: float = 1.0,
                  side_capacity: int = 256,
                  batch_buckets: tuple[int, ...] | None = None,
@@ -109,7 +109,7 @@ class AnnServeEngine:
 
         Parameters
         ----------
-        index : JunoIndexData or MutableIndexBase
+        index : JunoIndexData or MutableJunoIndex
             The index to serve; searches run on its device. A bare
             ``JunoIndexData`` is wrapped in a ``MutableJunoIndex``, which
             updates its tensors in place on insert and delete.
@@ -149,7 +149,7 @@ class AnnServeEngine:
         """
         if prefilter not in ("scan", "rt"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
-        self.index = (index if isinstance(index, MutableIndexBase)
+        self.index = (index if isinstance(index, MutableJunoIndex)
                       else MutableJunoIndex(index,
                                             side_capacity=side_capacity))
         if rt_grid is not None:

@@ -197,6 +197,19 @@ def test_label_encode_matches_reference(base):
     np.testing.assert_array_equal(codes_p.numpy(), np.asarray(codes_r))
 
 
+def test_empty_side_buffer_device_matches_reference():
+    side = pjuno.empty_side_buffer(5, 3, device="cpu")
+    ref = jjuno.empty_side_buffer(5, 3)
+    for name in ("codes", "cluster", "ids", "valid"):
+        got, want = getattr(side, name), np.asarray(getattr(ref, name))
+        assert got.device.type == "cpu"
+        assert got.numpy().dtype == want.dtype, name
+        np.testing.assert_array_equal(got.numpy(), want)
+    if not torch.cuda.is_available():    # default is cuda, never the CPU
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pjuno.empty_side_buffer(5, 3)
+
+
 def test_update_radii_bit_equal(base):
     _, _, _, _, grid = base
     rng = np.random.default_rng(4)
