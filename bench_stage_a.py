@@ -1,0 +1,321 @@
+#!/usr/bin/env python3
+"""Time the port's stage A and insert label on the card, for one tree.
+
+    python3 bench_stage_a.py [--src DIR] [--label NAME] [--reps 50]
+    python3 bench_stage_a.py --kernels
+    python3 bench_stage_a.py --phases
+    python3 bench_stage_a.py --traces TRACE.json.gz ...
+
+Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src/``),
+so that two trees can be timed in one call, in turns: unpack another commit
+with ``git archive`` into a directory that ``.gitignore`` lists and run
+this script once with each ``--src``. For each shape it times
+``core.ivf.filter_clusters`` (a search batch's stage A) or
+``core.juno._label_encode`` (an insert batch's labels and codes) on
+random data from a fixed seed:
+
+- ``device_ms``: median device time of one call over ``--reps`` calls (CUDA
+  events; the stream sleeps first, so the events bracket device work
+  only);
+- ``host_ms``: median wall time of one call ended by a synchronise;
+- ``kernels`` and ``sorts``: the kernels one call launches on the card,
+  and how many of them are sorts (``torch.profiler``).
+
+With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
+instead (this tree only), over a sweep of shapes, nprobe and D: besides
+``device_ms`` (CUDA events), ``kernel_us``, the kernel's own mean duration
+in the profiler over ``--reps`` launches, which leaves out the events' and
+the launch's share.
+
+With ``--phases`` it builds a copy of ``csrc/ivf_filter.cu`` with SM clock
+stamps (``clock64``, thread 0 of each block) written after each phase of
+the top-nprobe epilogue into ``build/diag/``, and prints the median cycles
+of each phase over the blocks of one launch (the merge phases over the
+blocks that merged): a profile of the epilogue where no kernel profiler
+runs. The copy is only measured, never used.
+
+With ``--traces`` it reads gzipped Chrome traces of the profiled passes
+that ``chip_smoke.py`` writes and sums the device time and launches of
+their kernels by kind (stage A, sorts, stage B, count, select, ``pq_scan``,
+the rest); this needs no card.
+
+Prints one JSON line a shape (or trace), each measured one with the card's
+name and power limit. Needs a CUDA card except with ``--traces``; exits
+non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import gzip
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+
+def device_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def host_ms(fn, reps: int) -> float:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def kernels_of(fn) -> tuple[int, int]:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sorts = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "Memcpy" not in ev.key \
+                and "Memset" not in ev.key:
+            n += ev.count
+            sorts += ev.count if "sort" in ev.key.lower() else 0
+    return n, sorts
+
+
+def kernel_us(fn, reps: int) -> float:
+    """Mean duration of the kernels whose name holds ``ivf_filter``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = n = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "ivf_filter" in ev.key:
+            total += ev.self_device_time_total
+            n += ev.count
+    return total / n
+
+
+def kernel_sweep(card: str, reps: int) -> None:
+    from repro_torch.kernels import ivf_filter as ivff
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for q, c, d in ((128, 1024, 4), (128, 1024, 96), (128, 1024, 200),
+                    (1000, 1024, 96), (8, 1024, 96), (128, 128, 96)):
+        qs = torch.randn((q, d), generator=gen, device=dev)
+        cent = torch.randn((c, d), generator=gen, device=dev)
+        csq = torch.sum(cent * cent, -1)
+        for nprobe in (0, 1, 8, 16, 32, 64):
+            if nprobe > c:
+                continue
+            if nprobe:
+                fn = lambda: ivff.ivf_filter_topk(qs, cent, csq,
+                                                   nprobe=nprobe)
+            else:
+                fn = lambda: ivff.ivf_filter(qs, cent, csq)
+            print(json.dumps({
+                "epilogue": "top-nprobe" if nprobe else "matrix", "Q": q,
+                "C": c, "D": d, "nprobe": nprobe, "metric": "l2",
+                "device_ms": device_ms(fn, reps),
+                "kernel_us": kernel_us(fn, reps), "card": card}),
+                flush=True)
+
+
+#: where each phase's stamp goes in the kernel source: (anchor, stamp
+#: inserted before it); phase k ends at stamp k
+_PHASES = (
+    ("main loop", "  if (!kTopk) {\n"),
+    ("sort and fold the tile", "  u64* mine = scratch + ((row0 + row) * n_ct + blockIdx.x) * KP;"),
+    ("store the tile's best", "  if (!last_of_row_tile(counters)) return;"),
+    ("__threadfence", "  __syncthreads();\n  if (threadIdx.x == 0)\n    is_last ="),
+    ("atomicAdd and barrier", "  if (is_last) __threadfence();"),
+    ("merge: fence, start the lists' loads", "  fold_lanes<KP, 1>(a);\n#pragma unroll\n  for (int p = 0; p < KP; ++p) {\n    if (p % 8"),
+    ("merge: fold (waiting on the loads), write", "  if (threadIdx.x == 0) counters[blockIdx.y] = 0;\n}\n\n// For each"),
+)
+
+
+def phase_sweep(card: str) -> None:
+    import ctypes
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ivf_filter as ivff
+    src = (_build.CSRC / "ivf_filter.cu").read_text()
+    src = src.replace('#include "scan_common.cuh"', (
+        f'#include "{_build.CSRC / "scan_common.cuh"}"\n'
+        "__device__ unsigned long long g_st[1 << 16];\n"
+        "#define STAMP(k) do { if (threadIdx.x == 0) g_st[((blockIdx.y * "
+        "gridDim.x + blockIdx.x) * 8 + (k)) & 0xffff] = clock64(); } "
+        "while (0)\n"))
+    src = src.replace("  extern __shared__ __align__(16) float smem[];\n",
+                      "  extern __shared__ __align__(16) float smem[];\n"
+                      "  STAMP(0);\n", 1)
+    for k, (_, anchor) in enumerate(_PHASES, 1):
+        if anchor not in src:
+            raise RuntimeError(f"phase anchor not found: {anchor!r}")
+        at = src.index(anchor)
+        src = src[:at] + f"  STAMP({k});\n" + src[at:]
+    src += ("\nextern \"C\" int read_stamps(void* dst, int n) {\n"
+            "  return (int)cudaMemcpyFromSymbol(dst, g_st, 8 * n);\n}\n"
+            "extern \"C\" int clear_stamps() {\n  void* p;\n"
+            "  cudaGetSymbolAddress(&p, g_st);\n"
+            "  return (int)cudaMemset(p, 0, 8 << 16);\n}\n")
+    diag = _build.BUILD_DIR.parent / "diag"
+    diag.mkdir(parents=True, exist_ok=True)
+    (diag / "ivf_filter_phases.cu").write_text(src)
+    so = diag / "libivf_filter_phases.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(diag / "ivf_filter_phases.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    _build.library = lambda name: lib
+    ivff._topk_launcher.cache_clear()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for q, c, d, nprobe in ((128, 1024, 96, 1), (128, 1024, 96, 8),
+                            (128, 1024, 96, 16), (128, 1024, 96, 32),
+                            (128, 1024, 200, 16), (1000, 1024, 96, 1)):
+        x = torch.randn((q, d), generator=gen, device=dev)
+        y = torch.randn((c, d), generator=gen, device=dev)
+        csq = torch.sum(y * y, -1)
+        for _ in range(3):
+            ivff.ivf_filter_topk(x, y, csq, nprobe=nprobe)
+        torch.cuda.synchronize()
+        lib.clear_stamps()
+        ivff.ivf_filter_topk(x, y, csq, nprobe=nprobe)
+        torch.cuda.synchronize()
+        n_blocks = -(-c // 128) * -(-q // 8)
+        st = np.zeros(n_blocks * 8, np.uint64)
+        lib.read_stamps(st.ctypes.data_as(ctypes.c_void_p), n_blocks * 8)
+        st = st.reshape(n_blocks, 8).astype(np.int64)
+        merged = st[:, 7] > 0
+        phases = {}
+        for k, (name, _) in enumerate(_PHASES, 1):
+            rows = st[merged] if k >= 6 else st
+            phases[name] = int(np.median(rows[:, k] - rows[:, k - 1]))
+        print(json.dumps({"Q": q, "C": c, "D": d, "nprobe": nprobe,
+                          "metric": "l2", "cycles": phases,
+                          "blocks_merged": int(merged.sum()),
+                          "cycles_to_end_merged": int(np.median(
+                              st[merged, 7] - st[merged, 0])),
+                          "card": card}), flush=True)
+
+
+#: kernel kinds of ``--traces``, by a substring of the kernel's name
+_KINDS = (("stage A (ivf_filter)", "ivf_filter"),
+          ("radixSortKVInPlace", "radixSortKVInPlace"),
+          ("other sorts", "ort"), ("stage B (selective_lut)", "selective_lut"),
+          ("count", "count_kernel"), ("count", "hit_count"),
+          ("select", "select_kernel"), ("pq_scan", "pq_scan"))
+
+
+def trace_kinds(paths: list[str]) -> None:
+    for path in paths:
+        with gzip.open(path) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e.get("cat") == "kernel" and e.get("ph") == "X"]
+        ms, n = collections.Counter(), collections.Counter()
+        for e in events:
+            kind = next((k for k, sub in _KINDS if sub in e["name"]), "rest")
+            ms[kind] += e["dur"] / 1e3
+            n[kind] += 1
+        print(json.dumps({"trace": path, "kernels": len(events),
+                          "device_ms": sum(ms.values()),
+                          "kinds": {k: {"ms": ms[k], "launches": n[k]}
+                                    for k in sorted(ms)}}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--kernels", action="store_true",
+                    help="sweep the ivf_filter kernel's epilogues instead")
+    ap.add_argument("--phases", action="store_true",
+                    help="clock the top-nprobe epilogue's phases instead")
+    ap.add_argument("--traces", nargs="+", metavar="TRACE",
+                    help="sum chip_smoke.py's gzipped traces by kernel kind")
+    args = ap.parse_args()
+    if args.traces:
+        trace_kinds(args.traces)
+        return 0
+    if not torch.cuda.is_available():
+        print("bench_stage_a: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.core.ivf import IVFIndex, filter_clusters
+    from repro_torch.core.juno import _label_encode
+    from repro_torch.core.pq import PQCodebook
+    from repro_torch.kernels import _build
+    _build.build_all()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    if args.kernels:
+        kernel_sweep(card, args.reps)
+        return 0
+    if args.phases:
+        phase_sweep(card)
+        return 0
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c = 1024
+
+    def index(d):
+        cent = torch.randn((c, d), generator=gen, device=dev)
+        none = torch.zeros((c, 1), device=dev)
+        return IVFIndex(cent, torch.sum(cent * cent, -1), none.int(),
+                        none.bool(), none.int()[:, 0])
+
+    cases = []
+    for d, metric in ((96, "l2"), (200, "ip")):
+        ivf = index(d)
+        q = torch.randn((128, d), generator=gen, device=dev)
+        for nprobe in (8, 16, 32):
+            cases.append((dict(what="filter_clusters", Q=128, C=c, D=d,
+                               metric=metric, nprobe=nprobe),
+                          lambda ivf=ivf, q=q, m=metric, n=nprobe:
+                          filter_clusters(q, ivf, nprobe=n, metric=m)))
+    ivf = index(96)
+    pts = torch.randn((1000, 96), generator=gen, device=dev)
+    entries = torch.randn((48, 256, 2), generator=gen, device=dev)
+    book = PQCodebook(entries, torch.sum(entries * entries, -1))
+    cases.append((dict(what="_label_encode", Q=1000, C=c, D=96, metric="l2",
+                       nprobe=1, S=48, E=256),
+                  lambda: _label_encode(pts, ivf, book)))
+    for info, fn in cases:
+        n, sorts = kernels_of(fn)
+        print(json.dumps({"label": args.label, **info,
+                          "device_ms": device_ms(fn, args.reps),
+                          "host_ms": host_ms(fn, args.reps),
+                          "kernels": n, "sorts": sorts, "card": card}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,10 +16,14 @@ Phases, each raising on failure:
    ``Σ_d |q_d c_d|``, twice that for l2, plus the csq term's ulp, its
    top-16 ids equal away from a tie, at (Q, C, D) = (128, 1024, 96) and
    (128, 1024, 200) for a search batch and (1000, 1024, 96) for an insert
-   batch, l2 and ip), timed with CUDA events (median of 20) beside the
-   plain version, one PyTorch call that computes the same result where
-   there is one (``embedding_bag``, ``addmm``/``mm``), and the least time
-   the card could take;
+   batch, l2 and ip; its top-nprobe epilogue, which stage A runs, at the
+   search shapes with nprobe 8, 16 and 32 and the insert shape with nprobe
+   1: scores within that bound, ids equal away from a tie at the nprobe-th
+   place, and equal, index-ascending, where centroids repeat), timed with
+   CUDA events (median of 20) beside the plain version, the PyTorch calls
+   that compute the same result where there are any (``embedding_bag``,
+   ``addmm``/``mm``, for the top-nprobe ``addmm``/``mm`` then a stable
+   ``sort``), and the least time the card could take;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
@@ -27,8 +31,10 @@ Phases, each raising on failure:
    ``fused`` True and False, each with ``prefilter`` "scan" and "rt" — on
    a stream of 64 requests that routes to tiers H, H2, M and L: each
    engine's kernel launches over one pass (``ivf_filter`` for stage A in
-   all four), QPS, latency and signatures; then per tier (H, fused H2,
-   composed H2, M, L; under rt fused H2 is the three-stage kernel)
+   all four, one launch a stage-A call, counted on ``filter_clusters``),
+   QPS, latency, signatures and the profiled pass's sort launches; then
+   per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
+   three-stage kernel)
    recall@10-in-100 against ``exact_topk`` and QPS, composed H2 against
    fused H2 at the same rerank (ids equal up to score ties), and the ids
    of 32 queries against the same search on the CPU (plain versions);
@@ -81,6 +87,7 @@ from repro_torch.build import rebuild_index  # noqa: E402
 from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
                               index_to, recall_n_at_k, search)
 from repro_torch.core import density as density_lib  # noqa: E402
+from repro_torch.core import juno as juno_lib  # noqa: E402
 from repro_torch.core.ivf import filter_clusters  # noqa: E402
 from repro_torch.core.juno import (MutableJunoIndex, SideBuffer,  # noqa: E402
                                    _label_encode, _rt_probe_mask)
@@ -211,9 +218,12 @@ def profile_window(fn, trace_path: str) -> dict:
             kernels[ev.key] = (kernels.get(ev.key, (0.0, 0))[0] + us / 1e3,
                                ev.count)
     busy = sum(ms for ms, _ in kernels.values())
+    sorts = sum(n for k, (_, n) in kernels.items()
+                if "radixSortKVInPlace" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall * 1e3) if kernels else None,
+            "radix_sort_launches": sorts,
             "top": [{"kernel": k[:120], "ms": ms, "count": n}
                     for k, (ms, n) in top]}
 
@@ -592,9 +602,7 @@ def check_ivf_filter(q: int, c: int, d: int, metric: str, gen) -> dict:
     got = ivff.ivf_filter(qs, cent, csq, metric=metric)
     want = ivff.ivf_filter_plain(qs, cent, csq, metric=metric)
     torch.cuda.synchronize()
-    bound = (2.0 if metric == "l2" else 1.0) * RTOL * (qs.abs() @ cent.abs().T)
-    if metric == "l2":
-        bound = bound + torch.finfo(torch.float32).eps * csq.abs()[None]
+    bound = _matrix_bound(qs, cent, csq, metric)
     err = (got - want).abs()
     what = f"ivf_filter {metric} Q={q} C={c} D={d}"
     if (err > bound).any():
@@ -627,6 +635,93 @@ def check_ivf_filter(q: int, c: int, d: int, metric: str, gen) -> dict:
             "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
 
 
+def _matrix_bound(qs, cent, csq, metric: str) -> torch.Tensor:
+    """``check_ivf_filter``'s per-score bound of the kernel against the
+    plain matrix."""
+    bound = (2.0 if metric == "l2" else 1.0) * RTOL * (qs.abs() @ cent.abs().T)
+    if metric == "l2":
+        bound = bound + torch.finfo(torch.float32).eps * csq.abs()[None]
+    return bound
+
+
+def check_ivf_filter_topk(q: int, c: int, d: int, nprobe: int, metric: str,
+                          gen, *, dup: bool = False) -> dict:
+    """The ``ivf_filter`` kernel's top-nprobe epilogue against its plain
+    version (the plain matrix, a stable sort, a slice): each returned score
+    within the matrix rows' bound of the plain score at its id; ids equal
+    except in rows where the nprobe-th and (nprobe+1)-th plain scores lie
+    within that bound; with repeated centroids (``dup``: exact ties) ids
+    equal, index-ascending. Timed beside the plain version, the library's
+    two calls (``addmm``/``mm``, then ``torch.sort(stable=True)`` and the
+    slice) and this tree's matrix kernel followed by the same sort and
+    slice (``matrix_sort_ms``, the route stage A took before the
+    epilogue)."""
+    dev = torch.device("cuda")
+    qs = torch.randn((q, d), generator=gen, device=dev)
+    cent = torch.randn((c, d), generator=gen, device=dev)
+    if dup:
+        cent = cent[torch.randint(0, c // 3, (c,), generator=gen, device=dev)]
+    csq = torch.sum(cent * cent, dim=-1)
+    got_s, got_i = ivff.ivf_filter_topk(qs, cent, csq, nprobe=nprobe,
+                                        metric=metric)
+    want_s, want_i = ivff.ivf_filter_topk_plain(qs, cent, csq, nprobe=nprobe,
+                                                metric=metric)
+    torch.cuda.synchronize()
+    plain = ivff.ivf_filter_plain(qs, cent, csq, metric=metric)
+    bound = _matrix_bound(qs, cent, csq, metric)
+    err = (got_s - plain.gather(1, got_i)).abs()
+    what = (f"ivf_filter_topk {metric} Q={q} C={c} D={d} nprobe={nprobe}"
+            + (" (repeated centroids)" if dup else ""))
+    beyond = err > bound.gather(1, got_i)
+    if beyond.any():
+        raise AssertionError(f"{what}: {int(beyond.sum())} scores beyond "
+                             f"their bound")
+    key = -plain if metric == "l2" else plain
+    srt = torch.sort(key, dim=1, descending=True, stable=True).values
+    tie = (srt[:, nprobe - 1] - srt[:, nprobe]).abs() <= bound.max(dim=1).values
+    same = (got_i == want_i).all(dim=1)
+    same_set = (torch.sort(got_i, dim=1).values
+                == torch.sort(want_i, dim=1).values).all(dim=1)
+    if dup:
+        if not same.all():
+            raise AssertionError(f"{what}: ids differ from the plain version's")
+        run = got_s[:, 1:] == got_s[:, :-1]
+        if not run.any() or (got_i[:, 1:][run] <= got_i[:, :-1][run]).any():
+            raise AssertionError(f"{what}: tied ids not index-ascending")
+    elif not (same_set | tie).all():
+        raise AssertionError(f"{what}: ids differ away from a tie")
+
+    def library():
+        m = (torch.addmm(csq[None, :], qs, cent.T, alpha=-2.0)
+             if metric == "l2" else torch.mm(qs, cent.T))
+        key = -m if metric == "l2" else m
+        v, i = torch.sort(key, dim=1, descending=True, stable=True)
+        return v[:, :nprobe], i[:, :nprobe]
+
+    def matrix_sort():
+        m = ivff.ivf_filter(qs, cent, csq, metric=metric)
+        key = -m if metric == "l2" else m
+        v, i = torch.sort(key, dim=1, descending=True, stable=True)
+        return v[:, :nprobe], i[:, :nprobe]
+
+    n_bytes = 4 * (q * d + c * d + c) + 12 * q * nprobe
+    bnd, by = bound_ms(n_bytes, 2 * q * c * d)
+    return {"epilogue": "top-nprobe", "metric": metric, "Q": q, "C": c,
+            "D": d, "nprobe": nprobe, "repeated_centroids": dup,
+            "max_abs_err": float(err.max()),
+            "rows_not_identical": int((~same).sum()),
+            "rows_other_set_tied_at_nprobe": int((~same_set).sum()),
+            "ms": time_ms(lambda: ivff.ivf_filter_topk(
+                qs, cent, csq, nprobe=nprobe, metric=metric)),
+            "plain_ms": time_ms(lambda: ivff.ivf_filter_topk_plain(
+                qs, cent, csq, nprobe=nprobe, metric=metric)),
+            "library_ms": time_ms(library),
+            "library": ("addmm" if metric == "l2" else "mm")
+            + " + sort(stable) + slice: two library calls",
+            "matrix_sort_ms": time_ms(matrix_sort),
+            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
+
+
 def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {"selective_lut": [check_selective_lut("l2", 2048, 48, 256, gen),
@@ -651,10 +746,20 @@ def phase_kernels(seed: int) -> dict:
         for metric, s in (("l2", 48), ("ip", 100)) for c in (320, 3200)
         for cov in ("half", "probe0", "full")]
     torch.cuda.empty_cache()
-    # stage A of a search batch (D = 96, 200) and of an insert batch
-    rows["ivf_filter"] = [check_ivf_filter(q, 1024, d, metric, gen)
-                          for q, d in ((128, 96), (128, 200), (1000, 96))
-                          for metric in ("l2", "ip")]
+    # stage A of a search batch (D = 96, 200) and of an insert batch: the
+    # top-nprobe epilogue the main path runs (its search row first), then
+    # the repeated-centroid case, then the matrix epilogue
+    rows["ivf_filter"] = [
+        check_ivf_filter_topk(128, 1024, d, nprobe, metric, gen)
+        for d in (96, 200) for metric in ("l2", "ip")
+        for nprobe in (16, 8, 32)]
+    rows["ivf_filter"] += [
+        check_ivf_filter_topk(1000, 1024, 96, 1, "l2", gen),
+        check_ivf_filter_topk(128, 1024, 96, 16, "l2", gen, dup=True)]
+    rows["ivf_filter"] += [dict(epilogue="matrix",
+                                **check_ivf_filter(q, 1024, d, metric, gen))
+                           for q, d in ((128, 96), (128, 200), (1000, 96))
+                           for metric in ("l2", "ip")]
     for name, rs in rows.items():
         for r in rs:
             log(f"kernel.{name}", **r)
@@ -695,6 +800,26 @@ def check_results(ids, scores, n_points: int, what: str, *,
     return int(sentinel.sum())
 
 
+class StageACount:
+    """Within ``with``: count the searches' stage-A calls
+    (``filter_clusters``, as ``core/juno.py`` calls it)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        self._fn = juno_lib.filter_clusters
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._fn(*args, **kw)
+        juno_lib.filter_clusters = counted
+        return self
+
+    def __exit__(self, *exc):
+        juno_lib.filter_clusters = self._fn
+
+
 def serve_engine(index, queries, stream, *, metric: str, fused: bool,
                  n_points: int, trace_path: str, rt_grid=None) -> dict:
     """Warm-up, one pass with the launch counts read, four more timed
@@ -714,9 +839,15 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
         return eng, reqs, time.perf_counter() - t
 
     serve()                                    # warm-up: cuBLAS, allocator
+    stage_a = StageACount()
     _build.reset_launches()
-    eng, reqs, t_serve = serve()
+    with stage_a:
+        eng, reqs, t_serve = serve()
     launches = dict(_build.LAUNCHES)
+    if launches["ivf_filter"] != stage_a.calls:
+        raise AssertionError(
+            f"{prefilter} fused={fused}: {launches['ivf_filter']} ivf_filter "
+            f"launches for {stage_a.calls} stage-A calls")
     sentinels = 0
     for r in reqs:
         if not r.done or r.ids.shape != (r.queries.shape[0], r.k):
@@ -739,7 +870,8 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
             "signatures": {str(k): v
                            for k, v in eng.stats["signatures"].items()},
             "tiers": sorted({eng.route(r)[1] for r in reqs}),
-            "sentinel_results": sentinels, "launches": launches}
+            "sentinel_results": sentinels, "launches": launches,
+            "stage_a_calls": stage_a.calls}
 
 
 def _ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, what: str,

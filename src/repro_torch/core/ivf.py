@@ -134,12 +134,11 @@ def filter_clusters(queries: torch.Tensor, index: IVFIndex, *, nprobe: int,
                     metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
     """Stage A: the nprobe closest (l2) or most similar (ip) centroids.
 
-    The (Q, C) score matrix comes from ``ops.filter_scores`` (the
-    ``ivf_filter`` kernel on the card; on the CPU the plain
-    ``csq − 2·(q @ cᵀ)``, as the reference computes it at
-    ``repro/core/ivf.py:143``). The top-nprobe is a stable descending
-    sort, which reproduces ``lax.top_k``'s (value desc, index asc) tie
-    order.
+    ``ops.filter_topk``: on the card one ``ivf_filter`` launch, whose
+    epilogue keeps each row's best nprobe; on the CPU the plain
+    ``csq − 2·(q @ cᵀ)`` as the reference computes it at
+    ``repro/core/ivf.py:143``, then a stable sort. Both give
+    ``lax.top_k``'s order: (score best first, index ascending on ties).
 
     Returns
     -------
@@ -147,10 +146,5 @@ def filter_clusters(queries: torch.Tensor, index: IVFIndex, *, nprobe: int,
         ``(scores (Q, nprobe) f32, cluster_ids (Q, nprobe) int64)``;
         scores are lower-is-better for l2 and higher-is-better for ip.
     """
-    scores = ops.filter_scores(queries.float(), index.centroids,
-                               index.centroid_sq, metric=metric)
-    if metric == "l2":
-        vals, ids = torch.sort(-scores, dim=1, descending=True, stable=True)
-        return -vals[:, :nprobe], ids[:, :nprobe]
-    vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :nprobe], ids[:, :nprobe]
+    return ops.filter_topk(queries.float(), index.centroids,
+                           index.centroid_sq, nprobe=nprobe, metric=metric)

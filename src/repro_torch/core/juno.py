@@ -678,15 +678,26 @@ def _label_encode(pts: torch.Tensor, ivf: IVFIndex, codebook: PQCodebook
     """Insert-time (labels, codes) of a point batch (B, D).
 
     The owning cluster is the first minimum of ``csq − 2·p·cᵀ``
-    (``ops.filter_scores``: the ``ivf_filter`` kernel on the card), as
-    ``jnp.argmin`` takes it in the reference (``repro/core/juno.py:687``);
-    the codes are the residuals' PQ codes under the existing codebooks.
+    (``ops.filter_topk`` at nprobe 1: one ``ivf_filter`` launch on the
+    card; equal scores go to the smaller index), as ``jnp.argmin`` takes
+    it in the reference (``repro/core/juno.py:687``); the codes are the
+    residuals' PQ codes under the existing codebooks.
     Returns (labels (B,) int32, codes (B, S) uint8).
     """
-    d = ops.filter_scores(pts, ivf.centroids, ivf.centroid_sq, metric="l2")
-    labels = torch.argmin(d, dim=-1)
+    _, top = ops.filter_topk(pts, ivf.centroids, ivf.centroid_sq, nprobe=1,
+                             metric="l2")
+    labels = top[:, 0]
     return (labels.to(torch.int32),
             encode(pts - ivf.centroids[labels], codebook))
+
+
+def _own_copy(data: JunoIndexData) -> JunoIndexData:
+    """``data`` with clones of the tensors a mutation writes in place
+    (``cluster_codes``, ``ivf.point_ids``, ``ivf.valid``); the rest is
+    shared, since no mutation writes it."""
+    ivf = data.ivf._replace(point_ids=data.ivf.point_ids.clone(),
+                            valid=data.ivf.valid.clone())
+    return data._replace(ivf=ivf, cluster_codes=data.cluster_codes.clone())
 
 
 class MutableJunoIndex:
@@ -706,9 +717,13 @@ class MutableJunoIndex:
     through ``valid``; ``compact()`` folds spills back into freed slots.
     None of them changes the search's shapes.
 
-    The index's tensors are updated **in place** (a copy of the 400 MB
-    ``cluster_codes`` a batch is not affordable): the wrapper owns
-    ``data``, and a caller who needs the index as built passes a copy.
+    The wrapper owns a copy of the index it is given: the constructor and
+    :meth:`swap_data` clone the three tensors a mutation writes
+    (``cluster_codes``, ``ivf.point_ids``, ``ivf.valid``; 192 / 400 MB at
+    1M points, once), so the caller's index still searches as built and
+    two wrappers over one index never see each other's writes, as with
+    the reference's functional updates. Those copies are then updated
+    **in place** (a copy of ``cluster_codes`` a batch is not affordable).
     A batch writes ``cluster_codes``, then ``point_ids``, then ``valid``
     last, so a write that fails part-way leaves only invisible slots.
 
@@ -720,6 +735,7 @@ class MutableJunoIndex:
 
     def __init__(self, data: JunoIndexData, *, side_capacity: int = 256,
                  rt_grid: rt_lib.CentroidGrid | None = None):
+        data = _own_copy(data)
         self.data = data
         self.rt_grid = rt_grid
         self._init_bookkeeping(data.ivf.valid, data.ivf.point_ids,
@@ -1079,6 +1095,7 @@ class MutableJunoIndex:
         side_capacity : int, optional
             Capacity of the fresh side buffer (default: the current one's).
         """
+        new_data = _own_copy(new_data)
         pids = new_data.ivf.point_ids
         first_new = max(self._next_id,
                         int(pids.max()) + 1 if pids.numel() else 0)

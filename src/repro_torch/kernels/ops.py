@@ -3,7 +3,8 @@
 Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
 ``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135),
 ``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183),
-``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263). Dispatch
+``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263), and
+``filter_topk`` (stage A of ``repro/core/ivf.py:filter_clusters``). Dispatch
 follows the tensors' device: a CPU tensor goes to the kernel's plain
 PyTorch version; a CUDA tensor goes to the hand-written CUDA kernel, or
 the call raises. There is no fallback from a kernel to its plain
@@ -25,7 +26,8 @@ import torch
 from .fused_three_stage import fused_three_stage, fused_three_stage_plain
 from .fused_two_stage import fused_two_stage, fused_two_stage_plain
 from .hit_count import hit_count, hit_count_plain
-from .ivf_filter import ivf_filter, ivf_filter_plain
+from .ivf_filter import (ivf_filter, ivf_filter_plain, ivf_filter_topk,
+                         ivf_filter_topk_plain)
 from .pq_scan import pq_scan, pq_scan_plain
 from .selective_lut import selective_lut, selective_lut_plain
 from .sphere_hits import sphere_hits, sphere_hits_plain
@@ -199,3 +201,21 @@ def filter_scores(queries: torch.Tensor, centroids: torch.Tensor,
     if _on_cuda(*args):
         return ivf_filter(*(a.contiguous() for a in args), metric=metric)
     return ivf_filter_plain(*args, metric=metric)
+
+
+def filter_topk(queries: torch.Tensor, centroids: torch.Tensor,
+                centroid_sq: torch.Tensor, *, nprobe: int, metric: str = "l2"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage A: each query's ``nprobe`` best centroids, in one launch on
+    the card.
+
+    queries (Q, D) f32, centroids (C, D) f32, centroid_sq (C,) f32 ->
+    (scores (Q, nprobe) f32, ids (Q, nprobe) int64), in ``lax.top_k``'s
+    order: l2 ascending (scores as :func:`filter_scores` gives them), ip
+    descending, equal scores by smaller centroid index.
+    """
+    args = (queries, centroids, centroid_sq)
+    if _on_cuda(*args):
+        return ivf_filter_topk(*(a.contiguous() for a in args),
+                               nprobe=nprobe, metric=metric)
+    return ivf_filter_topk_plain(*args, nprobe=nprobe, metric=metric)

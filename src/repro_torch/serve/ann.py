@@ -27,7 +27,9 @@ the same signature ``(k, mode, nprobe)`` into one search call:
   surviving probe (``rt.probe_budget``, host numpy, once a request and
   again after each insert batch, which grows the grid's reaches).
 * **Mutation plane** — the engine owns a
-  :class:`~repro_torch.core.juno.MutableJunoIndex`: ``insert``,
+  :class:`~repro_torch.core.juno.MutableJunoIndex` (a bare index is
+  wrapped in one, which copies it; a wrapper passed in is shared):
+  ``insert``,
   ``delete`` and ``compact`` run between ticks with no change to any
   search shape (the delta tiers ride along as one fixed-capacity side
   buffer); ``swap_index`` installs a rebuilt index; with ``max_minors``
@@ -112,7 +114,8 @@ class AnnServeEngine:
         index : JunoIndexData or MutableJunoIndex
             The index to serve; searches run on its device. A bare
             ``JunoIndexData`` is wrapped in a ``MutableJunoIndex``, which
-            updates its tensors in place on insert and delete.
+            owns a copy of the tensors a mutation writes: the caller's
+            index, and any other engine over it, is left as it was.
         metric : str
             "l2" | "ip".
         thres_scale : float

@@ -15,6 +15,12 @@ oracles.
   Pallas ``ivf_filter`` in interpret mode and ``ref.ivf_filter_ref``, at
   the reference test's shapes, within rtol 1e-5, atol 1e-4 (the products
   sum over D in another order).
+* ``ivf_filter_topk_plain`` (and ``ops.filter_topk`` on the CPU) against
+  the reference's ``repro.core.ivf.filter_clusters`` (a product, then
+  ``lax.top_k``): ids exact, ties included (duplicated centroids come back
+  index-ascending); scores within the same rtol 1e-5, atol 1e-4, since
+  XLA's and PyTorch's CPU products sum over D in other orders at some
+  shapes (they agree bit for bit at C = 1024).
 
 The CUDA kernels against their plain versions are in
 ``test_torch_kernels_gpu.py`` (no JAX there: the card's machine has none).
@@ -24,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.ivf import IVFIndex as JaxIVFIndex
+from repro.core.ivf import filter_clusters as jax_filter_clusters
 from repro.core.lut import ip_pruned_fill
 from repro.kernels import ref as jref
 from repro.kernels.fused_two_stage import fused_two_stage_host
@@ -220,3 +228,64 @@ def test_ivf_filter_wrapper_refuses_cpu_and_bad_metric():
         pivf.ivf_filter(x, x, torch.zeros(2))
     with pytest.raises(ValueError, match="unknown metric"):
         ops.filter_scores(x, x, torch.zeros(2), metric="cos")
+
+
+def _topk_case(q, c, d, nprobe, metric, dup=False):
+    rng = np.random.default_rng(1000 * q + 10 * c + d)
+    x = rng.standard_normal((q, d)).astype(np.float32)
+    cents = rng.standard_normal((c, d)).astype(np.float32)
+    if dup:     # every centroid twice or more: exact ties in every row
+        cents = cents[rng.integers(0, c // 3, c)]
+    csq = np.sum(cents * cents, -1)
+    ivf = JaxIVFIndex(jnp.asarray(cents), jnp.asarray(csq),
+                      jnp.zeros((c, 1), jnp.int32), jnp.zeros((c, 1), bool),
+                      jnp.zeros((1,), jnp.int32))
+    s_r, ids_r = jax_filter_clusters(jnp.asarray(x), ivf, nprobe=nprobe,
+                                     metric=metric)
+    args = (torch.from_numpy(x), torch.from_numpy(cents),
+            torch.from_numpy(csq))
+    s_p, ids_p = pivf.ivf_filter_topk_plain(*args, nprobe=nprobe,
+                                            metric=metric)
+    s_o, ids_o = ops.filter_topk(*args, nprobe=nprobe, metric=metric)
+    assert torch.equal(s_o, s_p) and torch.equal(ids_o, ids_p)
+    assert s_p.dtype == torch.float32 and ids_p.dtype == torch.int64
+    np.testing.assert_array_equal(ids_p.numpy(), np.asarray(ids_r))
+    np.testing.assert_allclose(s_p.numpy(), np.asarray(s_r), rtol=1e-5,
+                               atol=1e-4)
+    return ids_p.numpy(), s_p.numpy()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("q,c,d,nprobe", [
+    (1, 9, 8, 1), (1, 9, 8, 8), (1, 9, 8, 9),
+    (17, 37, 40, 1), (17, 37, 40, 8), (17, 37, 40, 16), (17, 37, 40, 32),
+    (17, 37, 40, 37),
+    (128, 1024, 96, 1), (128, 1024, 96, 8), (128, 1024, 96, 16),
+    (128, 1024, 96, 32), (128, 1024, 96, 1024),
+    (17, 1024, 8, 16), (128, 37, 96, 32), (1, 1024, 40, 1024)])
+def test_ivf_filter_topk_plain_matches_reference(q, c, d, nprobe, metric):
+    _topk_case(q, c, d, nprobe, metric)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_filter_topk_plain_ties_index_ascending(metric):
+    ids, scores = _topk_case(17, 37, 40, 16, metric, dup=True)
+    tied = scores[:, 1:] == scores[:, :-1]
+    assert tied.any()
+    assert (ids[:, 1:][tied] > ids[:, :-1][tied]).all()
+
+
+def test_ivf_filter_topk_refuses_bad_input():
+    """The kernel wrapper never falls back, and both versions refuse an
+    nprobe outside [1, C] and an unknown metric."""
+    x = torch.zeros((2, 4))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        pivf.ivf_filter_topk(x, x, torch.zeros(2), nprobe=1)
+    for fn in (pivf.ivf_filter_topk_plain, ops.filter_topk):
+        for bad in (0, 3):
+            with pytest.raises(ValueError, match="nprobe"):
+                fn(x, x, torch.zeros(2), nprobe=bad)
+        with pytest.raises(ValueError, match="unknown metric"):
+            fn(x, x, torch.zeros(2), nprobe=1, metric="cos")
+    with pytest.raises(ValueError, match="unknown metric"):
+        pivf.ivf_filter_topk(x, x, torch.zeros(2), nprobe=1, metric="cos")

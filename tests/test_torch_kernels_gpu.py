@@ -9,7 +9,10 @@ The LUT, the hit table, the sphere hits, ``probe_ok``, counts and
 candidates must be equal; the IVF filter's scores lie within 1e-5 of
 ``Σ_d |q_d c_d|`` (twice that for l2) plus the ``csq`` term's ulp, and its
 top-16 ids match except where the 16th and 17th scores lie within that
-bound; ``cand_dist``
+bound; its top-nprobe epilogue equals a stable sort of the kernel's own
+matrix exactly (scores, ids and order), and the plain top-nprobe in ids
+away from a tie at the nprobe-th place (exactly where centroids repeat);
+``cand_dist``
 and ``dist`` agree within rtol 1e-5 (f32 sums over S in another order),
 plus atol 1e-6: these LUTs hold N(0, 1) entries, so a sum of S <= 8 of them
 can cancel to near 0, where a few ulps of the terms exceed rtol. The
@@ -313,3 +316,112 @@ def test_ivf_filter_kernel_refuses_bad_input(cuda):
     with pytest.raises(ValueError):
         pivf.ivf_filter(x.double(), x.double(),
                         torch.zeros(4, device=cuda, dtype=torch.float64))
+
+
+def _topk_inputs(cuda, nq, c, d, dup=False):
+    rng = np.random.default_rng(7 * nq + 3 * c + d)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    cent = rng.standard_normal((c, d)).astype(np.float32)
+    if dup:     # repeated centroids: exact ties in every row
+        cent = cent[rng.integers(0, max(1, c // 3), c)]
+    cent = torch.from_numpy(cent).to(cuda)
+    return q.to(cuda), cent, torch.sum(cent * cent, -1)
+
+
+def _sorted_top(m, nprobe, metric):
+    """The plain top-nprobe of a given score matrix (stable sort)."""
+    key = -m if metric == "l2" else m
+    vals, ids = torch.sort(key, dim=1, descending=True, stable=True)
+    vals = -vals if metric == "l2" else vals
+    return vals[:, :nprobe], ids[:, :nprobe]
+
+
+def _check_topk(q, cent, csq, nprobe, metric):
+    got_s, got_i = pivf.ivf_filter_topk(q, cent, csq, nprobe=nprobe,
+                                        metric=metric)
+    mat = pivf.ivf_filter(q, cent, csq, metric=metric)
+    torch.cuda.synchronize()
+    assert got_s.shape == got_i.shape == (q.shape[0], nprobe)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int64
+    # the selection, exactly: the same scores as the matrix epilogue's
+    want_s, want_i = _sorted_top(mat, nprobe, metric)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_s, want_s)
+    # against the plain version: scores within the matrix rows' bound,
+    # ids equal unless the nprobe-th and next plain scores lie within it
+    plain = pivf.ivf_filter_plain(q, cent, csq, metric=metric)
+    bound = (2.0 if metric == "l2" else 1.0) * RTOL * (q.abs() @ cent.abs().T)
+    if metric == "l2":
+        bound = bound + torch.finfo(torch.float32).eps * csq.abs()[None]
+    p_s, p_i = pivf.ivf_filter_topk_plain(q, cent, csq, nprobe=nprobe,
+                                          metric=metric)
+    assert ((got_s - plain.gather(1, got_i)).abs()
+            <= bound.gather(1, got_i)).all()
+    same = (torch.sort(got_i, 1).values == torch.sort(p_i, 1).values).all(1)
+    if nprobe < cent.shape[0]:
+        nxt = _sorted_top(plain, nprobe + 1, metric)[0][:, nprobe]
+        tie = (p_s[:, -1] - nxt).abs() <= bound.max(1).values
+        assert (same | tie).all()
+    else:
+        assert same.all()
+    return got_s, got_i, p_s, p_i
+
+
+# ragged Q (1, 7, 1000), C (1, 37, 1500) and D (8, 40, 300); every nprobe
+# of 1, 16, 32, 129 and C that is at most C
+_TOPK_CASES = [(nq, c, d, nprobe) for nq, c, d in (
+    (1, 1, 8), (7, 37, 40), (128, 1024, 96), (128, 1024, 200),
+    (1000, 1024, 96), (1000, 1500, 300), (7, 1500, 8), (128, 37, 300),
+    (1, 1024, 200)) for nprobe in sorted({1, 16, 32, 129, c}) if nprobe <= c]
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("nq,c,d,nprobe", _TOPK_CASES)
+def test_ivf_filter_topk_kernel_matches_plain(cuda, metric, nq, c, d, nprobe):
+    _check_topk(*_topk_inputs(cuda, nq, c, d), nprobe, metric)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("nprobe", [1, 16, 129])
+def test_ivf_filter_topk_exact_ties_index_ascending(cuda, metric, nprobe):
+    q, cent, csq = _topk_inputs(cuda, 128, 1024, 96, dup=True)
+    got_s, got_i, p_s, p_i = _check_topk(q, cent, csq, nprobe, metric)
+    assert torch.equal(got_i, p_i)
+    tied = got_s[:, 1:] == got_s[:, :-1]
+    assert nprobe == 1 or tied.any()
+    assert (got_i[:, 1:][tied] > got_i[:, :-1][tied]).all()
+
+
+def test_ivf_filter_topk_counters_reset(cuda):
+    """Launches that alternate 1000 and 8 queries (125 and 1 row tiles of
+    one counter buffer) each merge once a row tile, so each is right."""
+    for nq, nprobe in ((1000, 16), (8, 1), (1000, 32), (8, 129), (1000, 1),
+                       (8, 16)):
+        for metric in ("l2", "ip"):
+            q, cent, csq = _topk_inputs(cuda, nq, 1024, 96)
+            _check_topk(q, cent, csq, nprobe, metric)
+    assert not pivf._COUNTERS[q.device].any()
+
+
+def test_ivf_filter_topk_launch_count(cuda):
+    _build.reset_launches()
+    q, cent, csq = _topk_inputs(cuda, 9, 300, 40)
+    pivf.ivf_filter_topk_plain(q, cent, csq, nprobe=8)     # no count
+    ops.filter_topk(q, cent, csq, nprobe=8, metric="ip")
+    pivf.ivf_filter_topk(q, cent, csq, nprobe=1)
+    assert _build.LAUNCHES["ivf_filter"] == 2
+    assert sum(_build.LAUNCHES.values()) == 2
+
+
+def test_ivf_filter_topk_kernel_refuses_bad_input(cuda):
+    q, cent, csq = _topk_inputs(cuda, 4, 8, 8)
+    for bad in (0, 9):
+        with pytest.raises(ValueError, match="nprobe"):
+            pivf.ivf_filter_topk(q, cent, csq, nprobe=bad)
+    with pytest.raises(ValueError):
+        pivf.ivf_filter_topk(q.T, cent, csq, nprobe=2)           # layout
+    with pytest.raises(ValueError):
+        pivf.ivf_filter_topk(q.double(), cent.double(), csq.double(),
+                             nprobe=2)
+    with pytest.raises(ValueError, match="unknown metric"):
+        pivf.ivf_filter_topk(q, cent, csq, nprobe=2, metric="cos")

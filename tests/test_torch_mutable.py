@@ -197,6 +197,26 @@ def test_label_encode_matches_reference(base):
     np.testing.assert_array_equal(codes_p.numpy(), np.asarray(codes_r))
 
 
+def test_label_encode_ties_go_to_the_smaller_index(base):
+    """Centroid 9 made a copy of centroid 2: every point nearest to them
+    scores both equally and takes 2, the first minimum, as ``jnp.argmin``
+    does."""
+    _, pts, _, ref, _ = base
+    cents = np.asarray(ref.ivf.centroids).copy()
+    cents[9] = cents[2]
+    ivf = to_port(ref).ivf._replace(
+        centroids=torch.from_numpy(cents),
+        centroid_sq=torch.from_numpy(np.sum(cents * cents, -1)))
+    new = near_points(cents[2], 20, np.random.default_rng(5))
+    lab_r, codes_r = jjuno._label_encode(jnp.asarray(new), jnp.asarray(cents),
+                                         ref.codebook)
+    lab_p, codes_p = pjuno._label_encode(torch.from_numpy(new), ivf,
+                                         to_port(ref).codebook)
+    np.testing.assert_array_equal(lab_p.numpy(), np.asarray(lab_r))
+    np.testing.assert_array_equal(codes_p.numpy(), np.asarray(codes_r))
+    assert (lab_p == 2).any() and not (lab_p == 9).any()
+
+
 def test_empty_side_buffer_device_matches_reference():
     side = pjuno.empty_side_buffer(5, 3, device="cpu")
     ref = jjuno.empty_side_buffer(5, 3)

@@ -17,6 +17,7 @@ insert batch, as the reference's.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _torch_mutable import assert_same_state, fresh_points, near_points
 from _torch_parity import assert_ids_equal_up_to_ties, to_port
@@ -200,3 +201,64 @@ def test_rt_engine_budget_refreshes_after_insert(served):
     peng.run()
     jeng.run()
     assert preq.done and preq.ids.shape == jreq.ids.shape
+
+
+def _index_arrays(port):
+    return [t.clone() for t in (port.cluster_codes, port.ivf.point_ids,
+                                port.ivf.valid)]
+
+
+def _assert_index_arrays(port, arrays):
+    for got, want in zip((port.cluster_codes, port.ivf.point_ids,
+                          port.ivf.valid), arrays):
+        assert torch.equal(got, want)
+
+
+def test_two_engines_over_one_index_match_reference(served):
+    """Two engines over one bare index each own a copy: each equals its own
+    reference engine (ids handed out, state, results) whatever the other
+    one inserts and deletes."""
+    metric, q, ref, _ = served
+    port = to_port(ref)
+    kw = dict(metric=metric, side_capacity=16)
+    pengs = [AnnServeEngine(port, **kw), AnnServeEngine(port, **kw)]
+    jengs = [JaxEngine(ref, **kw), JaxEngine(ref, **kw)]
+    rng = np.random.default_rng(11)
+    pts = np.asarray(ref.ivf.centroids)[np.asarray(ref.ivf.labels)]
+    for i, (peng, jeng) in enumerate(zip(pengs, jengs)):
+        new = fresh_points(pts, 5 + 10 * i, rng)
+        assert peng.insert(new) == jeng.insert(new)
+        gone = list(range(3 * i, 3 * i + 3))
+        assert peng.delete(gone) == jeng.delete(gone) == 3
+    for peng, jeng in zip(pengs, jengs):
+        assert_same_state(peng.index, jeng.index)
+        _serve_both(jeng, peng, _stream(q)[:8])
+
+
+def test_bare_index_searches_as_built_after_engine_mutates(served):
+    """An engine's inserts and deletes leave the index it was given as
+    built: a later engine over it equals a fresh reference engine."""
+    metric, q, ref, _ = served
+    port = to_port(ref)
+    before = _index_arrays(port)
+    eng = AnnServeEngine(port, metric=metric, side_capacity=16)
+    pts = np.asarray(ref.ivf.centroids)[np.asarray(ref.ivf.labels)]
+    eng.insert(fresh_points(pts, 40, np.random.default_rng(12)))
+    eng.delete(list(range(0, 60, 2)))
+    eng.compact()
+    _assert_index_arrays(port, before)
+    _serve_both(JaxEngine(ref, metric=metric),
+                AnnServeEngine(port, metric=metric), _stream(q)[:8])
+
+
+def test_swap_data_leaves_callers_index_unchanged(served):
+    metric, _, ref, _ = served
+    new_data = to_port(ref)
+    before = _index_arrays(new_data)
+    eng = AnnServeEngine(to_port(ref), metric=metric, side_capacity=16)
+    eng.swap_index(new_data)
+    pts = np.asarray(ref.ivf.centroids)[np.asarray(ref.ivf.labels)]
+    eng.insert(fresh_points(pts, 30, np.random.default_rng(13)))
+    eng.delete(list(range(1, 40, 3)))
+    assert eng.index.n_live == int(np.asarray(ref.ivf.valid).sum()) + 30 - 13
+    _assert_index_arrays(new_data, before)
