@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's stage A and insert label on the card, for one tree.
+"""Time the port's stage A, insert label and stage B on the card, for one tree.
 
     python3 bench_stage_a.py [--src DIR] [--label NAME] [--reps 50]
+    python3 bench_stage_a.py --stage-b [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
     python3 bench_stage_a.py --traces TRACE.json.gz ...
@@ -20,6 +21,18 @@ random data from a fixed seed:
 - ``host_ms``: median wall time of one call ended by a synchronise;
 - ``kernels`` and ``sorts``: the kernels one call launches on the card,
   and how many of them are sorts (``torch.profiler``).
+
+With ``--stage-b`` it times stage B instead, for the tree of ``--src``
+(so two trees compare in turns as above): the ``selective_lut`` kernel on
+contiguous (B, S) planes over B in {16, 128, 512, 1024, 2048, 4096}, S in
+{48, 100}, l2 and ip (E = 256), with ``device_ms``, ``kernel_us``, the
+least time the card could take (``bound_ms``: 5 bytes an entry written,
+the inputs read once, at 3.35 TB/s) and ``write_floor_ms``, one ``fill_``
+of the same output bytes (a yardstick of the card's reachable write rate,
+not a library call); then ``ops.build_selective_lut`` as
+``core/juno.py:_stage_b`` calls it (Q = 128, nprobe 8 and 16; l2 residuals
+at D = 96, ip's ``qsub`` expanded over the probes at D = 200), with
+``device_ms``, ``host_ms`` and ``kernels``.
 
 With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
 instead (this tree only), over a sweep of shapes, nprobe and D: besides
@@ -101,8 +114,9 @@ def kernels_of(fn) -> tuple[int, int]:
     return n, sorts
 
 
-def kernel_us(fn, reps: int) -> float:
-    """Mean duration of the kernels whose name holds ``ivf_filter``."""
+def kernel_us(fn, reps: int, name: str = "ivf_filter") -> float:
+    """Mean duration of the kernels whose name holds ``name`` (None when
+    the profiler recorded none of them: it can miss a window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -113,10 +127,10 @@ def kernel_us(fn, reps: int) -> float:
         torch.cuda.synchronize()
     total = n = 0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and "ivf_filter" in ev.key:
+        if ev.device_type == DeviceType.CUDA and name in ev.key:
             total += ev.self_device_time_total
             n += ev.count
-    return total / n
+    return total / n if n else None
 
 
 def kernel_sweep(card: str, reps: int) -> None:
@@ -141,6 +155,58 @@ def kernel_sweep(card: str, reps: int) -> None:
                 "C": c, "D": d, "nprobe": nprobe, "metric": "l2",
                 "device_ms": device_ms(fn, reps),
                 "kernel_us": kernel_us(fn, reps), "card": card}),
+                flush=True)
+
+
+def stage_b(card: str, label: str, reps: int) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_lut as slut
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    e = 256
+    for metric in ("l2", "ip"):
+        for s in (48, 100):
+            for b in (16, 128, 512, 1024, 2048, 4096):
+                q = torch.randn((2, b, s), generator=gen, device=dev) * 0.5
+                ent = torch.randn((2, s, e), generator=gen, device=dev) * 0.5
+                esq = ent[0] * ent[0] + ent[1] * ent[1]
+                tau = torch.rand((b, s), generator=gen, device=dev) * 0.8
+                args = (q[0].contiguous(), q[1].contiguous(),
+                        ent[0].contiguous(), ent[1].contiguous(), esq, tau)
+                fn = lambda: slut.selective_lut(*args, metric=metric)
+                n_bytes = 4 * (3 * b * s + 3 * s * e) + 5 * b * s * e
+                buf = torch.empty(5 * b * s * e, dtype=torch.uint8, device=dev)
+                print(json.dumps({
+                    "label": label, "what": "selective_lut", "metric": metric,
+                    "B": b, "S": s, "E": e, "device_ms": device_ms(fn, reps),
+                    "kernel_us": kernel_us(fn, reps, "selective_lut"),
+                    "bound_ms": n_bytes / 3.35e12 * 1e3,
+                    "write_floor_ms": device_ms(lambda: buf.fill_(1), reps),
+                    "card": card}), flush=True)
+                del buf
+    c, nq = 1024, 128
+    for metric, d in (("l2", 96), ("ip", 200)):
+        s = d // 2
+        queries = torch.randn((nq, d), generator=gen, device=dev)
+        cent = torch.randn((c, d), generator=gen, device=dev)
+        entries = torch.randn((s, e, 2), generator=gen, device=dev)
+        esq = torch.sum(entries * entries, -1)
+        for nprobe in (8, 16):
+            cids = torch.randint(0, c, (nq, nprobe), generator=gen, device=dev)
+            if metric == "l2":
+                qsub = (queries[:, None, :] - cent[cids]).reshape(
+                    nq, nprobe, s, 2)
+            else:
+                qsub = queries.reshape(nq, 1, s, 2).expand(nq, nprobe, s, 2)
+            tau = torch.rand((nq, nprobe, s), generator=gen, device=dev)
+            fn = lambda: ops.build_selective_lut(qsub, entries, esq, tau,
+                                                 metric=metric)
+            n, _ = kernels_of(fn)
+            print(json.dumps({
+                "label": label, "what": "build_selective_lut",
+                "metric": metric, "Q": nq, "nprobe": nprobe, "S": s, "E": e,
+                "device_ms": device_ms(fn, reps),
+                "host_ms": host_ms(fn, reps), "kernels": n, "card": card}),
                 flush=True)
 
 
@@ -253,6 +319,8 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--stage-b", action="store_true",
+                    help="time stage B (selective_lut) of this tree instead")
     ap.add_argument("--kernels", action="store_true",
                     help="sweep the ivf_filter kernel's epilogues instead")
     ap.add_argument("--phases", action="store_true",
@@ -275,6 +343,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
+    if args.stage_b:
+        stage_b(card, args.label, args.reps)
+        return 0
     if args.kernels:
         kernel_sweep(card, args.reps)
         return 0

@@ -23,7 +23,13 @@ Phases, each raising on failure:
    CUDA events (median of 20) beside the plain version, the PyTorch calls
    that compute the same result where there are any (``embedding_bag``,
    ``addmm``/``mm``, for the top-nprobe ``addmm``/``mm`` then a stable
-   ``sort``), and the least time the card could take;
+   ``sort``), and the least time the card could take; ``selective_lut``
+   at (B, S) = (2048, 48) l2, (2048, 48) and (2048, 100) ip, at the
+   engines' batch sizes (128, 48) l2, (512, 100) and (4096, 100) ip, and
+   on stage B's ip route (``ops.build_selective_lut`` from a ``qsub``
+   expanded over 16 probes: one kernel a call, no copy), each also with
+   the profiler's kernel time and a write floor (one ``fill_`` of the same
+   output bytes: a yardstick, not a library call);
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
@@ -97,6 +103,7 @@ from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
 from repro_torch.kernels import fused_two_stage as fts  # noqa: E402
 from repro_torch.kernels import hit_count as hc  # noqa: E402
 from repro_torch.kernels import ivf_filter as ivff  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pq_scan as pqs  # noqa: E402
 from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
@@ -252,6 +259,70 @@ def phase_build(out_dir: str) -> None:
     log("build", seconds=secs, ptxas=regs)
 
 
+def kernel_us(fn, name: str, reps: int = 20) -> float:
+    """Mean device time, in microseconds, of the kernels whose name holds
+    ``name`` over ``reps`` calls of ``fn`` (``torch.profiler``): the
+    kernel's own time, without the events' and the launch's share. None
+    when the profiler recorded none of them (it can miss a window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and name in ev.key]
+    n = sum(ev.count for ev in evs)
+    return sum(ev.self_device_time_total for ev in evs) / n if n else None
+
+
+def cuda_kernels(fn) -> list[str]:
+    """The kernels (and copies) one call of ``fn`` runs on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key[:80] for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA for _ in range(ev.count)]
+
+
+def write_floor_ms(n_bytes: int) -> float:
+    """A yardstick, not a library call: one ``fill_`` of ``n_bytes`` bytes,
+    the card's reachable write rate for a kernel that writes that much."""
+    buf = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: buf.fill_(1))
+    del buf
+    return ms
+
+
+def _lut_row(metric: str, args: tuple, got: tuple, fn, b: int, s: int,
+             e: int) -> dict:
+    """A ``selective_lut`` row: ``got`` (the kernel's lut and hit) equal to
+    the plain version on ``args`` (contiguous planes), timed beside it,
+    its bound and the write floor; ``fn`` is the call that is timed."""
+    lut_p, hit_p = slut.selective_lut_plain(*args, metric=metric)
+    torch.cuda.synchronize()
+    lut_k, hit_k = (t.reshape(lut_p.shape) for t in got)
+    if not (torch.equal(hit_k, hit_p) and torch.equal(lut_k, lut_p)):
+        raise AssertionError(f"selective_lut {metric} B={b} S={s}: kernel != "
+                             f"plain ({int((hit_k != hit_p).sum())} hit, "
+                             f"{int((lut_k != lut_p).sum())} lut entries)")
+    n_bytes = 4 * (3 * b * s + 3 * s * e) + 5 * b * s * e
+    bnd, by = bound_ms(n_bytes, 12 * b * s * e)
+    return {"metric": metric, "B": b, "S": s, "E": e,
+            "max_abs_err": float((lut_k - lut_p).abs().max()),
+            "ms": time_ms(fn), "kernel_us": kernel_us(fn, "selective_lut"),
+            "plain_ms": time_ms(
+                lambda: slut.selective_lut_plain(*args, metric=metric)),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "write_floor_ms": write_floor_ms(5 * b * s * e),
+            "bytes": n_bytes}
+
+
 def check_selective_lut(metric: str, b: int, s: int, e: int, gen) -> dict:
     dev = torch.device("cuda")
     q = torch.randn((2, b, s), generator=gen, device=dev) * 0.5
@@ -260,22 +331,38 @@ def check_selective_lut(metric: str, b: int, s: int, e: int, gen) -> dict:
     tau = torch.rand((b, s), generator=gen, device=dev) * 0.8
     args = (q[0].contiguous(), q[1].contiguous(), ent[0].contiguous(),
             ent[1].contiguous(), esq, tau)
-    lut_k, hit_k = slut.selective_lut(*args, metric=metric)
-    lut_p, hit_p = slut.selective_lut_plain(*args, metric=metric)
-    torch.cuda.synchronize()
-    if not (torch.equal(hit_k, hit_p) and torch.equal(lut_k, lut_p)):
-        raise AssertionError(f"selective_lut {metric} S={s}: kernel != plain "
-                             f"({int((hit_k != hit_p).sum())} hit, "
-                             f"{int((lut_k != lut_p).sum())} lut entries)")
-    n_bytes = 4 * (3 * b * s + 3 * s * e) + 5 * b * s * e
-    bnd, by = bound_ms(n_bytes, 12 * b * s * e)
-    return {"metric": metric, "B": b, "S": s, "E": e,
-            "max_abs_err": float((lut_k - lut_p).abs().max()),
-            "ms": time_ms(lambda: slut.selective_lut(*args, metric=metric)),
-            "plain_ms": time_ms(
-                lambda: slut.selective_lut_plain(*args, metric=metric)),
-            "bound_ms": bnd, "bound_by": by, "library_ms": None,
-            "bytes": n_bytes}
+    got = slut.selective_lut(*args, metric=metric)
+    return _lut_row(metric, args, got,
+                    lambda: slut.selective_lut(*args, metric=metric), b, s, e)
+
+
+def check_stage_b_route(q: int, n_probe: int, s: int, e: int, gen) -> dict:
+    """Stage B as the ip query path runs it: ``ops.build_selective_lut``
+    from ``qsub`` expanded over the probes (``core/juno.py:_stage_b``) and
+    views of ``entries``: equal to the plain version on contiguous copies,
+    and one kernel a call."""
+    dev = torch.device("cuda")
+    qsub = (torch.randn((q, 1, s, 2), generator=gen, device=dev) * 0.5
+            ).expand(q, n_probe, s, 2)
+    entries = torch.randn((s, e, 2), generator=gen, device=dev) * 0.5
+    esq = torch.sum(entries * entries, -1)
+    tau = torch.rand((q, n_probe, s), generator=gen, device=dev) * 0.8
+
+    def call():
+        return ops.build_selective_lut(qsub, entries, esq, tau, metric="ip")
+
+    got = call()
+    args = (qsub[..., 0].reshape(-1, s).contiguous(),
+            qsub[..., 1].reshape(-1, s).contiguous(),
+            entries[..., 0].contiguous(), entries[..., 1].contiguous(), esq,
+            tau.reshape(-1, s).contiguous())
+    row = _lut_row("ip", args, got, call, q * n_probe, s, e)
+    launched = cuda_kernels(call)
+    if len(launched) != 1 or "selective_lut" not in launched[0]:
+        raise AssertionError(f"stage B route: {len(launched)} kernels a call "
+                             f"({launched}), want one selective_lut")
+    return {"route": "ops.build_selective_lut, qsub expanded over the probes",
+            "Q": q, "nprobe": n_probe, "kernels_a_call": len(launched), **row}
 
 
 def _assert_sums_close(got: torch.Tensor, want: torch.Tensor,
@@ -724,9 +811,15 @@ def check_ivf_filter_topk(q: int, c: int, d: int, nprobe: int, metric: str,
 
 def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = {"selective_lut": [check_selective_lut("l2", 2048, 48, 256, gen),
-                              check_selective_lut("ip", 2048, 48, 256, gen),
-                              check_selective_lut("ip", 2048, 100, 256, gen)]}
+    # stage B: the three shapes of earlier runs (l2 first: the line's
+    # head), the engines' batch sizes (Q bucket x nprobe), and the ip route
+    rows = {"selective_lut": [
+        check_selective_lut(metric, b, s, 256, gen)
+        for metric, b, s in (("l2", 2048, 48), ("ip", 2048, 48),
+                             ("ip", 2048, 100), ("l2", 128, 48),
+                             ("ip", 512, 100), ("ip", 4096, 100))]}
+    rows["selective_lut"].append(check_stage_b_route(128, 16, 100, 256, gen))
+    torch.cuda.empty_cache()
     rows["fused_two_stage"] = [
         check_fused_two_stage(128, 16, 3912, s, 256, 1024, c, metric, gen)
         for metric, s in (("l2", 48), ("ip", 100)) for c in (320, 3200)]

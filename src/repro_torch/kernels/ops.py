@@ -61,17 +61,24 @@ def build_selective_lut(qsub: torch.Tensor, entries: torch.Tensor,
     dims are flattened into the kernel's batch axis. For ip the pruned
     entries already carry their row's minimum kept similarity (the
     reference's ``ip_pruned_fill`` post-pass is fused into the kernel).
+    On the card this is one launch: the kernel reads ``qsub``, ``tau``
+    and ``entries`` through their strides (stage B's ip ``qsub`` is
+    expanded over the probes), and with two leading dims or fewer nothing
+    is copied.
     """
     lead = qsub.shape[:-2]
     s, e = entries.shape[0], entries.shape[1]
-    q0 = qsub[..., 0].reshape(-1, s).contiguous()
-    q1 = qsub[..., 1].reshape(-1, s).contiguous()
-    tau2 = tau.reshape(-1, s).contiguous()
-    e0 = entries[..., 0].contiguous()
-    e1 = entries[..., 1].contiguous()
-    fn = selective_lut if _on_cuda(qsub, entries, entry_sq, tau) \
-        else selective_lut_plain
-    lut, hit = fn(q0, q1, e0, e1, entry_sq.contiguous(), tau2, metric=metric)
+    if _on_cuda(qsub, entries, entry_sq, tau):
+        n_probe = lead[-1] if lead else 1
+        q = qsub.reshape(-1, n_probe, s, 2)
+        lut, hit = selective_lut(q[..., 0], q[..., 1], entries[..., 0],
+                                 entries[..., 1], entry_sq,
+                                 tau.reshape(-1, n_probe, s), metric=metric)
+    else:
+        lut, hit = selective_lut_plain(
+            qsub[..., 0].reshape(-1, s), qsub[..., 1].reshape(-1, s),
+            entries[..., 0], entries[..., 1], entry_sq, tau.reshape(-1, s),
+            metric=metric)
     return lut.reshape(*lead, s, e), hit.reshape(*lead, s, e)
 
 

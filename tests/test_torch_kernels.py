@@ -4,7 +4,10 @@ oracles.
 * ``selective_lut_plain`` must equal ``repro.kernels.ref.selective_lut_ref``
   bit for bit (same IEEE operations in the same order), and the Pallas
   kernel in interpret mode plus its ip post-pass up to that kernel's own
-  rounding (see the test).
+  rounding (see the test); ``ops.build_selective_lut`` on the strided
+  ``qsub`` views of stage B (sliced, and expanded over the probes) the
+  same against the reference's ``build_selective_lut``, and bit for bit
+  against the plain version on contiguous copies.
 * ``fused_two_stage_plain`` must equal ``fused_two_stage_host``: counts and
   ``cand`` (order included) exactly; ``cand_dist``/``dist`` within rtol
   1e-5, because the f32 sum over S runs in another order (atol 1e-6: the
@@ -36,7 +39,9 @@ from repro.core.lut import ip_pruned_fill
 from repro.kernels import ref as jref
 from repro.kernels.fused_two_stage import fused_two_stage_host
 from repro.kernels.ivf_filter import ivf_filter as pallas_ivf_filter
+from repro.kernels.ops import build_selective_lut as jax_build_selective_lut
 from repro.kernels.selective_lut import selective_lut as pallas_selective_lut
+from _torch_lut_views import FORMS, contiguous_planes, qsub_view
 from repro_torch.kernels import fused_two_stage as pfused
 from repro_torch.kernels import ivf_filter as pivf
 from repro_torch.kernels import ops
@@ -84,16 +89,60 @@ def test_selective_lut_plain_matches_pallas_interpret(metric):
         lut_k = ip_pruned_fill(lut_k, hit_k >= 0)
     lut_p, hit_p = pslut.selective_lut_plain(
         *map(torch.from_numpy, args), metric=metric)
-    q0, q1, e0, e1, esq, tau = (a.astype(np.float64) for a in args)
-    dot = q0[:, :, None] * e0 + q1[:, :, None] * e1
-    dist = (esq - 2 * dot) + (0 if metric == "ip"
-                              else (q0 * q0 + q1 * q1)[:, :, None])
-    tau_sq = (tau * tau)[:, :, None]
-    near = (np.abs(dist - tau_sq) <= 1e-5) | (np.abs(dist - tau_sq / 4) <= 1e-5)
+    near = _near_boundary(*args, metric=metric)
     hit_p, hit_k = hit_p.numpy(), np.asarray(hit_k)
     np.testing.assert_array_equal(hit_p[~near], hit_k[~near])
     np.testing.assert_allclose(lut_p.numpy(), np.asarray(lut_k), rtol=1e-5,
                                atol=1e-5)
+
+
+def _near_boundary(q0, q1, e0, e1, esq, tau, *, metric):
+    """(B, S, E) bool: entries whose distance lies within 1e-5 of τ² or
+    τ²/4, where an ulp of rounding may flip the hit table's compare."""
+    q0, q1, e0, e1, esq, tau = (np.asarray(a, np.float64)
+                                for a in (q0, q1, e0, e1, esq, tau))
+    dot = q0[:, :, None] * e0 + q1[:, :, None] * e1
+    dist = (esq - 2 * dot) + (0 if metric == "ip"
+                              else (q0 * q0 + q1 * q1)[:, :, None])
+    tau_sq = (tau * tau)[:, :, None]
+    return (np.abs(dist - tau_sq) <= 1e-5) | (np.abs(dist - tau_sq / 4) <= 1e-5)
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_build_selective_lut_views_match_pallas_interpret(metric, form):
+    """``ops.build_selective_lut`` on the strided ``qsub`` views that stage
+    B hands it (sliced; ip's expanded over the probes) against
+    ``repro.kernels.ops.build_selective_lut`` (Pallas in interpret mode,
+    ip post-pass included) on the same values, at the tolerance of
+    ``test_selective_lut_plain_matches_pallas_interpret``."""
+    qsub, ent, esq, tau = qsub_view(5, form)
+    lut_p, hit_p = ops.build_selective_lut(qsub, ent, esq, tau, metric=metric)
+    lut_k, hit_k = jax_build_selective_lut(
+        *(jnp.asarray(t.contiguous().numpy()) for t in (qsub, ent, esq, tau)),
+        metric=metric)
+    assert lut_p.shape == hit_p.shape == (*qsub.shape[:-1], ent.shape[1])
+    q0, q1, e0, e1, tau2 = contiguous_planes(qsub, ent, tau)
+    near = _near_boundary(q0, q1, e0, e1, esq, tau2,
+                          metric=metric).reshape(hit_p.shape)
+    hit_p, hit_k = hit_p.numpy(), np.asarray(hit_k)
+    np.testing.assert_array_equal(hit_p[~near], hit_k[~near])
+    np.testing.assert_allclose(lut_p.numpy(), np.asarray(lut_k), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_build_selective_lut_views_match_plain_on_copies(metric, form):
+    """The same views against ``selective_lut_plain`` on contiguous copies:
+    bit for bit."""
+    qsub, ent, esq, tau = qsub_view(6, form)
+    lut, hit = ops.build_selective_lut(qsub, ent, esq, tau, metric=metric)
+    q0, q1, e0, e1, tau2 = contiguous_planes(qsub, ent, tau)
+    lut_p, hit_p = pslut.selective_lut_plain(q0, q1, e0, e1, esq.contiguous(),
+                                             tau2, metric=metric)
+    assert torch.equal(lut.reshape(lut_p.shape), lut_p)
+    assert torch.equal(hit.reshape(hit_p.shape), hit_p)
 
 
 def _scan_inputs(seed, q=3, n_probe=4, p=40, s=8, e=16, valid_frac=0.8,

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_lut_views import FORMS, contiguous_planes, qsub_view
 from _torch_rt_grids import synth_grid
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fused_three_stage as pf3
@@ -53,12 +54,19 @@ def _lut_inputs(seed, b, s, e):
     esq = ent[..., 0] * ent[..., 0] + ent[..., 1] * ent[..., 1]
     tau = (np.abs(rng.standard_normal((b, s))) * 2).astype(np.float32)
     tau[0] = 0.0                         # a row that keeps nothing
+    tau[-1] = 1e3                        # a row that keeps everything
     return (q[..., 0].copy(), q[..., 1].copy(), ent[..., 0].copy(),
             ent[..., 1].copy(), esq, tau)
 
 
+# (B, S, E): the engine's E = 256 at S = 48 and 100; E = 20, 1 and 1024
+# (masked lanes, one entry, 32 entries a lane); S = 1; B = 2053 and 3001,
+# which no run length of rows divides (3001 at S = 100 also gives runs
+# longer than 32 rows)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("shape", [(64, 48, 256), (40, 100, 256), (9, 5, 20)])
+@pytest.mark.parametrize("shape", [(64, 48, 256), (40, 100, 256), (9, 5, 20),
+                                   (8, 4, 1024), (6, 3, 1), (5, 1, 256),
+                                   (2053, 48, 256), (3001, 100, 256)])
 def test_selective_lut_kernel_matches_plain(cuda, metric, shape):
     args = [torch.from_numpy(a).to(cuda) for a in _lut_inputs(7, *shape)]
     lut_k, hit_k = pslut.selective_lut(*args, metric=metric)
@@ -66,6 +74,44 @@ def test_selective_lut_kernel_matches_plain(cuda, metric, shape):
     torch.cuda.synchronize()
     assert torch.equal(hit_k, hit_p)
     assert torch.equal(lut_k, lut_p)
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_selective_lut_kernel_reads_strided_views(cuda, metric, form):
+    """``ops.build_selective_lut`` on views of a (Q, np, S, 2) ``qsub``
+    (sliced; expanded over the probes) and of ``entries`` (S, E, 2) equals
+    the kernel on contiguous planes, and the plain version, bit for bit."""
+    qsub, ent, esq, tau = qsub_view(11, form, q=5, n_probe=16, s=48, e=256,
+                                    device=cuda)
+    lut, hit = ops.build_selective_lut(qsub, ent, esq, tau, metric=metric)
+    planes = contiguous_planes(qsub, ent, tau)
+    args = (*planes[:4], esq.contiguous(), planes[4])
+    lut_c, hit_c = pslut.selective_lut(*args, metric=metric)
+    lut_p, hit_p = pslut.selective_lut_plain(*args, metric=metric)
+    torch.cuda.synchronize()
+    assert lut.shape == (5, 16, 48, 256) and lut.is_contiguous()
+    assert torch.equal(lut.reshape(lut_c.shape), lut_c)
+    assert torch.equal(hit.reshape(hit_c.shape), hit_c)
+    assert torch.equal(lut_c, lut_p) and torch.equal(hit_c, hit_p)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_build_selective_lut_launches_one_kernel(cuda, form):
+    """A stage B is one kernel on the card: no copy of ``qsub``, τ or
+    ``entries`` rides along (profiler count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = qsub_view(12, form, q=4, n_probe=8, s=100, e=256, device=cuda)
+    ops.build_selective_lut(*args, metric="ip")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.build_selective_lut(*args, metric="ip")
+        torch.cuda.synchronize()
+    kernels = [(ev.key, ev.count) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "selective_lut" in kernels[0][0]
 
 
 def _scan_inputs(seed, valid_frac, q=3, n_probe=4, p=40, s=8, e=16):
