@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's stage A, insert label and stage B on the card, for one tree.
+"""Time the port's stages A, B and C and its insert label on the card, for one tree.
 
     python3 bench_stage_a.py [--src DIR] [--label NAME] [--reps 50]
     python3 bench_stage_a.py --stage-b [--src DIR] [--label NAME]
+    python3 bench_stage_a.py --stage-c [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
+    python3 bench_stage_a.py --phases-c
     python3 bench_stage_a.py --traces TRACE.json.gz ...
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src/``),
@@ -34,6 +36,27 @@ not a library call); then ``ops.build_selective_lut`` as
 at D = 96, ip's ``qsub`` expanded over the probes at D = 200), with
 ``device_ms``, ``host_ms`` and ``kernels``.
 
+With ``--stage-c`` it times stage C's fused scans instead, for the tree
+of ``--src`` (two trees in turns as above): ``ops.fused_two_stage_scan``
+(every probe kept) and ``ops.fused_three_stage_scan`` (coverage "half",
+"probe0" and "full", as ``chip_smoke.py`` phase 3 sets the radii) over
+Q in {8, 32, 128} x C in {320, 3200}, at l2 S = 48 and ip S = 100 (np =
+16, P = 3912, E = 256, a quarter of the slots valid at random, 1024
+clusters probed with repeats across the batch as ``chip_smoke.py`` draws
+them), plus both at Q = 128, C = 320, full coverage over 2048 distinct
+clusters (no cluster probed twice), and at Q = 32 and 128, C = 320, with
+the valid slots packed at the front of each cluster as a built index lays
+them out (``cids`` "packed"; two-stage, three-stage at half and probe-0
+coverage). Each row has ``device_ms`` (CUDA events), the profiler's
+mean ``count_us`` and ``select_us`` (kernels whose names hold
+``count_kernel`` and ``select_kernel``), ``kernels`` a call (every kernel
+the profiler sees, fills and copies included), ``bound_ms`` (what the work
+must move at 3.35 TB/s: the kept probes' distinct clusters' valid rows and
+valid codes, their int8 tables, the LUT at the C candidates, the outputs
+once), ``write_floor_ms`` (one ``fill_`` of the ``counts`` and ``dist``
+bytes) and a hash of every output, so that two trees' outputs can be seen
+to be bit-equal.
+
 With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
 instead (this tree only), over a sweep of shapes, nprobe and D: besides
 ``device_ms`` (CUDA events), ``kernel_us``, the kernel's own mean duration
@@ -46,6 +69,14 @@ the top-nprobe epilogue into ``build/diag/``, and prints the median cycles
 of each phase over the blocks of one launch (the merge phases over the
 blocks that merged): a profile of the epilogue where no kernel profiler
 runs. The copy is only measured, never used.
+
+With ``--phases-c`` it does the same for the two-stage scan
+(``csrc/two_stage.cuh``, through ``fused_two_stage.cu``): GPU clock stamps
+after each phase of the count and the select kernel (``_SCAN_PHASES``), and
+for l2 S = 48 and ip S = 100 at Q = 8 and 128, every probe kept or only
+probe 0 (a ``probe_ok`` mask), C = 320 and 3200, the median cycles of each
+phase over the blocks that ran it, each kernel's median block time and its
+span (``%globaltimer``, µs).
 
 With ``--traces`` it reads gzipped Chrome traces of the profiled passes
 that ``chip_smoke.py`` writes and sums the device time and launches of
@@ -210,6 +241,163 @@ def stage_b(card: str, label: str, reps: int) -> None:
                 flush=True)
 
 
+
+def _grid(g: int, cap: int, gen) -> tuple:
+    """A g×g-cell synthetic centroid grid of ``cap`` slots a cell, as
+    ``chip_smoke.py`` draws it (a copy: importing ``chip_smoke.py`` would
+    bind this checkout's ``repro_torch``, not ``--src``'s): (c0, c1, reach)
+    (g·g, cap) f32 with -inf reach at pad slots, and the flat indices of the
+    real slots."""
+    dev = torch.device("cuda")
+    n_cells = g * g
+    fill = torch.randint(0, cap + 1, (n_cells,), generator=gen, device=dev)
+    fill[0], fill[-1] = 0, cap
+    real = torch.arange(cap, device=dev)[None, :] < fill[:, None]
+    cell = torch.arange(n_cells, device=dev)
+    u = torch.rand((2, n_cells, cap), generator=gen, device=dev)
+    c0 = ((cell // g)[:, None] + u[0]) / g
+    c1 = ((cell % g)[:, None] + u[1]) / g
+    reach = (torch.randn((n_cells, cap), generator=gen, device=dev) * 0.05).abs()
+    reach = torch.where(real, reach, torch.tensor(float("-inf"), device=dev))
+    return c0, c1, reach, torch.nonzero(real.reshape(-1))[:, 0]
+
+
+def kernel_split(fn, reps: int) -> tuple[dict, float]:
+    """Mean µs of the count and select kernels over ``reps`` calls of
+    ``fn``, and the kernels a call (every CUDA kernel the profiler sees)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n, total = collections.Counter(), collections.Counter(), 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        total += ev.count
+        for kind in ("count_kernel", "select_kernel"):
+            if kind in ev.key:
+                us[kind] += ev.self_device_time_total
+                n[kind] += ev.count
+    return ({k: us[k] / n[k] if n[k] else None
+             for k in ("count_kernel", "select_kernel")}, total / reps)
+
+
+def _digest(outs) -> dict:
+    import hashlib
+    names = ("counts", "dist", "cand", "cand_dist", "probe_ok")
+    return {n: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
+            .hexdigest()[:16] for n, t in zip(names, outs)}
+
+
+def stage_c(card: str, label: str, reps: int) -> None:
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_probe, p, e, n_clusters = 16, 3912, 256, 1024
+    for metric, s in (("l2", 48), ("ip", 100)):
+        # 2048 clusters: the first 1024 serve the repeated-cids rows, all
+        # of them the distinct-cids row; a quarter of the slots valid at
+        # random, and for the "packed" rows at the front of each cluster,
+        # as a built index lays them out
+        codes = torch.randint(0, e, (2 * n_clusters, p, s), generator=gen,
+                              device=dev, dtype=torch.uint8)
+        valid = torch.rand((2 * n_clusters, p), generator=gen,
+                           device=dev) < 0.25
+        fill = torch.randint(700, 1255, (2 * n_clusters, 1), generator=gen,
+                             device=dev)
+        packed = torch.arange(p, device=dev)[None, :] < fill
+        c0, c1, reach, real = _grid(16, 64, gen)
+        for q in (8, 32, 128):
+            if metric == "l2":
+                lut = torch.rand((q, n_probe, s, e), generator=gen,
+                                 device=dev) * 4.0
+            else:
+                lut = torch.randn((q, n_probe, s, e), generator=gen,
+                                  device=dev)
+            table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
+                                  device=dev, dtype=torch.int8)
+            repeated = torch.stack([
+                torch.randperm(n_clusters, generator=gen, device=dev)[:n_probe]
+                for _ in range(q)])
+            cid_sets = [("repeated", repeated)]
+            if q == 128:
+                cid_sets.append(("distinct", torch.randperm(
+                    2 * n_clusters, generator=gen, device=dev)[:q * n_probe]
+                    .reshape(q, n_probe)))
+            if q >= 32:
+                cid_sets.append(("packed", repeated))
+            slot_idx = real[torch.randint(0, real.numel(), (q, n_probe),
+                                          generator=gen, device=dev)
+                            ].to(torch.int32)
+            # q0, q1 as the engine passes them: columns of a (Q, 2) product
+            qp2 = torch.rand((q, 2), generator=gen, device=dev)
+            q0, q1 = qp2[:, 0], qp2[:, 1]
+            dx = q0.double()[:, None] - c0.reshape(-1)[slot_idx.long()].double()
+            dy = q1.double()[:, None] - c1.reshape(-1)[slot_idx.long()].double()
+            gap = torch.sqrt(dx * dx + dy * dy) - \
+                reach.reshape(-1)[slot_idx.long()].double()
+            radii = {"half": torch.median(gap, dim=1).values.float(),
+                     "probe0": torch.full((q,), -1e6, device=dev),
+                     "full": torch.full((q,), 1e6, device=dev)}
+            for cids_kind, cids in cid_sets:
+                vmask = packed if cids_kind == "packed" else valid
+                for cap_c in ((320, 3200) if cids_kind == "repeated"
+                              else (320,)):
+                    kinds = [("fused_two_stage", "full")] + [
+                        ("fused_three_stage", cov) for cov in
+                        {"repeated": ("half", "probe0", "full"),
+                         "distinct": ("full",),
+                         "packed": ("half", "probe0")}[cids_kind]]
+                    for what, cov in kinds:
+                        kw = dict(cap_c=cap_c, metric=metric)
+                        sph = (q0, q1, radii[cov], c0, c1, reach, slot_idx)
+                        if what == "fused_two_stage":
+                            fn = lambda kw=kw, cids=cids, v=vmask: \
+                                ops.fused_two_stage_scan(
+                                    lut, table, codes, v, cids, **kw)
+                        else:
+                            fn = lambda kw=kw, cids=cids, sph=sph, v=vmask: \
+                                ops.fused_three_stage_scan(
+                                    lut, table, codes, v, cids, *sph, **kw)
+                        outs = fn()
+                        kept = (outs[4] if len(outs) == 5 else
+                                torch.ones_like(cids, dtype=torch.bool))
+                        rows = torch.unique(cids[kept])
+                        w = n_probe * p
+                        n_bytes = (rows.numel() * p
+                                   + int(vmask[rows].sum()) * s
+                                   + int(kept.sum()) * s * e
+                                   + q * cap_c * s * 4 + cids.numel() * 8
+                                   + q * w * 8 + q * cap_c * 8)
+                        if what == "fused_three_stage":
+                            n_bytes += q * n_probe * (4 + 12 + 1) + 12 * q
+                        split, n_kernels = kernel_split(fn, reps)
+                        buf = torch.empty(q * w * 8, dtype=torch.uint8,
+                                          device=dev)
+                        print(json.dumps({
+                            "label": label, "what": what, "metric": metric,
+                            "coverage": cov, "cids": cids_kind, "Q": q,
+                            "np": n_probe, "P": p, "S": s, "E": e,
+                            "C": cap_c,
+                            "probes_kept": float(kept.float().mean()),
+                            "device_ms": device_ms(fn, reps),
+                            "count_us": split["count_kernel"],
+                            "select_us": split["select_kernel"],
+                            "kernels": n_kernels,
+                            "bound_ms": n_bytes / 3.35e12 * 1e3,
+                            "write_floor_ms": device_ms(
+                                lambda: buf.fill_(1), reps),
+                            "hash": _digest(outs), "card": card}),
+                            flush=True)
+                        del buf, outs
+            del lut, table
+        del codes, valid
+        torch.cuda.empty_cache()
+
 #: where each phase's stamp goes in the kernel source: (anchor, stamp
 #: inserted before it); phase k ends at stamp k
 _PHASES = (
@@ -289,6 +477,144 @@ def phase_sweep(card: str) -> None:
                           "card": card}), flush=True)
 
 
+
+#: the scan kernels' clock stamps: kernel -> (phase ended at the stamp,
+#: a line of ``two_stage.cuh`` the stamp goes after, which match after the
+#: kernel's first line); the first entry is the block's start
+_SCAN_PHASES = {
+    "count_kernel": (
+        ("start", "  const unsigned lane = threadIdx.x & 31u;", 0),
+        ("probe decided", "  __syncthreads();", 0),
+        ("table staged, first flags", "    __syncthreads();   // the planes", 0),
+        ("valid points listed", "    __syncthreads();", 1),
+        ("points counted", "    __syncthreads();", 2),
+        ("counts, histogram out", "    hout[i] = i == 0 ? P - n_valid : h[i];", 0)),
+    "select_kernel": (
+        ("start", "const unsigned lane = threadIdx.x & 31u, warp", 0),
+        ("histograms read", "  __syncthreads();", 0),
+        ("theta", "  __syncthreads();", 1),
+        ("counts copied", "    copy_wait();", 1),
+        ("windows ranked", "  // every candidate is listed", 0),
+        ("candidates summed", "  flush();", 0)),
+}
+
+
+def scan_phase_sweep(card: str) -> None:
+    import ctypes
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import bad_score
+    lines = (_build.CSRC / "two_stage.cuh").read_text().split("\n")
+    stamps = []   # (line index, slot); count slots 0-5, select 8-13
+    for base, (kernel, phases) in zip((0, 8), _SCAN_PHASES.items()):
+        first = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
+        for k, (_, anchor, nth) in enumerate(phases):
+            hits = [i for i in range(first, len(lines)) if anchor in lines[i]]
+            stamps.append((hits[nth], base + k))
+    for i, k in sorted(stamps, reverse=True):
+        lines.insert(i + 1, f"  STAMP({k});")
+    src, kernel = [], None
+    for ln in lines:   # an early return ends the block too
+        kernel = next((k for k in _SCAN_PHASES if ln.startswith(k + "(")), kernel)
+        if ln.strip() == "return;" and kernel:
+            src.append(f"    STAMP({5 if kernel == 'count_kernel' else 13});")
+        src.append(ln)
+    head = (f'#include "{_build.CSRC / "scan_common.cuh"}"\n'
+            "__device__ unsigned long long g_st[1 << 20], g_gt[1 << 17];\n"
+            "#define STAMP(k) do { if (threadIdx.x == 0) { "
+            "g_st[(blockIdx.x * 16 + (k)) & 0xfffff] = clock64(); "
+            "if ((k) % 8 == 0 || (k) % 8 == 5) { unsigned long long t; "
+            "asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t)); "
+            "g_gt[(blockIdx.x * 4 + (k) / 8 * 2 + ((k) % 8 == 5)) & 0x1ffff] = t; } } "
+            "} while (0)\n")
+    text = "\n".join(src).replace('#include "scan_common.cuh"', head).replace(
+        '#include "sphere.cuh"', f'#include "{_build.CSRC / "sphere.cuh"}"')
+    diag = _build.BUILD_DIR.parent / "diag"
+    diag.mkdir(parents=True, exist_ok=True)
+    (diag / "two_stage_phases.cuh").write_text(text)
+    cu = (_build.CSRC / "fused_two_stage.cu").read_text().replace(
+        '#include "two_stage.cuh"', '#include "two_stage_phases.cuh"')
+    cu += ('\nextern "C" int read_stamps(void* st, void* gt, int n) {\n'
+           '  cudaMemcpyFromSymbol(st, g_st, 8 * 16 * n);\n'
+           '  return (int)cudaMemcpyFromSymbol(gt, g_gt, 8 * 4 * n);\n}\n'
+           'extern "C" int clear_stamps() {\n  void* p;\n'
+           '  cudaGetSymbolAddress(&p, g_st);\n  cudaMemset(p, 0, 8 << 20);\n'
+           '  cudaGetSymbolAddress(&p, g_gt);\n'
+           '  return (int)cudaMemset(p, 0, 8 << 17);\n}\n')
+    (diag / "fused_two_stage_phases.cu").write_text(cu)
+    so = diag / "libfused_two_stage_phases.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(diag / "fused_two_stage_phases.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.fused_two_stage_launch
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, vp]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n_probe, p, e, n_cl = 16, 3912, 256, 1024
+    for metric, s in (("l2", 48), ("ip", 100)):
+        codes = torch.randint(0, e, (n_cl, p, s), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        valid = torch.rand((n_cl, p), generator=gen, device=dev) < 0.25
+        for q in (8, 128):
+            lut = torch.rand((q, n_probe, s, e), generator=gen, device=dev)
+            table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
+                                  device=dev, dtype=torch.int8)
+            cids = torch.stack([torch.randperm(n_cl, generator=gen, device=dev)
+                                [:n_probe] for _ in range(q)])
+            probe0 = torch.zeros((q, n_probe), dtype=torch.bool, device=dev)
+            probe0[:, 0] = True
+            for cov, pok, cap in (("full", None, 320), ("full", None, 3200),
+                                  ("probe0", probe0, 320),
+                                  ("probe0", probe0, 3200)):
+                outs = [torch.empty((q, n_probe, p), dtype=torch.int32,
+                                    device=dev),
+                        torch.empty((q, n_probe, p), device=dev),
+                        torch.empty((q, cap), dtype=torch.int32, device=dev),
+                        torch.empty((q, cap), device=dev),
+                        torch.empty((q, n_probe, 2 * s + 2),
+                                    dtype=torch.int32, device=dev)]
+                args = [t.data_ptr() for t in (lut, table, codes, valid, cids)]
+                args += [None if pok is None else pok.data_ptr()]
+                args += [t.data_ptr() for t in outs]
+                args += [q, n_probe, p, s, e, cap, bad_score(metric),
+                         torch.cuda.current_stream().cuda_stream]
+                for _ in range(3):
+                    fn(*args)
+                torch.cuda.synchronize()
+                lib.clear_stamps()
+                fn(*args)
+                torch.cuda.synchronize()
+                n = q * n_probe
+                st = np.zeros(n * 16, np.uint64)
+                gt = np.zeros(n * 4, np.uint64)
+                lib.read_stamps(st.ctypes.data_as(vp), gt.ctypes.data_as(vp), n)
+                st = st.reshape(n, 16).astype(np.int64)
+                gt = gt.reshape(n, 4).astype(np.int64)
+                row = {"metric": metric, "Q": q, "C": cap, "coverage": cov}
+                for base, (kernel, phases) in zip((0, 8), _SCAN_PHASES.items()):
+                    # median cycles of each phase over the blocks that ran
+                    # it (a pruned or empty block skips the middle ones)
+                    cyc = {}
+                    for k in range(1, len(phases)):
+                        a, b = st[:, base + k - 1], st[:, base + k]
+                        ran = (a > 0) & (b > 0)
+                        if ran.any():
+                            cyc[phases[k][0]] = [int(np.median(b[ran] - a[ran])),
+                                                 int(ran.sum())]
+                    # block times over the blocks stamped at both ends (a
+                    # block that leaves early by a condition has no end)
+                    t0, t1 = gt[:, base // 4], gt[:, base // 4 + 1]
+                    ends = (t0 > 0) & (t1 > 0)
+                    row[kernel] = {"cycles_median_blocks": cyc,
+                                   "blocks_timed": int(ends.sum()),
+                                   "block_us_median": float(np.median(
+                                       t1[ends] - t0[ends])) / 1e3,
+                                   "span_us": float(t1.max() - t0[t0 > 0].min()) / 1e3}
+                row["card"] = card
+                print(json.dumps(row), flush=True)
+
 #: kernel kinds of ``--traces``, by a substring of the kernel's name
 _KINDS = (("stage A (ivf_filter)", "ivf_filter"),
           ("radixSortKVInPlace", "radixSortKVInPlace"),
@@ -321,10 +647,14 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--stage-b", action="store_true",
                     help="time stage B (selective_lut) of this tree instead")
+    ap.add_argument("--stage-c", action="store_true",
+                    help="time stage C's fused scans of this tree instead")
     ap.add_argument("--kernels", action="store_true",
                     help="sweep the ivf_filter kernel's epilogues instead")
     ap.add_argument("--phases", action="store_true",
                     help="clock the top-nprobe epilogue's phases instead")
+    ap.add_argument("--phases-c", action="store_true",
+                    help="clock the two-stage scan kernels' phases instead")
     ap.add_argument("--traces", nargs="+", metavar="TRACE",
                     help="sum chip_smoke.py's gzipped traces by kernel kind")
     args = ap.parse_args()
@@ -346,11 +676,17 @@ def main() -> int:
     if args.stage_b:
         stage_b(card, args.label, args.reps)
         return 0
+    if args.stage_c:
+        stage_c(card, args.label, args.reps)
+        return 0
     if args.kernels:
         kernel_sweep(card, args.reps)
         return 0
     if args.phases:
         phase_sweep(card)
+        return 0
+    if args.phases_c:
+        scan_phase_sweep(card)
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -29,7 +29,13 @@ Phases, each raising on failure:
    on stage B's ip route (``ops.build_selective_lut`` from a ``qsub``
    expanded over 16 probes: one kernel a call, no copy), each also with
    the profiler's kernel time and a write floor (one ``fill_`` of the same
-   output bytes: a yardstick, not a library call);
+   output bytes: a yardstick, not a library call); ``fused_two_stage`` and
+   ``fused_three_stage`` (at half, probe-0-only and full coverage) at the
+   engine's batch of 128 queries, both also at its buckets of 32 and 8
+   (C = 320), the three-stage kernel also over 2048 distinct clusters, each
+   row with the profiler's count- and select-kernel time, the write floor of
+   ``counts`` and ``dist``, and the call through ``ops`` held to two
+   kernels (the three-stage one with q0, q1 as a (Q, 2) tensor's columns);
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
@@ -386,17 +392,24 @@ def _assert_sums_close(got: torch.Tensor, want: torch.Tensor,
 
 
 def _scan_index(q: int, n_probe: int, p: int, s: int, e: int,
-                n_clusters: int, gen):
+                n_clusters: int, gen, distinct: bool = False):
     """Random per-cluster codes, a ~25%-filled valid mask (as a 1M-point,
-    1024-cluster index has) and random probed cluster ids, on the card.
-    Also returns the bytes of what the scans must read of them: each
-    distinct probed cluster's valid row and its valid points' codes."""
+    1024-cluster index has) and random probed cluster ids, on the card:
+    distinct within a query (clusters repeat across the batch) or, with
+    ``distinct``, across the whole batch. Also returns the bytes of what
+    the scans must read of them: each distinct probed cluster's valid row
+    and its valid points' codes."""
     dev = torch.device("cuda")
     codes = torch.randint(0, e, (n_clusters, p, s), generator=gen, device=dev,
                           dtype=torch.uint8)
     valid = torch.rand((n_clusters, p), generator=gen, device=dev) < 0.25
-    cids = torch.stack([torch.randperm(n_clusters, generator=gen, device=dev)
-                        [:n_probe] for _ in range(q)])
+    if distinct:
+        cids = torch.randperm(n_clusters, generator=gen, device=dev
+                              )[:q * n_probe].reshape(q, n_probe)
+    else:
+        cids = torch.stack([torch.randperm(n_clusters, generator=gen,
+                                           device=dev)[:n_probe]
+                            for _ in range(q)])
     rows = torch.unique(cids)
     n_valid = int(valid[rows].sum())
     return codes, valid, cids, {"distinct_clusters": int(rows.numel()),
@@ -427,6 +440,32 @@ def _bag_call(tab: torch.Tensor, codes: torch.Tensor, cids: torch.Tensor):
     return lambda: torch.nn.functional.embedding_bag(idx, weight, mode="sum")
 
 
+def _scan_split(fn, q: int, w: int) -> dict:
+    """The two kernels' own times over calls of ``fn`` (profiler) and the
+    write floor of their (Q, np·P) outputs: one ``fill_`` of the ``counts``
+    and ``dist`` bytes."""
+    return {"count_us": kernel_us(fn, "count_kernel"),
+            "select_us": kernel_us(fn, "select_kernel"),
+            "write_floor_ms": write_floor_ms(q * w * 8)}
+
+
+def _two_kernels(fn, what: str) -> int:
+    """Raise unless one call of ``fn`` runs exactly the count and the
+    select kernel on the card; returns that count. A window in which the
+    profiler recorded nothing at all is taken again (at most three times):
+    it says nothing of the call."""
+    for _ in range(3):
+        launched = cuda_kernels(fn)
+        if launched:
+            break
+    if len(launched) != 2 or not all(
+            any(k in name for name in launched)
+            for k in ("count_kernel", "select_kernel")):
+        raise AssertionError(f"{what}: {len(launched)} kernels a call "
+                             f"({launched}), want count and select")
+    return len(launched)
+
+
 def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
                           n_clusters: int, cap_c: int, metric: str,
                           gen) -> dict:
@@ -442,7 +481,7 @@ def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
     scale = fts.fused_two_stage_plain(lut.abs(), table, codes[cids],
                                       valid[cids], **kw)
     torch.cuda.synchronize()
-    what = f"fused_two_stage {metric} S={s} C={cap_c}"
+    what = f"fused_two_stage {metric} Q={q} S={s} C={cap_c}"
     if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
         raise AssertionError(f"{what}: counts or cand differ from plain")
     err = _assert_sums_close(got[3], want[3], scale[3], what + " cand_dist")
@@ -454,14 +493,20 @@ def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
     n_bytes = (need["index_bytes"] + table.numel() + q * cap_c * s * 4
                + cids.numel() * 8 + q * w * 8 + q * cap_c * 8)
     bnd, by = bound_ms(n_bytes, int(valid[cids].sum()) * s + q * cap_c * s)
+
+    def call():
+        return fts.fused_two_stage(lut, table, codes, valid, cids, **kw)
+
     return {"metric": metric, "Q": q, "np": n_probe, "P": p, "S": s, "E": e,
-            "C": cap_c, "max_abs_err": err,
-            "ms": time_ms(lambda: fts.fused_two_stage(
-                lut, table, codes, valid, cids, **kw)),
+            "C": cap_c, "max_abs_err": err, "ms": time_ms(call),
             "plain_ms": time_ms(lambda: fts.fused_two_stage_plain(
                 lut, table, codes[cids], valid[cids], **kw)),
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
-            "bytes": n_bytes, **need}
+            "bytes": n_bytes, **_scan_split(call, q, w),
+            "kernels_a_call": _two_kernels(
+                lambda: ops.fused_two_stage_scan(lut, table, codes, valid,
+                                                 cids, **kw), what),
+            **need}
 
 
 def check_hit_count(q: int, n_probe: int, p: int, s: int, e: int,
@@ -615,22 +660,27 @@ def check_sphere_hits_on_grid(name: str, index, grid, queries, metric: str,
 
 def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
                             n_clusters: int, cap_c: int, metric: str,
-                            coverage: str, gen) -> dict:
+                            coverage: str, gen, distinct: bool = False
+                            ) -> dict:
     """The three-stage kernel at the fused shapes with a 256-cell grid:
     ``coverage`` "half" sets each query's radius to the median of its
     probes' disc gaps (about half survive), "probe0" to -1e6 (only the
     forced probe 0), "full" to 1e6 (every probe; then the outputs must be
-    the two-stage kernel's)."""
+    the two-stage kernel's). ``distinct``: no cluster probed twice in the
+    batch (``n_clusters`` >= Q·np). q0 and q1 are the columns of a (Q, 2)
+    tensor, as the engine passes them; through ``ops`` the call must be
+    two kernels."""
     dev = torch.device("cuda")
     lut = _lut(q, n_probe, s, e, metric, gen)
     table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
                           device=dev, dtype=torch.int8)
-    codes, valid, cids, _ = _scan_index(q, n_probe, p, s, e, n_clusters, gen)
+    codes, valid, cids, _ = _scan_index(q, n_probe, p, s, e, n_clusters, gen,
+                                        distinct)
     c0, c1, reach, real = _grid(16, 64, gen)
     slot_idx = real[torch.randint(0, real.numel(), (q, n_probe),
                                   generator=gen, device=dev)].to(torch.int32)
-    q0 = torch.rand((q,), generator=gen, device=dev)
-    q1 = torch.rand((q,), generator=gen, device=dev)
+    qp2 = torch.rand((q, 2), generator=gen, device=dev)
+    q0, q1 = qp2[:, 0], qp2[:, 1]
     gap = _slot_gap(q0, q1, c0, c1, reach, slot_idx.long())
     radius = {"half": torch.median(gap, dim=1).values.float(),
               "probe0": torch.full((q,), -FULL, device=dev),
@@ -643,7 +693,7 @@ def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
     scale = f3s.fused_three_stage_plain(lut.abs(), table, codes[cids],
                                         valid[cids], *sphere, **kw)
     torch.cuda.synchronize()
-    what = f"fused_three_stage {metric} S={s} C={cap_c} {coverage}"
+    what = f"fused_three_stage {metric} Q={q} S={s} C={cap_c} {coverage}"
     if not all(torch.equal(got[i], want[i]) for i in (0, 2, 4)):
         raise AssertionError(f"{what}: counts, cand or probe_ok differ")
     err = _assert_sums_close(got[3], want[3], scale[3], what + " cand_dist")
@@ -665,15 +715,26 @@ def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
                + 12 * q + q * cap_c * s * 4 + q * w * 8 + q * cap_c * 8
                + q * n_probe)
     bnd, by = bound_ms(n_bytes, n_kept * s + q * cap_c * s)
-    return {"metric": metric, "coverage": coverage, "Q": q, "np": n_probe,
-            "P": p, "S": s, "E": e, "C": cap_c, "max_abs_err": err,
+
+    def call():
+        return f3s.fused_three_stage(lut, table, codes, valid, cids, *sphere,
+                                     **kw)
+
+    return {"metric": metric, "coverage": coverage,
+            "cids": "distinct" if distinct else "repeated", "Q": q,
+            "np": n_probe, "P": p, "S": s, "E": e, "C": cap_c,
+            "max_abs_err": err,
             "probes_kept": float(probe_ok.float().mean()),
-            "ms": time_ms(lambda: f3s.fused_three_stage(
-                lut, table, codes, valid, cids, *sphere, **kw)),
+            "ms": time_ms(call),
             "plain_ms": time_ms(lambda: f3s.fused_three_stage_plain(
                 lut, table, codes[cids], valid[cids], *sphere, **kw)),
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
-            "bytes": n_bytes, "kept_valid_points": n_kept}
+            "bytes": n_bytes, "kept_valid_points": n_kept,
+            **_scan_split(call, q, w),
+            "kernels_a_call": _two_kernels(
+                lambda: ops.fused_three_stage_scan(lut, table, codes, valid,
+                                                   cids, *sphere, **kw),
+                what)}
 
 
 def check_ivf_filter(q: int, c: int, d: int, metric: str, gen) -> dict:
@@ -820,9 +881,12 @@ def phase_kernels(seed: int) -> dict:
                              ("ip", 512, 100), ("ip", 4096, 100))]}
     rows["selective_lut"].append(check_stage_b_route(128, 16, 100, 256, gen))
     torch.cuda.empty_cache()
+    # stage C: the Q = 128 rows of earlier runs first (l2 C = 320 heads the
+    # line), then the engine's smaller batch buckets, Q = 32 and 8, at C = 320
     rows["fused_two_stage"] = [
-        check_fused_two_stage(128, 16, 3912, s, 256, 1024, c, metric, gen)
-        for metric, s in (("l2", 48), ("ip", 100)) for c in (320, 3200)]
+        check_fused_two_stage(q, 16, 3912, s, 256, 1024, c, metric, gen)
+        for q, cs in ((128, (320, 3200)), (32, (320,)), (8, (320,)))
+        for metric, s in (("l2", 48), ("ip", 100)) for c in cs]
     rows["pq_scan"] = [check_pq_scan(128, 16, 3912, s, 256, 1024, metric, gen)
                        for metric, s in (("l2", 48), ("ip", 100))]
     torch.cuda.empty_cache()
@@ -838,6 +902,17 @@ def phase_kernels(seed: int) -> dict:
                                 gen)
         for metric, s in (("l2", 48), ("ip", 100)) for c in (320, 3200)
         for cov in ("half", "probe0", "full")]
+    torch.cuda.empty_cache()
+    rows["fused_three_stage"] += [
+        check_fused_three_stage(q, 16, 3912, s, 256, 1024, 320, metric,
+                                "half", gen)
+        for q in (32, 8) for metric, s in (("l2", 48), ("ip", 100))]
+    # full coverage over 2048 distinct clusters: what re-reading a
+    # cluster's codes costs against the rows above, where they repeat
+    rows["fused_three_stage"] += [
+        check_fused_three_stage(128, 16, 3912, s, 256, 2048, 320, metric,
+                                "full", gen, distinct=True)
+        for metric, s in (("l2", 48), ("ip", 100))]
     torch.cuda.empty_cache()
     # stage A of a search batch (D = 96, 200) and of an insert batch: the
     # top-nprobe epilogue the main path runs (its search row first), then

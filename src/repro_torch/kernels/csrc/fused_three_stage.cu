@@ -17,7 +17,8 @@
 // test at slot_idx[q, probe] (rt::sphere_hit, the oracle's rounding), then
 // the block scans the probe or, pruned, writes invalid counts without
 // reading its table or codes. Everything else is the two-stage design
-// (two_stage.cuh), whose select kernel reads the probe_ok just written.
+// (two_stage.cuh), whose select kernel reads the probe_ok just written; a
+// call is those two launches.
 //
 // What bounds it: bytes, as the two-stage scan, but only the kept probes'
 // code rows are read: at a calibrated radius the sphere test prunes most
@@ -25,10 +26,12 @@
 #include "two_stage.cuh"
 
 // lut, table, codes, valid, cids, the outputs and hist as in
-// fused_two_stage_launch; q0, q1, radius: (Q,) f32 ray-plane queries; c0,
-// c1, reach: (n_cells*cap,) f32 grid slot planes (reach -inf at pads);
-// slot_idx: (Q, np) int32 grid slot of each probed cluster; probe_ok:
-// (Q, np) bool, written.
+// fused_two_stage_launch; q0, q1: (Q,) f32 ray-plane queries read at element
+// strides q0_stride and q1_stride (the columns of the engine's (Q, 2)
+// projection, read in place); radius: (Q,) f32; c0, c1, reach:
+// (n_cells*cap,) f32 grid slot planes (reach -inf at pads); slot_idx:
+// (Q, np) int32 grid slot of each probed cluster; probe_ok: (Q, np) bool,
+// written.
 extern "C" int fused_three_stage_launch(const void* lut, const void* table,
                                         const void* codes, const void* valid,
                                         const void* cids, const void* q0,
@@ -37,9 +40,11 @@ extern "C" int fused_three_stage_launch(const void* lut, const void* table,
                                         const void* reach, const void* slot_idx,
                                         void* probe_ok, void* counts, void* dist,
                                         void* cand, void* cand_dist, void* hist,
+                                        long long q0_stride, long long q1_stride,
                                         int Q, int n_probe, int P, int S, int E,
                                         int C, float bad, void* stream) {
   const two_stage::SphereTest sph{(const float*)q0,     (const float*)q1,
+                                  q0_stride,            q1_stride,
                                   (const float*)radius, (const float*)c0,
                                   (const float*)c1,     (const float*)reach,
                                   (const int32_t*)slot_idx};

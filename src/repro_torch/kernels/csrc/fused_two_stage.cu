@@ -10,14 +10,16 @@
 // What bounds it: bytes. Stage 1 reads every kept probe's valid code rows
 // once (S bytes a point), the int8 table and the valid mask, and writes
 // counts; stage 2 writes dist and reads lut only at the C candidates. At
-// the main-path shape the code bytes dominate.
+// the main-path shape the code bytes and the two (Q, np, P) outputs
+// dominate.
 #include "two_stage.cuh"
 
 // lut: (Q, np, S, E) f32; table: (Q, np, S, E) int8; codes: (n_cl, P, S)
 // uint8; valid: (n_cl, P) bool; cids: (Q, np) int64 cluster ids; probe_ok:
 // (Q, np) bool or null. counts (Q, np, P) int32, dist (Q, np, P) f32, cand
-// (Q, C) int32 and cand_dist (Q, C) f32 are written; hist (Q, 2S+2) int32
-// must be zeroed.
+// (Q, C) int32 and cand_dist (Q, C) f32 are written; hist (Q, np, 2S+2)
+// int32 is scratch that the count kernel writes whole, so it needs no
+// zeroing and a call is the two launches.
 extern "C" int fused_two_stage_launch(const void* lut, const void* table,
                                       const void* codes, const void* valid,
                                       const void* cids, const void* probe_ok,

@@ -60,9 +60,12 @@ def fused_three_stage(lut: torch.Tensor, table: torch.Tensor,
 
     lut, table, cluster_codes, cluster_valid and cids as for
     ``fused_two_stage.fused_two_stage``; q0, q1, radius, the grid planes
-    and slot_idx (Q, np) int32 as for :func:`fused_three_stage_plain`.
-    Returns what :func:`fused_three_stage_plain` returns for
-    ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``.
+    and slot_idx (Q, np) int32 as for :func:`fused_three_stage_plain`; q0
+    and q1 may be strided views (the columns of a (Q, 2) projection): the
+    kernel reads them in place. Returns what
+    :func:`fused_three_stage_plain` returns for
+    ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``. The
+    call is two kernels on the card (count with the sphere test, select).
     Counts one launch in ``_build.LAUNCHES["fused_three_stage"]``.
     """
     bad = bad_score(metric)
@@ -81,22 +84,27 @@ def fused_three_stage(lut: torch.Tensor, table: torch.Tensor,
         ("cluster_codes", cluster_codes, torch.uint8, (n_cl, p, s)),
         ("cluster_valid", cluster_valid, torch.bool, (n_cl, p)),
         ("cids", cids, torch.int64, (q, n_probe)),
-        ("q0", q0, torch.float32, (q,)), ("q1", q1, torch.float32, (q,)),
         ("radius", radius, torch.float32, (q,)),
         ("cell_c0", cell_c0, torch.float32, (n_cells, cap)),
         ("cell_c1", cell_c1, torch.float32, (n_cells, cap)),
         ("slot_reach", slot_reach, torch.float32, (n_cells, cap)),
         ("slot_idx", slot_idx, torch.int32, (q, n_probe)))]
+    for name, t in (("q0", q0), ("q1", q1)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (q,):
+            raise ValueError(f"{name}: expected float32 ({q},) on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     probe_ok = torch.empty((q, n_probe), dtype=torch.bool, device=dev)
     counts = torch.empty((q, n_probe, p), dtype=torch.int32, device=dev)
     dist = torch.empty((q, n_probe, p), dtype=torch.float32, device=dev)
     cand = torch.empty((q, cap_c), dtype=torch.int32, device=dev)
     cand_dist = torch.empty((q, cap_c), dtype=torch.float32, device=dev)
-    hist = torch.zeros((q, 2 * s + 2), dtype=torch.int32, device=dev)
-    rc = _launcher()(*[a.data_ptr() for a in args], probe_ok.data_ptr(),
-                     counts.data_ptr(), dist.data_ptr(), cand.data_ptr(),
-                     cand_dist.data_ptr(), hist.data_ptr(), q, n_probe, p, s,
-                     e, cap_c, bad, _build.stream_ptr(dev))
+    hist = torch.empty((q, n_probe, 2 * s + 2), dtype=torch.int32, device=dev)
+    ptrs = [a.data_ptr() for a in args]
+    rc = _launcher()(*ptrs[:5], q0.data_ptr(), q1.data_ptr(), *ptrs[5:],
+                     probe_ok.data_ptr(), counts.data_ptr(), dist.data_ptr(),
+                     cand.data_ptr(), cand_dist.data_ptr(), hist.data_ptr(),
+                     q0.stride(0), q1.stride(0), q, n_probe, p, s, e, cap_c,
+                     bad, _build.stream_ptr(dev))
     _build.check(rc, "fused_three_stage")
     _build.LAUNCHES["fused_three_stage"] += 1
     return counts, dist, cand, cand_dist, probe_ok
@@ -106,6 +114,7 @@ def fused_three_stage(lut: torch.Tensor, table: torch.Tensor,
 def _launcher():
     fn = _build.library("fused_three_stage").fused_three_stage_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 18 + [ci] * 6 + [ctypes.c_float, vp]
+    fn.argtypes = [vp] * 18 + [ctypes.c_longlong] * 2 + [ci] * 6 + \
+        [ctypes.c_float, vp]
     fn.restype = ci
     return fn

@@ -11,9 +11,11 @@ off-TPU serving path ``fused_two_stage_host`` (l.259-335):
 * ``cap_c`` is clamped to ``max(1, min(cap_c, np·P))``.
 
 The kernel (``csrc/fused_two_stage.cu``, its count and select kernels in
-``csrc/two_stage.cuh``) takes the index's per-cluster codes and the
-probed cluster ids and indexes them itself; the plain version takes codes
-already gathered per probe, as the reference does.
+``csrc/two_stage.cuh``, one block per (query, probe) each) takes the
+index's per-cluster codes and the probed cluster ids and indexes them
+itself; the plain version takes codes already gathered per probe, as the
+reference does. The kernel reads a hit-table entry by its sign, which is
+the entry itself for the {-1, 0, +1} tables stage B writes.
 """
 from __future__ import annotations
 
@@ -89,8 +91,11 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
     [0, n_clusters), probe_ok (Q, np) bool or ``None`` (every probe kept).
     Returns what :func:`fused_two_stage_plain` returns for
     ``codes = cluster_codes[cids]``,
-    ``valid = cluster_valid[cids] & probe_ok[..., None]``. Counts one
-    launch in ``_build.LAUNCHES["fused_two_stage"]``.
+    ``valid = cluster_valid[cids] & probe_ok[..., None]``: ``counts`` and
+    ``cand`` equal, ``cand_dist`` and ``dist`` summed in subspace order.
+    The call is two kernels on the card (count, select) and nothing else:
+    the histogram scratch the count kernel writes needs no zeroing. Counts
+    one launch in ``_build.LAUNCHES["fused_two_stage"]``.
     """
     bad = bad_score(metric)
     dev = lut.device
@@ -113,7 +118,7 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
     dist = torch.empty((q, n_probe, p), dtype=torch.float32, device=dev)
     cand = torch.empty((q, cap_c), dtype=torch.int32, device=dev)
     cand_dist = torch.empty((q, cap_c), dtype=torch.float32, device=dev)
-    hist = torch.zeros((q, 2 * s + 2), dtype=torch.int32, device=dev)
+    hist = torch.empty((q, n_probe, 2 * s + 2), dtype=torch.int32, device=dev)
     rc = _launcher()(*[a.data_ptr() for a in args], pok, counts.data_ptr(),
                      dist.data_ptr(), cand.data_ptr(), cand_dist.data_ptr(),
                      hist.data_ptr(), q, n_probe, p, s, e, cap_c, bad,

@@ -134,7 +134,7 @@ def fused_two_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
         int32, cand_dist (Q, C) f32)``: ``cand`` is the top-C-by-count
         set in index-ascending order over the flat np·P axis and
         ``cand_dist`` its masked-LUT totals (``fused_two_stage_host``'s
-        contract).
+        contract). On the card a call is two kernels (count, select).
     """
     if _on_cuda(mlut, table, codes, valid, cids, probe_ok):
         return fused_two_stage(mlut.contiguous(), table.contiguous(),
@@ -165,14 +165,16 @@ def fused_three_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
     to composing :func:`rt_sphere_hits`, the probe gather and
     :func:`fused_two_stage_scan` with that mask. The grid's boxes and cell
     reaches, which the TPU kernel's cell walk reads, are not needed: the
-    test runs once per probe, at its slot.
+    test runs once per probe, at its slot. On the card a call is two
+    kernels: nothing is copied (``q0``/``q1`` are read through their
+    strides) and no scratch is zeroed.
     """
     args = (q0, q1, radius, cell_c0, cell_c1, slot_reach, slot_idx)
     if _on_cuda(mlut, table, codes, valid, cids, *args):
         return fused_three_stage(
             mlut.contiguous(), table.contiguous(), codes.contiguous(),
-            valid.contiguous(), cids.contiguous(),
-            *(a.contiguous() for a in args[:-1]),
+            valid.contiguous(), cids.contiguous(), q0, q1,
+            *(a.contiguous() for a in args[2:-1]),
             slot_idx.to(torch.int32).contiguous(), cap_c=cap_c, metric=metric)
     return fused_three_stage_plain(mlut, table, codes[cids], valid[cids],
                                    *args, cap_c=cap_c, metric=metric)

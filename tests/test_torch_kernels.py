@@ -214,6 +214,40 @@ def test_fused_plain_candidate_set_matches_dense_oracle(case, metric):
         np.testing.assert_array_equal(cand_o.numpy(), cand_r)
 
 
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("cap_c", [50, 400, 1000, 1500])
+def test_fused_plain_ties_straddle_probes_match_host_path(metric, cap_c):
+    """A sparse table makes the counts tie in bulk, so the θ-ties a query
+    takes start in one probe and run into the next: the order (index
+    order across probes) that the card's per-probe select blocks must
+    reproduce from the histograms of the probes before theirs."""
+    lut, table, codes, valid = _scan_inputs(31, q=4, n_probe=6, p=700, s=4,
+                                            valid_frac=0.5)
+    rng = np.random.default_rng(32)
+    table = (table * (rng.random(table.shape) < 0.03)).astype(np.int8)
+    got = pfused.fused_two_stage_plain(
+        *map(torch.from_numpy, (lut, table, codes, valid)), cap_c=cap_c,
+        metric=metric)
+    want = fused_two_stage_host(*map(jnp.asarray, (lut, table, codes, valid)),
+                                cap_c=cap_c, metric=metric)
+    counts, dist, cand, cdist = (t.numpy() for t in got)
+    np.testing.assert_array_equal(counts, np.asarray(want[0]))
+    np.testing.assert_array_equal(cand, np.asarray(want[2]))
+    np.testing.assert_allclose(cdist, np.asarray(want[3]), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(dist, np.asarray(want[1]), rtol=RTOL,
+                               atol=ATOL)
+    # the taken ties straddle a probe boundary, with ties left over
+    flat = counts.reshape(4, -1)
+    theta = np.sort(flat, axis=1)[:, -cap_c]
+    straddle = False
+    for row, th in zip(range(4), theta):
+        tied = cand[row][flat[row, cand[row]] == th]
+        left = int((flat[row] == th).sum()) - tied.size
+        straddle |= np.unique(tied // 700).size > 1 and left > 0
+    assert straddle
+
 def _arange_cids(codes, valid):
     """Pre-gathered (Q, np, P, S) codes as a whole index read through
     ``cids = arange(Q·np)``: the wrapper's input form."""

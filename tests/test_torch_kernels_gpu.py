@@ -300,6 +300,147 @@ def test_fused_three_stage_kernel_matches_plain(cuda, radii, metric, s):
             assert not got[4][:, 1:].any()
 
 
+
+def _check_fused(got, lut, table, codes, valid, cids, probe_ok, cap_c,
+                 metric, sph=None):
+    """The two-stage (``sph`` None) or three-stage kernel's outputs against
+    the plain version: counts, cand and probe_ok equal, the sums within
+    RTOL of Σ|terms| with ±inf placed alike."""
+    if sph is None:
+        masked = valid[cids] if probe_ok is None else \
+            valid[cids] & probe_ok[..., None]
+        want = pfused.fused_two_stage_plain(lut, table, codes[cids], masked,
+                                            cap_c=cap_c, metric=metric)
+        scale = pfused.fused_two_stage_plain(lut.abs(), table, codes[cids],
+                                             masked, cap_c=cap_c)
+    else:
+        want = pf3.fused_three_stage_plain(lut, table, codes[cids],
+                                           valid[cids], *sph, cap_c=cap_c,
+                                           metric=metric)
+        scale = pf3.fused_three_stage_plain(lut.abs(), table, codes[cids],
+                                            valid[cids], *sph, cap_c=cap_c)
+    torch.cuda.synchronize()
+    for i in range(0, len(want), 2):               # counts, cand, probe_ok
+        assert torch.equal(got[i], want[i])
+    _close_to_plain(got[3], want[3], scale[3])
+    _close_to_plain(got[1], want[1], scale[1])
+    return want
+
+
+# (Q, np, P, S, E): P < 32; P past the count kernel's 2048-point chunk and
+# no multiple of the select's window; S = 100 with E = 256; np = 1; Q = 1;
+# S not a multiple of 4 (byte-wise code reads); E not a multiple of 16
+# (byte-wise table staging)
+_EDGE_SHAPES = {"P7": (2, 3, 7, 8, 16), "P4500": (2, 2, 4500, 48, 256),
+                "S100": (3, 4, 1500, 100, 256), "np1": (4, 1, 300, 8, 16),
+                "Q1": (1, 5, 300, 48, 256), "S7": (3, 4, 200, 7, 32),
+                "E20": (3, 4, 200, 12, 20)}
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("shape", list(_EDGE_SHAPES))
+def test_fused_kernels_edge_shapes(cuda, metric, shape):
+    """Both kernels at the shapes the design's windows, chunks and code
+    reads turn on, with C from 1 to np·P (every point a candidate), every
+    probe kept, every probe but 0 pruned (mask or sphere test) and a mixed
+    sphere verdict."""
+    q, n_probe, p, s, e = _EDGE_SHAPES[shape]
+    lut, table, codes, valid, cids = _index_form(
+        90 + s + p, 0.3, s=s, e=e, p=p, n_clusters=6, q=q, n_probe=n_probe,
+        signed=metric == "ip")
+    probe0 = torch.zeros((q, n_probe), dtype=torch.bool, device=cuda)
+    probe0[:, 0] = True
+    grids = {r: [torch.from_numpy(a).to(cuda)
+                 for a in synth_grid(s + p, 4, 16, q, n_probe, radii=r)]
+             for r in ("mixed", "none")}
+    for cap_c in sorted({1, 33, n_probe * p // 2 + 1, n_probe * p}):
+        kw = dict(cap_c=cap_c, metric=metric)
+        for pok in (None, probe0):
+            got = ops.fused_two_stage_scan(lut, table, codes, valid, cids,
+                                           probe_ok=pok, **kw)
+            _check_fused(got, lut, table, codes, valid, cids, pok, cap_c,
+                         metric)
+        for grid in grids.values():
+            sph = (*grid[:3], *grid[5:9])
+            got = ops.fused_three_stage_scan(lut, table, codes, valid, cids,
+                                             *sph, **kw)
+            _check_fused(got, lut, table, codes, valid, cids, None, cap_c,
+                         metric, sph)
+        if cap_c == n_probe * p:        # every point is a candidate
+            want = torch.arange(n_probe * p, device=cuda, dtype=torch.int32)
+            assert torch.equal(got[2], want.expand(q, -1))
+
+
+def test_fused_kernels_ties_straddle_probes(cuda):
+    """Counts of a sparse table tie in bulk, so the θ-ties a query takes
+    start in one probe and end in a later one: the kernels take them in
+    index order across the probes (each probe's block finds its offsets in
+    the histograms of the probes before it)."""
+    q, n_probe, p, s, e = 4, 6, 700, 4, 16
+    lut, table, codes, valid, cids = _index_form(95, 0.5, s=s, e=e, p=p,
+                                                 n_clusters=8, q=q,
+                                                 n_probe=n_probe)
+    g = torch.Generator(device="cuda").manual_seed(96)
+    table *= (torch.rand(table.shape, generator=g, device=cuda) < 0.03
+              ).to(torch.int8)
+    straddled = 0
+    for cap_c in (50, 400, 1000, 1500):
+        got = ops.fused_two_stage_scan(lut, table, codes, valid, cids,
+                                       cap_c=cap_c)
+        want = _check_fused(got, lut, table, codes, valid, cids, None,
+                            cap_c, "l2")
+        flat = want[0].reshape(q, -1)
+        cand = got[2].long()
+        assert (cand[:, 1:] > cand[:, :-1]).all()
+        theta = torch.sort(flat, dim=1).values[:, -cap_c]
+        for row in range(q):
+            tied = cand[row][flat[row, cand[row]] == theta[row]]
+            left = int((flat[row] == theta[row]).sum()) - tied.numel()
+            probes = torch.unique(tied // p)
+            straddled += probes.numel() > 1 and left > 0
+    assert straddled > 0          # the inputs do test what the name says
+
+
+def test_fused_scans_launch_two_kernels(cuda):
+    """A call of either ops scan is its count and select kernels and
+    nothing else: no histogram zeroing, no copy of the (Q, 2) projection's
+    columns (profiler count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lut, table, codes, valid, cids = _index_form(97, 0.5, s=48, q=8,
+                                                 n_probe=6)
+    grid = [torch.from_numpy(a).to(cuda) for a in synth_grid(97, 4, 16, 8, 6)]
+    qp2 = torch.stack(grid[:2], 1)            # q0, q1 as columns, strided
+    sph = (qp2[:, 0], qp2[:, 1], grid[2], *grid[5:9])
+    calls = {
+        "two": lambda: ops.fused_two_stage_scan(lut, table, codes, valid,
+                                                cids, cap_c=40),
+        "three": lambda: ops.fused_three_stage_scan(lut, table, codes, valid,
+                                                    cids, *sph, cap_c=40)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        # a window in which the profiler recorded nothing at all says
+        # nothing of the call: it is taken again, at most three times
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [(ev.key, ev.count) for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA]
+            if kernels:
+                break
+        assert len(kernels) == 2 and all(n == 1 for _, n in kernels), \
+            (name, kernels)
+        for kind in ("count_kernel", "select_kernel"):
+            assert any(kind in key for key, _ in kernels), (name, kernels)
+    want = ops.fused_three_stage_scan(lut, table, codes, valid, cids,
+                                      *(qp2[:, 0].contiguous(),
+                                        qp2[:, 1].contiguous()), *sph[2:],
+                                      cap_c=40)
+    for a, b in zip(calls["three"](), want):
+        assert torch.equal(a, b)
+
 def test_scans_with_probe_mask(cuda):
     """pq_scan, hit_count and fused_two_stage with a probe_ok mask equal
     their plain versions over ``valid[cids] & probe_ok[..., None]``."""
