@@ -6,7 +6,6 @@
     python3 bench_stage_a.py --stage-c [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
-    python3 bench_stage_a.py --phases-c
     python3 bench_stage_a.py --traces TRACE.json.gz ...
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src/``),
@@ -69,14 +68,6 @@ the top-nprobe epilogue into ``build/diag/``, and prints the median cycles
 of each phase over the blocks of one launch (the merge phases over the
 blocks that merged): a profile of the epilogue where no kernel profiler
 runs. The copy is only measured, never used.
-
-With ``--phases-c`` it does the same for the two-stage scan
-(``csrc/two_stage.cuh``, through ``fused_two_stage.cu``): GPU clock stamps
-after each phase of the count and the select kernel (``_SCAN_PHASES``), and
-for l2 S = 48 and ip S = 100 at Q = 8 and 128, every probe kept or only
-probe 0 (a ``probe_ok`` mask), C = 320 and 3200, the median cycles of each
-phase over the blocks that ran it, each kernel's median block time and its
-span (``%globaltimer``, µs).
 
 With ``--traces`` it reads gzipped Chrome traces of the profiled passes
 that ``chip_smoke.py`` writes and sums the device time and launches of
@@ -477,144 +468,6 @@ def phase_sweep(card: str) -> None:
                           "card": card}), flush=True)
 
 
-
-#: the scan kernels' clock stamps: kernel -> (phase ended at the stamp,
-#: a line of ``two_stage.cuh`` the stamp goes after, which match after the
-#: kernel's first line); the first entry is the block's start
-_SCAN_PHASES = {
-    "count_kernel": (
-        ("start", "  const unsigned lane = threadIdx.x & 31u;", 0),
-        ("probe decided", "  __syncthreads();", 0),
-        ("table staged, first flags", "    __syncthreads();   // the planes", 0),
-        ("valid points listed", "    __syncthreads();", 1),
-        ("points counted", "    __syncthreads();", 2),
-        ("counts, histogram out", "    hout[i] = i == 0 ? P - n_valid : h[i];", 0)),
-    "select_kernel": (
-        ("start", "const unsigned lane = threadIdx.x & 31u, warp", 0),
-        ("histograms read", "  __syncthreads();", 0),
-        ("theta", "  __syncthreads();", 1),
-        ("counts copied", "    copy_wait();", 1),
-        ("windows ranked", "  // every candidate is listed", 0),
-        ("candidates summed", "  flush();", 0)),
-}
-
-
-def scan_phase_sweep(card: str) -> None:
-    import ctypes
-    import numpy as np
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.ref import bad_score
-    lines = (_build.CSRC / "two_stage.cuh").read_text().split("\n")
-    stamps = []   # (line index, slot); count slots 0-5, select 8-13
-    for base, (kernel, phases) in zip((0, 8), _SCAN_PHASES.items()):
-        first = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
-        for k, (_, anchor, nth) in enumerate(phases):
-            hits = [i for i in range(first, len(lines)) if anchor in lines[i]]
-            stamps.append((hits[nth], base + k))
-    for i, k in sorted(stamps, reverse=True):
-        lines.insert(i + 1, f"  STAMP({k});")
-    src, kernel = [], None
-    for ln in lines:   # an early return ends the block too
-        kernel = next((k for k in _SCAN_PHASES if ln.startswith(k + "(")), kernel)
-        if ln.strip() == "return;" and kernel:
-            src.append(f"    STAMP({5 if kernel == 'count_kernel' else 13});")
-        src.append(ln)
-    head = (f'#include "{_build.CSRC / "scan_common.cuh"}"\n'
-            "__device__ unsigned long long g_st[1 << 20], g_gt[1 << 17];\n"
-            "#define STAMP(k) do { if (threadIdx.x == 0) { "
-            "g_st[(blockIdx.x * 16 + (k)) & 0xfffff] = clock64(); "
-            "if ((k) % 8 == 0 || (k) % 8 == 5) { unsigned long long t; "
-            "asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t)); "
-            "g_gt[(blockIdx.x * 4 + (k) / 8 * 2 + ((k) % 8 == 5)) & 0x1ffff] = t; } } "
-            "} while (0)\n")
-    text = "\n".join(src).replace('#include "scan_common.cuh"', head).replace(
-        '#include "sphere.cuh"', f'#include "{_build.CSRC / "sphere.cuh"}"')
-    diag = _build.BUILD_DIR.parent / "diag"
-    diag.mkdir(parents=True, exist_ok=True)
-    (diag / "two_stage_phases.cuh").write_text(text)
-    cu = (_build.CSRC / "fused_two_stage.cu").read_text().replace(
-        '#include "two_stage.cuh"', '#include "two_stage_phases.cuh"')
-    cu += ('\nextern "C" int read_stamps(void* st, void* gt, int n) {\n'
-           '  cudaMemcpyFromSymbol(st, g_st, 8 * 16 * n);\n'
-           '  return (int)cudaMemcpyFromSymbol(gt, g_gt, 8 * 4 * n);\n}\n'
-           'extern "C" int clear_stamps() {\n  void* p;\n'
-           '  cudaGetSymbolAddress(&p, g_st);\n  cudaMemset(p, 0, 8 << 20);\n'
-           '  cudaGetSymbolAddress(&p, g_gt);\n'
-           '  return (int)cudaMemset(p, 0, 8 << 17);\n}\n')
-    (diag / "fused_two_stage_phases.cu").write_text(cu)
-    so = diag / "libfused_two_stage_phases.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(diag / "fused_two_stage_phases.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.fused_two_stage_launch
-    vp = ctypes.c_void_p
-    fn.argtypes = [vp] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, vp]
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(6)
-    n_probe, p, e, n_cl = 16, 3912, 256, 1024
-    for metric, s in (("l2", 48), ("ip", 100)):
-        codes = torch.randint(0, e, (n_cl, p, s), generator=gen, device=dev,
-                              dtype=torch.uint8)
-        valid = torch.rand((n_cl, p), generator=gen, device=dev) < 0.25
-        for q in (8, 128):
-            lut = torch.rand((q, n_probe, s, e), generator=gen, device=dev)
-            table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
-                                  device=dev, dtype=torch.int8)
-            cids = torch.stack([torch.randperm(n_cl, generator=gen, device=dev)
-                                [:n_probe] for _ in range(q)])
-            probe0 = torch.zeros((q, n_probe), dtype=torch.bool, device=dev)
-            probe0[:, 0] = True
-            for cov, pok, cap in (("full", None, 320), ("full", None, 3200),
-                                  ("probe0", probe0, 320),
-                                  ("probe0", probe0, 3200)):
-                outs = [torch.empty((q, n_probe, p), dtype=torch.int32,
-                                    device=dev),
-                        torch.empty((q, n_probe, p), device=dev),
-                        torch.empty((q, cap), dtype=torch.int32, device=dev),
-                        torch.empty((q, cap), device=dev),
-                        torch.empty((q, n_probe, 2 * s + 2),
-                                    dtype=torch.int32, device=dev)]
-                args = [t.data_ptr() for t in (lut, table, codes, valid, cids)]
-                args += [None if pok is None else pok.data_ptr()]
-                args += [t.data_ptr() for t in outs]
-                args += [q, n_probe, p, s, e, cap, bad_score(metric),
-                         torch.cuda.current_stream().cuda_stream]
-                for _ in range(3):
-                    fn(*args)
-                torch.cuda.synchronize()
-                lib.clear_stamps()
-                fn(*args)
-                torch.cuda.synchronize()
-                n = q * n_probe
-                st = np.zeros(n * 16, np.uint64)
-                gt = np.zeros(n * 4, np.uint64)
-                lib.read_stamps(st.ctypes.data_as(vp), gt.ctypes.data_as(vp), n)
-                st = st.reshape(n, 16).astype(np.int64)
-                gt = gt.reshape(n, 4).astype(np.int64)
-                row = {"metric": metric, "Q": q, "C": cap, "coverage": cov}
-                for base, (kernel, phases) in zip((0, 8), _SCAN_PHASES.items()):
-                    # median cycles of each phase over the blocks that ran
-                    # it (a pruned or empty block skips the middle ones)
-                    cyc = {}
-                    for k in range(1, len(phases)):
-                        a, b = st[:, base + k - 1], st[:, base + k]
-                        ran = (a > 0) & (b > 0)
-                        if ran.any():
-                            cyc[phases[k][0]] = [int(np.median(b[ran] - a[ran])),
-                                                 int(ran.sum())]
-                    # block times over the blocks stamped at both ends (a
-                    # block that leaves early by a condition has no end)
-                    t0, t1 = gt[:, base // 4], gt[:, base // 4 + 1]
-                    ends = (t0 > 0) & (t1 > 0)
-                    row[kernel] = {"cycles_median_blocks": cyc,
-                                   "blocks_timed": int(ends.sum()),
-                                   "block_us_median": float(np.median(
-                                       t1[ends] - t0[ends])) / 1e3,
-                                   "span_us": float(t1.max() - t0[t0 > 0].min()) / 1e3}
-                row["card"] = card
-                print(json.dumps(row), flush=True)
-
 #: kernel kinds of ``--traces``, by a substring of the kernel's name
 _KINDS = (("stage A (ivf_filter)", "ivf_filter"),
           ("radixSortKVInPlace", "radixSortKVInPlace"),
@@ -653,8 +506,6 @@ def main() -> int:
                     help="sweep the ivf_filter kernel's epilogues instead")
     ap.add_argument("--phases", action="store_true",
                     help="clock the top-nprobe epilogue's phases instead")
-    ap.add_argument("--phases-c", action="store_true",
-                    help="clock the two-stage scan kernels' phases instead")
     ap.add_argument("--traces", nargs="+", metavar="TRACE",
                     help="sum chip_smoke.py's gzipped traces by kernel kind")
     args = ap.parse_args()
@@ -684,9 +535,6 @@ def main() -> int:
         return 0
     if args.phases:
         phase_sweep(card)
-        return 0
-    if args.phases_c:
-        scan_phase_sweep(card)
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -32,7 +32,9 @@ Phases, each raising on failure:
    output bytes: a yardstick, not a library call); ``fused_two_stage`` and
    ``fused_three_stage`` (at half, probe-0-only and full coverage) at the
    engine's batch of 128 queries, both also at its buckets of 32 and 8
-   (C = 320), the three-stage kernel also over 2048 distinct clusters, each
+   (C = 320), the three-stage kernel also over 2048 distinct clusters, and
+   both at Q = 128 with the valid slots packed at the front of each cluster
+   as a built index lays them out (the other rows scatter them), each
    row with the profiler's count- and select-kernel time, the write floor of
    ``counts`` and ``dist``, and the call through ``ops`` held to two
    kernels (the three-stage one with q0, q1 as a (Q, 2) tensor's columns);
@@ -392,17 +394,25 @@ def _assert_sums_close(got: torch.Tensor, want: torch.Tensor,
 
 
 def _scan_index(q: int, n_probe: int, p: int, s: int, e: int,
-                n_clusters: int, gen, distinct: bool = False):
+                n_clusters: int, gen, distinct: bool = False,
+                packed: bool = False):
     """Random per-cluster codes, a ~25%-filled valid mask (as a 1M-point,
     1024-cluster index has) and random probed cluster ids, on the card:
     distinct within a query (clusters repeat across the batch) or, with
-    ``distinct``, across the whole batch. Also returns the bytes of what
-    the scans must read of them: each distinct probed cluster's valid row
-    and its valid points' codes."""
+    ``distinct``, across the whole batch. The valid slots are scattered at
+    random or, with ``packed``, at the front of each cluster, as a built
+    index lays them out (700–1254 a cluster). Also returns the bytes of
+    what the scans must read of them: each distinct probed cluster's valid
+    row and its valid points' codes."""
     dev = torch.device("cuda")
     codes = torch.randint(0, e, (n_clusters, p, s), generator=gen, device=dev,
                           dtype=torch.uint8)
-    valid = torch.rand((n_clusters, p), generator=gen, device=dev) < 0.25
+    if packed:
+        fill = torch.randint(700, 1255, (n_clusters, 1), generator=gen,
+                             device=dev)
+        valid = torch.arange(p, device=dev)[None, :] < fill
+    else:
+        valid = torch.rand((n_clusters, p), generator=gen, device=dev) < 0.25
     if distinct:
         cids = torch.randperm(n_clusters, generator=gen, device=dev
                               )[:q * n_probe].reshape(q, n_probe)
@@ -468,12 +478,14 @@ def _two_kernels(fn, what: str) -> int:
 
 def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
                           n_clusters: int, cap_c: int, metric: str,
-                          gen) -> dict:
+                          gen, packed: bool = False) -> dict:
+    """The two-stage kernel against its plain version; ``packed``: the
+    valid slots at the front of each cluster (``_scan_index``)."""
     lut = _lut(q, n_probe, s, e, metric, gen)
     table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
                           device=lut.device, dtype=torch.int8)
     codes, valid, cids, need = _scan_index(q, n_probe, p, s, e, n_clusters,
-                                           gen)
+                                           gen, packed=packed)
     kw = dict(cap_c=cap_c, metric=metric)
     got = fts.fused_two_stage(lut, table, codes, valid, cids, **kw)
     want = fts.fused_two_stage_plain(lut, table, codes[cids], valid[cids], **kw)
@@ -481,7 +493,8 @@ def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
     scale = fts.fused_two_stage_plain(lut.abs(), table, codes[cids],
                                       valid[cids], **kw)
     torch.cuda.synchronize()
-    what = f"fused_two_stage {metric} Q={q} S={s} C={cap_c}"
+    what = (f"fused_two_stage {metric} Q={q} S={s} C={cap_c}"
+            f"{' packed' if packed else ''}")
     if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
         raise AssertionError(f"{what}: counts or cand differ from plain")
     err = _assert_sums_close(got[3], want[3], scale[3], what + " cand_dist")
@@ -498,7 +511,8 @@ def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
         return fts.fused_two_stage(lut, table, codes, valid, cids, **kw)
 
     return {"metric": metric, "Q": q, "np": n_probe, "P": p, "S": s, "E": e,
-            "C": cap_c, "max_abs_err": err, "ms": time_ms(call),
+            "C": cap_c, "valid": "packed" if packed else "random",
+            "max_abs_err": err, "ms": time_ms(call),
             "plain_ms": time_ms(lambda: fts.fused_two_stage_plain(
                 lut, table, codes[cids], valid[cids], **kw)),
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
@@ -660,14 +674,15 @@ def check_sphere_hits_on_grid(name: str, index, grid, queries, metric: str,
 
 def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
                             n_clusters: int, cap_c: int, metric: str,
-                            coverage: str, gen, distinct: bool = False
-                            ) -> dict:
+                            coverage: str, gen, distinct: bool = False,
+                            packed: bool = False) -> dict:
     """The three-stage kernel at the fused shapes with a 256-cell grid:
     ``coverage`` "half" sets each query's radius to the median of its
     probes' disc gaps (about half survive), "probe0" to -1e6 (only the
     forced probe 0), "full" to 1e6 (every probe; then the outputs must be
     the two-stage kernel's). ``distinct``: no cluster probed twice in the
-    batch (``n_clusters`` >= Q·np). q0 and q1 are the columns of a (Q, 2)
+    batch (``n_clusters`` >= Q·np); ``packed``: the valid slots at the
+    front of each cluster (``_scan_index``). q0 and q1 are the columns of a (Q, 2)
     tensor, as the engine passes them; through ``ops`` the call must be
     two kernels."""
     dev = torch.device("cuda")
@@ -675,7 +690,7 @@ def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
     table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
                           device=dev, dtype=torch.int8)
     codes, valid, cids, _ = _scan_index(q, n_probe, p, s, e, n_clusters, gen,
-                                        distinct)
+                                        distinct, packed)
     c0, c1, reach, real = _grid(16, 64, gen)
     slot_idx = real[torch.randint(0, real.numel(), (q, n_probe),
                                   generator=gen, device=dev)].to(torch.int32)
@@ -693,7 +708,8 @@ def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
     scale = f3s.fused_three_stage_plain(lut.abs(), table, codes[cids],
                                         valid[cids], *sphere, **kw)
     torch.cuda.synchronize()
-    what = f"fused_three_stage {metric} Q={q} S={s} C={cap_c} {coverage}"
+    what = (f"fused_three_stage {metric} Q={q} S={s} C={cap_c} {coverage}"
+            f"{' packed' if packed else ''}")
     if not all(torch.equal(got[i], want[i]) for i in (0, 2, 4)):
         raise AssertionError(f"{what}: counts, cand or probe_ok differ")
     err = _assert_sums_close(got[3], want[3], scale[3], what + " cand_dist")
@@ -721,7 +737,8 @@ def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
                                      **kw)
 
     return {"metric": metric, "coverage": coverage,
-            "cids": "distinct" if distinct else "repeated", "Q": q,
+            "cids": "distinct" if distinct else "repeated",
+            "valid": "packed" if packed else "random", "Q": q,
             "np": n_probe, "P": p, "S": s, "E": e, "C": cap_c,
             "max_abs_err": err,
             "probes_kept": float(probe_ok.float().mean()),
@@ -912,6 +929,17 @@ def phase_kernels(seed: int) -> dict:
     rows["fused_three_stage"] += [
         check_fused_three_stage(128, 16, 3912, s, 256, 2048, 320, metric,
                                 "full", gen, distinct=True)
+        for metric, s in (("l2", 48), ("ip", 100))]
+    torch.cuda.empty_cache()
+    # both scans with the valid slots at the front of each cluster, as the
+    # engines' built indexes lay them out (the rows above scatter them)
+    rows["fused_two_stage"] += [
+        check_fused_two_stage(128, 16, 3912, s, 256, 1024, 320, metric, gen,
+                              packed=True)
+        for metric, s in (("l2", 48), ("ip", 100))]
+    rows["fused_three_stage"] += [
+        check_fused_three_stage(128, 16, 3912, s, 256, 1024, 320, metric,
+                                "half", gen, packed=True)
         for metric, s in (("l2", 48), ("ip", 100))]
     torch.cuda.empty_cache()
     # stage A of a search batch (D = 96, 200) and of an insert batch: the

@@ -34,19 +34,21 @@
 // Both are latency-bound unless a thread has several loads in flight, so
 // each issues its loads in batches before it uses one (valid flags, table
 // words, a point's code words, counts, histogram rows), and both are
-// compiled for the engines' S (48, 100), where a code row's loads unroll,
-// as well as for any S.
+// compiled for the S of the repo's two configurations (48, 100), where a
+// code row's loads unroll, as well as for any S (1.15-1.7x slower a call at
+// those S on the H100, PERF.md).
 //  (a) count_kernel: thread 0 decides whether the probe is kept. A kept
 //      probe's S*E int8 table is staged as two 256-bit planes a subspace
 //      (+1 entries, -1 entries; 64 bytes a subspace, 3 KB at S=48 against
 //      12 KB of bytes), so a warp's 32 lookups into one subspace touch 16
-//      words in 16 distinct banks and never conflict. The block lists the
-//      valid points of a chunk of the probe in shared memory (warp ballots),
-//      so every lane of a warp counts a valid point (a quarter of the slots
-//      are valid in a 1M-point index); a point's count is the + bits minus
-//      the - bits at its S codes (plane_count), an exact integer sum. The
-//      counts go out in index order through shared memory, coalesced, and
-//      the block's histogram of 2S+2 bins (one per count in [-S, S], one for
+//      words in 16 distinct banks and never conflict. Each thread holds the
+//      valid flags of 16 points of a 4096-point chunk as a mask and counts
+//      its valid points one a step, so a warp's lanes stay busy where the
+//      valid slots are packed at the front of the cluster, as a built index
+//      has them (scattered at random, a warp takes about twice the steps).
+//      A point's count is the + bits minus the - bits at its S codes
+//      (plane_count), an exact integer sum, stored at its own index. The
+//      block's histogram of 2S+2 bins (one per count in [-S, S], bin 0 for
 //      invalid) is stored plainly at (q, probe): no global atomics, so the
 //      histogram buffer needs no zeroing. A pruned probe reads no table and
 //      no codes: its P points are invalid, and its dist is all bad, which
@@ -79,8 +81,8 @@ namespace two_stage {
 
 using scan::kNeg;
 constexpr int kCountThreads = 256;
-constexpr int kPerThread = 16;    // points a count thread lists at once
-constexpr int kChunk = kCountThreads * kPerThread;   // points a count block lists at once
+constexpr int kPerThread = 16;    // points of a chunk a count thread holds the flags of
+constexpr int kChunk = kCountThreads * kPerThread;   // points a count block walks at once
 constexpr int kSelectThreads = 256;
 constexpr int kSpan = 4096;       // counts a select block stages in shared memory at once
 constexpr int kTakeList = 2048;   // candidates a select block lists before summing them
@@ -176,11 +178,14 @@ __device__ __forceinline__ uint32_t plane_word(uint32_t acc, const unsigned char
   return acc;
 }
 
-// The kernels are compiled for the S the engines use (48 and 100; kS) and
-// for any S (kS = 0). With kS known, a point's code row is read into
-// registers by loads that are all issued before any is used, and its S table
-// entries likewise: a load under a condition becomes a branch, and then each
-// waits for the one before it.
+// The kernels are compiled for the S of the repo's two configurations (48
+// and 100; kS) and for any S (kS = 0). With kS known, a point's code row is
+// read into registers by loads that are all issued before any is used, and
+// its S table entries likewise (a load under a condition may compile to a
+// branch, and then each waits for the one before it). A fast path chosen
+// by a property of S instead (a multiple of 4 up to 64 or 128, registers
+// sized by the bound) was as fast at S = 48 and 1.34x slower a call at
+// S = 100, where its select kernel spilled (PERF.md).
 
 // Whether one point's code row can be read as whole 4-byte words: S = kS
 // (a multiple of 4) and the row 4-byte aligned.
@@ -257,11 +262,9 @@ __device__ __forceinline__ float adc_sum(const float* __restrict__ lut,
   return scan::gather_sum<float>(lut, c, S, E);
 }
 
-// Dynamic shared memory of count_kernel: the planes, the histogram, the
-// chunk's counts and its list of valid points.
+// Dynamic shared memory of count_kernel: the planes and the histogram.
 inline size_t count_smem(int S) {
-  const size_t hist = ((size_t)(2 * S + 2) * sizeof(int) + 15) & ~(size_t)15;
-  return (size_t)S * kPlaneBytes + hist + kChunk * (sizeof(int) + sizeof(uint16_t));
+  return (size_t)S * kPlaneBytes + (size_t)(2 * S + 2) * sizeof(int);
 }
 
 template <bool kSphere, int kS>
@@ -277,13 +280,11 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
              float* __restrict__ dist,            // (Q*np, P): pruned probes only
              int n_probe, int P, int S, int E, float bad) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_keep, s_n;
+  __shared__ int s_keep;
   if constexpr (kS > 0) S = kS;
   const int nbins = 2 * S + 2;
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem);
   int* h = reinterpret_cast<int*>(smem + (size_t)S * kPlaneBytes);
-  int* s_cnt = h + ((nbins + 3) & ~3);
-  uint16_t* list = reinterpret_cast<uint16_t*>(s_cnt + kChunk);
   const int64_t qp = blockIdx.x;
   const int q = (int)(qp / n_probe);
   const int64_t cid = cids[qp];
@@ -317,67 +318,56 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
   }
   const uint8_t* crow = codes + cid * (int64_t)P * S;
   const uint8_t* vrow = valid + cid * (int64_t)P;
-  // a chunk's valid flags, kPerThread a thread, every load issued and in
-  // range; the first chunk's are in flight while the table is staged
-  bool v[kPerThread];
+  // a chunk's valid flags as a mask, point k * kCountThreads + threadIdx.x
+  // of the chunk at bit k; every load issued and in range. The first
+  // chunk's are in flight while the table is staged.
   auto load_flags = [&](int c0, int n) {
+    uint32_t m = 0;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int i = k * kCountThreads + threadIdx.x;
-      v[k] = vrow[c0 + min(i, n - 1)] != 0 && i < n;
+      m |= (uint32_t)(vrow[c0 + min(i, n - 1)] != 0 && i < n) << k;
     }
+    return m;
   };
-  load_flags(0, min(kChunk, P));
+  uint32_t m = load_flags(0, min(kChunk, P));
   stage_planes(planes, table + qp * (int64_t)S * E, S, E);
+  __syncthreads();   // the planes and h are ready
 
-  const unsigned lt = (1u << lane) - 1u;
-  int n_valid = 0;
   for (int c0 = 0; c0 < P; c0 += kChunk) {
     const int n = min(kChunk, P - c0);
-    if (c0 > 0) load_flags(c0, n);
-    if (threadIdx.x == 0) s_n = 0;
-    __syncthreads();   // the planes, h and s_n are ready; the last chunk is out
-    // list the chunk's valid points (in any order: each count lands at its
-    // own index), one shared atomic a warp
-    unsigned m[kPerThread];
-    int base = 0;
+    if (c0 > 0) m = load_flags(c0, n);
+    int n_invalid = 0;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int i = k * kCountThreads + threadIdx.x;
-      if (i < n && !v[k]) s_cnt[i] = kNeg;
-      m[k] = __ballot_sync(0xffffffffu, v[k]);
-      base += __popc(m[k]);
+      if (i < n && !((m >> k) & 1u)) {
+        out[c0 + i] = kNeg;
+        ++n_invalid;
+      }
     }
-    if (lane == 0 && base) base = atomicAdd(&s_n, base);
-    base = __shfl_sync(0xffffffffu, base, 0);
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (v[k]) list[base + __popc(m[k] & lt)] = (uint16_t)(k * kCountThreads + threadIdx.x);
-      base += __popc(m[k]);
-    }
-    __syncthreads();
-    const int nv = s_n;
-    n_valid += nv;
-    // count the listed points, one a lane; the full-mask __match_any_sync
-    // needs every lane, so the trip count is block-uniform
-    for (int j0 = 0; j0 < nv; j0 += kCountThreads) {
-      const int j = j0 + threadIdx.x;
+    n_invalid = __reduce_add_sync(0xffffffffu, n_invalid);
+    if (lane == 0 && n_invalid) atomicAdd(&h[0], n_invalid);
+    // each lane counts its next valid point a step, so a warp takes as many
+    // steps as its lane with the most: 4 where a quarter of the slots are
+    // valid and packed at the front of the cluster, as a built index has
+    // them, about 8 where they are scattered at random. The full-mask
+    // __match_any_sync needs every lane: the trip count is warp-uniform.
+    while (__any_sync(0xffffffffu, m != 0)) {
       int bin = -1;
-      if (j < nv) {
-        const int i = list[j];
+      if (m) {
+        const int i = (__ffs(m) - 1) * kCountThreads + threadIdx.x;
+        m &= m - 1;
         const int cnt = plane_count<kS>(smem, crow + (int64_t)(c0 + i) * S, S);
-        s_cnt[i] = cnt;
+        out[c0 + i] = cnt;
         bin = cnt + S + 1;   // in [1, 2S+1]: entries are read by sign
       }
       const unsigned peers = __match_any_sync(0xffffffffu, bin);
       if (bin >= 0 && lane == (unsigned)(__ffs(peers) - 1)) atomicAdd(&h[bin], __popc(peers));
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kCountThreads) out[c0 + i] = s_cnt[i];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nbins; i += kCountThreads)
-    hout[i] = i == 0 ? P - n_valid : h[i];
+  for (int i = threadIdx.x; i < nbins; i += kCountThreads) hout[i] = h[i];
 }
 
 // Dynamic shared memory of select_kernel: a span of counts, the list of

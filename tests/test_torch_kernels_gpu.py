@@ -327,7 +327,7 @@ def _check_fused(got, lut, table, codes, valid, cids, probe_ok, cap_c,
     return want
 
 
-# (Q, np, P, S, E): P < 32; P past the count kernel's 2048-point chunk and
+# (Q, np, P, S, E): P < 32; P past the count kernel's 4096-point chunk and
 # no multiple of the select's window; S = 100 with E = 256; np = 1; Q = 1;
 # S not a multiple of 4 (byte-wise code reads); E not a multiple of 16
 # (byte-wise table staging)
@@ -401,12 +401,69 @@ def test_fused_kernels_ties_straddle_probes(cuda):
     assert straddled > 0          # the inputs do test what the name says
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("s", [48, 100, 7])
+def test_fused_kernels_packed_valid(cuda, metric, s):
+    """The valid slots at the front of each cluster, as a built index lays
+    them out: empty, one slot, runs ending inside and past the count
+    kernel's first 4096-point chunk, and full clusters (each count lane
+    walks its own valid points, so a warp's lanes run out at different
+    steps)."""
+    q, n_probe, p = 3, 5, 5000
+    lut, table, codes, _, cids = _index_form(98 + s, 0.0, s=s, p=p,
+                                             n_clusters=6, q=q,
+                                             n_probe=n_probe,
+                                             signed=metric == "ip")
+    fill = torch.tensor([0, 1, 700, 4097, 4999, 5000], device=cuda)
+    valid = torch.arange(p, device=cuda)[None, :] < fill[:, None]
+    grid = [torch.from_numpy(a).to(cuda)
+            for a in synth_grid(s + p, 4, 16, q, n_probe, radii="mixed")]
+    sph = (*grid[:3], *grid[5:9])
+    for cap_c in (1, 320, n_probe * p):
+        kw = dict(cap_c=cap_c, metric=metric)
+        got = ops.fused_two_stage_scan(lut, table, codes, valid, cids, **kw)
+        _check_fused(got, lut, table, codes, valid, cids, None, cap_c, metric)
+        got = ops.fused_three_stage_scan(lut, table, codes, valid, cids,
+                                         *sph, **kw)
+        _check_fused(got, lut, table, codes, valid, cids, None, cap_c, metric,
+                     sph)
+
+
+def _captured_nodes(call):
+    """Every node of one ``call()`` captured into a CUDA graph, in order:
+    a kernel node as its function's name, any other node (copy, memset)
+    as its type. A capture takes every operation the call puts on the
+    stream; a profiler window on the card has come back empty or without
+    a call's first kernel (in whole-file runs of this file)."""
+    import os
+    import re
+    import tempfile
+    g = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        call()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        g.debug_dump(path)
+        with open(path) as fh:
+            dot = fh.read()
+    # a node's definition runs to the next one's; its first word in
+    # capitals is its type
+    starts = [m.start() for m in
+              re.finditer(r'(?m)^\s*"graph_\d+_node_\d+"\s*\[', dot)]
+    nodes = []
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        text = dot[a:b]
+        kind = re.search(r"\b([A-Z][A-Z_]{3,})\b", text).group(1)
+        name = re.search(r"\w*(?:count|select)_kernel\w*", text)
+        nodes.append(name.group(0) if kind == "KERNEL" and name else kind)
+    return nodes
+
+
 def test_fused_scans_launch_two_kernels(cuda):
     """A call of either ops scan is its count and select kernels and
     nothing else: no histogram zeroing, no copy of the (Q, 2) projection's
-    columns (profiler count)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    columns (the nodes of the call captured into a CUDA graph)."""
     lut, table, codes, valid, cids = _index_form(97, 0.5, s=48, q=8,
                                                  n_probe=6)
     grid = [torch.from_numpy(a).to(cuda) for a in synth_grid(97, 4, 16, 8, 6)]
@@ -420,20 +477,10 @@ def test_fused_scans_launch_two_kernels(cuda):
     for name, call in calls.items():
         call()
         torch.cuda.synchronize()
-        # a window in which the profiler recorded nothing at all says
-        # nothing of the call: it is taken again, at most three times
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            kernels = [(ev.key, ev.count) for ev in prof.key_averages()
-                       if ev.device_type == DeviceType.CUDA]
-            if kernels:
-                break
-        assert len(kernels) == 2 and all(n == 1 for _, n in kernels), \
-            (name, kernels)
-        for kind in ("count_kernel", "select_kernel"):
-            assert any(kind in key for key, _ in kernels), (name, kernels)
+        nodes = _captured_nodes(call)
+        assert len(nodes) == 2, (name, nodes)
+        assert "count_kernel" in nodes[0] and "select_kernel" in nodes[1], \
+            (name, nodes)
     want = ops.fused_three_stage_scan(lut, table, codes, valid, cids,
                                       *(qp2[:, 0].contiguous(),
                                         qp2[:, 1].contiguous()), *sph[2:],
