@@ -27,7 +27,8 @@ Phases, each raising on failure:
    at (B, S) = (2048, 48) l2, (2048, 48) and (2048, 100) ip, at the
    engines' batch sizes (128, 48) l2, (512, 100) and (4096, 100) ip, and
    on stage B's ip route (``ops.build_selective_lut`` from a ``qsub``
-   expanded over 16 probes: one kernel a call, no copy), each also with
+   expanded over 16 probes: one kernel a call, no copy, counted on its
+   capture into a CUDA graph), each also with
    the profiler's kernel time and a write floor (one ``fill_`` of the same
    output bytes: a yardstick, not a library call); ``fused_two_stage`` and
    ``fused_three_stage`` (at half, probe-0-only and full coverage) at the
@@ -37,7 +38,8 @@ Phases, each raising on failure:
    as a built index lays them out (the other rows scatter them), each
    row with the profiler's count- and select-kernel time, the write floor of
    ``counts`` and ``dist``, and the call through ``ops`` held to two
-   kernels (the three-stage one with q0, q1 as a (Q, 2) tensor's columns);
+   kernels, counted on its capture into a CUDA graph (the three-stage one
+   with q0, q1 as a (Q, 2) tensor's columns);
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
@@ -84,10 +86,12 @@ import collections
 import gzip
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -286,16 +290,36 @@ def kernel_us(fn, name: str, reps: int = 20) -> float:
     return sum(ev.self_device_time_total for ev in evs) / n if n else None
 
 
-def cuda_kernels(fn) -> list[str]:
-    """The kernels (and copies) one call of ``fn`` runs on the card."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def captured_kernels(fn) -> list[str]:
+    """Every node of one call of ``fn`` captured into a CUDA graph, in
+    order: a kernel node as its function's (mangled) name, any other node
+    (copy, memset) as its type. A capture holds every operation the call
+    puts on the stream; a profiler window on the card has come back empty,
+    or without a call's first kernel, so launches a call are not counted
+    from one. ``fn`` runs once first, outside the capture."""
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    g = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
-    return [ev.key[:80] for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA for _ in range(ev.count)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        g.debug_dump(path)
+        with open(path) as fh:
+            dot = fh.read()
+    del g
+    # a node's definition runs to the next one's; its first word in
+    # capitals is its type, a kernel's name follows its ID
+    starts = [m.start() for m in
+              re.finditer(r'(?m)^\s*"graph_\d+_node_\d+"\s*\[', dot)]
+    nodes = []
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        text = dot[a:b]
+        kind = re.search(r"\b([A-Z][A-Z_]{3,})\b", text).group(1)
+        name = re.search(r"\{ID \| \d+ \(topoId: \d+\) \| (\w+)", text)
+        nodes.append(name.group(1) if kind == "KERNEL" and name else kind)
+    return nodes
 
 
 def write_floor_ms(n_bytes: int) -> float:
@@ -365,7 +389,7 @@ def check_stage_b_route(q: int, n_probe: int, s: int, e: int, gen) -> dict:
             entries[..., 0].contiguous(), entries[..., 1].contiguous(), esq,
             tau.reshape(-1, s).contiguous())
     row = _lut_row("ip", args, got, call, q * n_probe, s, e)
-    launched = cuda_kernels(call)
+    launched = captured_kernels(call)
     if len(launched) != 1 or "selective_lut" not in launched[0]:
         raise AssertionError(f"stage B route: {len(launched)} kernels a call "
                              f"({launched}), want one selective_lut")
@@ -460,17 +484,12 @@ def _scan_split(fn, q: int, w: int) -> dict:
 
 
 def _two_kernels(fn, what: str) -> int:
-    """Raise unless one call of ``fn`` runs exactly the count and the
-    select kernel on the card; returns that count. A window in which the
-    profiler recorded nothing at all is taken again (at most three times):
-    it says nothing of the call."""
-    for _ in range(3):
-        launched = cuda_kernels(fn)
-        if launched:
-            break
-    if len(launched) != 2 or not all(
-            any(k in name for name in launched)
-            for k in ("count_kernel", "select_kernel")):
+    """Raise unless one call of ``fn`` is exactly the count and then the
+    select kernel on the card (its capture into a CUDA graph, so a memset
+    or copy node fails it too); returns that count."""
+    launched = captured_kernels(fn)
+    if (len(launched) != 2 or "count_kernel" not in launched[0]
+            or "select_kernel" not in launched[1]):
         raise AssertionError(f"{what}: {len(launched)} kernels a call "
                              f"({launched}), want count and select")
     return len(launched)
