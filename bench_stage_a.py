@@ -4,6 +4,7 @@
     python3 bench_stage_a.py [--src DIR] [--label NAME] [--reps 50]
     python3 bench_stage_a.py --stage-b [--src DIR] [--label NAME]
     python3 bench_stage_a.py --stage-c [--src DIR] [--label NAME]
+    python3 bench_stage_a.py --hit-count [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
     python3 bench_stage_a.py --traces TRACE.json.gz ...
@@ -55,6 +56,21 @@ valid codes, their int8 tables, the LUT at the C candidates, the outputs
 once), ``write_floor_ms`` (one ``fill_`` of the ``counts`` and ``dist``
 bytes) and a hash of every output, so that two trees' outputs can be seen
 to be bit-equal.
+
+With ``--hit-count`` it times tiers M, L and composed H2's scan instead,
+for the tree of ``--src`` (two trees in turns as above): the counts-only
+``ops.hit_count_scan`` and the top-k route, ``ops.hit_count_topk_scan``
+where the tree has it, else the route the engines took before it (the
+counts, a stable sort, a slice), over the rows of ``chip_smoke.py`` phase 3
+(np 8 with k 10 and 100 at l2 S = 48 and ip S = 100, np 16 with C 40 and
+400 at l2, Q 128, 32 and 8; P = 3912, E = 256, 1024 clusters; a quarter
+of the slots valid at random, packed at the front of each cluster, or
+0.2% valid, fewer than k a query). Each row has ``device_ms`` (CUDA
+events), the profiler's mean ``count_us`` (``hit_count_kernel``) and
+``topk_us`` (``hit_topk_kernel``) a launch, ``sort_us`` (every sort kernel
+of a call), ``kernels`` a call and a hash of the outputs (values as f32,
+positions as int64), so that two trees' outputs can be seen to be
+bit-equal.
 
 With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
 instead (this tree only), over a sweep of shapes, nprobe and D: besides
@@ -253,9 +269,16 @@ def _grid(g: int, cap: int, gen) -> tuple:
     return c0, c1, reach, torch.nonzero(real.reshape(-1))[:, 0]
 
 
-def kernel_split(fn, reps: int) -> tuple[dict, float]:
-    """Mean µs of the count and select kernels over ``reps`` calls of
-    ``fn``, and the kernels a call (every CUDA kernel the profiler sees)."""
+_SPLIT = {"count_kernel": ("count_kernel",), "select_kernel": ("select_kernel",)}
+
+
+def kernel_split(fn, reps: int, kinds: dict = _SPLIT
+                 ) -> tuple[dict, dict, float]:
+    """Mean µs a launch of each kind of kernel (``kinds``: name -> the
+    substrings of its kernels' names; by default the two-stage count and
+    select kernels) over ``reps`` calls of ``fn``, None where the
+    profiler saw none; the launches of each kind a call; and the kernels a
+    call (every CUDA kernel the profiler sees)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -269,17 +292,17 @@ def kernel_split(fn, reps: int) -> tuple[dict, float]:
         if ev.device_type != DeviceType.CUDA:
             continue
         total += ev.count
-        for kind in ("count_kernel", "select_kernel"):
-            if kind in ev.key:
+        for kind, subs in kinds.items():
+            if any(sub in ev.key for sub in subs):
                 us[kind] += ev.self_device_time_total
                 n[kind] += ev.count
-    return ({k: us[k] / n[k] if n[k] else None
-             for k in ("count_kernel", "select_kernel")}, total / reps)
+    return ({k: us[k] / n[k] if n[k] else None for k in kinds},
+            {k: n[k] / reps for k in kinds}, total / reps)
 
 
-def _digest(outs) -> dict:
+def _digest(outs, names=("counts", "dist", "cand", "cand_dist",
+                         "probe_ok")) -> dict:
     import hashlib
-    names = ("counts", "dist", "cand", "cand_dist", "probe_ok")
     return {n: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
             .hexdigest()[:16] for n, t in zip(names, outs)}
 
@@ -366,7 +389,7 @@ def stage_c(card: str, label: str, reps: int) -> None:
                                    + q * w * 8 + q * cap_c * 8)
                         if what == "fused_three_stage":
                             n_bytes += q * n_probe * (4 + 12 + 1) + 12 * q
-                        split, n_kernels = kernel_split(fn, reps)
+                        split, _, n_kernels = kernel_split(fn, reps)
                         buf = torch.empty(q * w * 8, dtype=torch.uint8,
                                           device=dev)
                         print(json.dumps({
@@ -388,6 +411,73 @@ def stage_c(card: str, label: str, reps: int) -> None:
             del lut, table
         del codes, valid
         torch.cuda.empty_cache()
+
+def hit_count_rows(card: str, label: str, reps: int) -> None:
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p, e, n_clusters = 3912, 256, 1024
+    # (Q, np, valid layout, k values) a metric
+    configs = {"l2": [(128, 8, "random", (100, 10)), (128, 16, "random", (40, 400)),
+                      (32, 8, "random", (100,)), (8, 8, "random", (100,)),
+                      (32, 16, "random", (400,)), (8, 16, "random", (400,)),
+                      (128, 8, "packed", (100,)), (128, 16, "packed", (400,)),
+                      (128, 8, "few", (100,))],
+               "ip": [(128, 8, "random", (100, 10)), (128, 8, "packed", (100,))]}
+    for metric, s in (("l2", 48), ("ip", 100)):
+        codes = torch.randint(0, e, (n_clusters, p, s), generator=gen,
+                              device=dev, dtype=torch.uint8)
+        fill = torch.randint(700, 1255, (n_clusters, 1), generator=gen,
+                             device=dev)
+        u = torch.rand((n_clusters, p), generator=gen, device=dev)
+        valids = {"random": u < 0.25, "few": u < 0.002,
+                  "packed": torch.arange(p, device=dev)[None, :] < fill}
+        for q, n_probe, layout, ks in configs[metric]:
+            table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
+                                  device=dev, dtype=torch.int8)
+            cids = torch.stack([torch.randperm(n_clusters, generator=gen,
+                                               device=dev)[:n_probe]
+                                for _ in range(q)])
+            v = valids[layout]
+            counts = lambda v=v, table=table, cids=cids: ops.hit_count_scan(
+                table, codes, v, cids)
+            fns = [("counts", "counts kernel", None, counts)]
+            for k in ks:
+                if hasattr(ops, "hit_count_topk_scan"):
+                    fn = lambda v=v, table=table, cids=cids, k=k: \
+                        ops.hit_count_topk_scan(table, codes, v, cids, k)
+                    route = "count + top-k kernels"
+                else:
+                    def fn(counts=counts, q=q, k=k):
+                        c = counts().reshape(q, -1)
+                        vals, pos = torch.sort(c, dim=1, descending=True,
+                                               stable=True)
+                        return vals[:, :k].float(), pos[:, :k]
+                    route = "counts kernel + sort(stable) + slice"
+                fns.append(("top-k", route, k, fn))
+            for what, route, k, fn in fns:
+                outs = fn()
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                us, n, n_kernels = kernel_split(
+                    fn, reps, {"count_us": ("hit_count_kernel",),
+                               "topk_us": ("hit_topk_kernel",),
+                               "sort_us": ("ort",)})
+                # the sorts: every sort kernel of a call, summed
+                if us["sort_us"] is not None:
+                    us["sort_us"] *= n["sort_us"]
+                print(json.dumps({
+                    "label": label, "what": what, "route": route,
+                    "metric": metric, "Q": q, "np": n_probe, "P": p, "S": s,
+                    "E": e, "k": k, "valid": layout,
+                    "device_ms": device_ms(fn, reps), **us,
+                    "kernels": n_kernels,
+                    "hash": _digest(outs, ("values", "positions")
+                                    if len(outs) == 2 else ("counts",)),
+                    "card": card}), flush=True)
+            del table, cids
+        del codes, valids
+        torch.cuda.empty_cache()
+
 
 #: where each phase's stamp goes in the kernel source: (anchor, stamp
 #: inserted before it); phase k ends at stamp k
@@ -472,8 +562,9 @@ def phase_sweep(card: str) -> None:
 _KINDS = (("stage A (ivf_filter)", "ivf_filter"),
           ("radixSortKVInPlace", "radixSortKVInPlace"),
           ("other sorts", "ort"), ("stage B (selective_lut)", "selective_lut"),
-          ("count", "count_kernel"), ("count", "hit_count"),
-          ("select", "select_kernel"), ("pq_scan", "pq_scan"))
+          ("hit_count", "hit_count_kernel"), ("hit_count top-k", "hit_topk_kernel"),
+          ("two-stage count", "count_kernel"), ("two-stage select", "select_kernel"),
+          ("pq_scan", "pq_scan"))
 
 
 def trace_kinds(paths: list[str]) -> None:
@@ -502,6 +593,9 @@ def main() -> int:
                     help="time stage B (selective_lut) of this tree instead")
     ap.add_argument("--stage-c", action="store_true",
                     help="time stage C's fused scans of this tree instead")
+    ap.add_argument("--hit-count", action="store_true",
+                    help="time tiers M/L and composed H2's hit-count scan "
+                         "of this tree instead")
     ap.add_argument("--kernels", action="store_true",
                     help="sweep the ivf_filter kernel's epilogues instead")
     ap.add_argument("--phases", action="store_true",
@@ -529,6 +623,9 @@ def main() -> int:
         return 0
     if args.stage_c:
         stage_c(card, args.label, args.reps)
+        return 0
+    if args.hit_count:
+        hit_count_rows(card, args.label, args.reps)
         return 0
     if args.kernels:
         kernel_sweep(card, args.reps)

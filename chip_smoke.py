@@ -39,7 +39,15 @@ Phases, each raising on failure:
    row with the profiler's count- and select-kernel time, the write floor of
    ``counts`` and ``dist``, and the call through ``ops`` held to two
    kernels, counted on its capture into a CUDA graph (the three-stage one
-   with q0, q1 as a (Q, 2) tensor's columns);
+   with q0, q1 as a (Q, 2) tensor's columns); ``hit_count``'s top-k route,
+   which tiers M, L and composed H2 run (values and positions equal to the
+   plain counts' stable sort), at M/L's np 8 with k 10 and 100 (l2 S = 48,
+   ip S = 100), composed H2's np 16 with C 40 and 400, Q 128, 32 and 8,
+   scattered and packed valid slots and a row of sentinel ties, each with
+   the profiler's count- and top-k-kernel time, ``count_sort_ms`` (the
+   counts kernel, a stable sort and a slice: the route before the top-k
+   kernel) and two kernels a call by capture; then its counts-only kernel
+   at the three shapes of earlier runs, one kernel a call;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
@@ -48,7 +56,8 @@ Phases, each raising on failure:
    a stream of 64 requests that routes to tiers H, H2, M and L: each
    engine's kernel launches over one pass (``ivf_filter`` for stage A in
    all four, one launch a stage-A call, counted on ``filter_clusters``),
-   QPS, latency, signatures and the profiled pass's sort launches; then
+   QPS, latency, signatures and the profiled pass's sort launches and
+   the other sorts' device ms; then
    per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
    three-stage kernel)
    recall@10-in-100 against ``exact_topk`` and QPS, composed H2 against
@@ -208,8 +217,9 @@ def profile_window(fn, trace_path: str) -> dict:
     """Device time by kernel over one call of ``fn`` (``torch.profiler``).
 
     Returns the window's host wall time, the summed device time of its
-    kernels and copies, the idle share ``1 - busy / wall`` and the top
-    kernels by device time; the Chrome trace goes to ``trace_path``,
+    kernels and copies, the idle share ``1 - busy / wall``, the sorts'
+    launches and device ms and the top kernels by device time; the Chrome
+    trace goes to ``trace_path``,
     gzipped (``.gz`` appended).
     The profiler adds host time of its own, so ``wall`` (and the idle
     share) is an upper bound of the unprofiled run's.
@@ -239,10 +249,16 @@ def profile_window(fn, trace_path: str) -> dict:
     busy = sum(ms for ms, _ in kernels.values())
     sorts = sum(n for k, (_, n) in kernels.items()
                 if "radixSortKVInPlace" in k)
+    # every other sort kernel (cub's segmented and onesweep sorts: the
+    # scans' top-k), as bench_stage_a.py --traces groups them
+    other = [(ms, n) for k, (ms, n) in kernels.items()
+             if "ort" in k and "radixSortKVInPlace" not in k]
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall * 1e3) if kernels else None,
             "radix_sort_launches": sorts,
+            "other_sorts_ms": sum(ms for ms, _ in other),
+            "other_sorts_launches": sum(n for _, n in other),
             "top": [{"kernel": k[:120], "ms": ms, "count": n}
                     for k, (ms, n) in top]}
 
@@ -419,9 +435,10 @@ def _assert_sums_close(got: torch.Tensor, want: torch.Tensor,
 
 def _scan_index(q: int, n_probe: int, p: int, s: int, e: int,
                 n_clusters: int, gen, distinct: bool = False,
-                packed: bool = False):
+                packed: bool = False, share: float = 0.25):
     """Random per-cluster codes, a ~25%-filled valid mask (as a 1M-point,
-    1024-cluster index has) and random probed cluster ids, on the card:
+    1024-cluster index has; ``share`` sets another fill for scattered
+    slots) and random probed cluster ids, on the card:
     distinct within a query (clusters repeat across the batch) or, with
     ``distinct``, across the whole batch. The valid slots are scattered at
     random or, with ``packed``, at the front of each cluster, as a built
@@ -436,7 +453,7 @@ def _scan_index(q: int, n_probe: int, p: int, s: int, e: int,
                              device=dev)
         valid = torch.arange(p, device=dev)[None, :] < fill
     else:
-        valid = torch.rand((n_clusters, p), generator=gen, device=dev) < 0.25
+        valid = torch.rand((n_clusters, p), generator=gen, device=dev) < share
     if distinct:
         cids = torch.randperm(n_clusters, generator=gen, device=dev
                               )[:q * n_probe].reshape(q, n_probe)
@@ -544,6 +561,9 @@ def check_fused_two_stage(q: int, n_probe: int, p: int, s: int, e: int,
 
 def check_hit_count(q: int, n_probe: int, p: int, s: int, e: int,
                     n_clusters: int, label: str, gen) -> dict:
+    """The counts-only ``hit_count`` kernel against its plain version,
+    timed beside it and the ``embedding_bag`` yardstick; one kernel a
+    call."""
     dev = torch.device("cuda")
     table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
                           device=dev, dtype=torch.int8)
@@ -571,8 +591,104 @@ def check_hit_count(q: int, n_probe: int, p: int, s: int, e: int,
            "plain_ms": time_ms(lambda: hc.hit_count_plain(
                table, codes[cids], valid[cids])),
            "library_ms": time_ms(lib),
-           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes, **need}
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+           "count_us": kernel_us(lambda: hc.hit_count(table, codes, valid,
+                                                      cids),
+                                 "hit_count_kernel"),
+           "kernels_a_call": _hit_kernels(
+               lambda: ops.hit_count_scan(table, codes, valid, cids),
+               ("hit_count_kernel",), f"hit_count {label}"), **need}
     del lib
+    return out
+
+
+def _hit_kernels(fn, want: tuple, what: str) -> int:
+    """Raise unless one call of ``fn`` is exactly the kernels ``want`` in
+    that order on the card (its capture into a CUDA graph, so a sort,
+    memset or copy node fails it too); returns their number."""
+    launched = captured_kernels(fn)
+    if len(launched) != len(want) or not all(
+            n in node for n, node in zip(want, launched)):
+        raise AssertionError(f"{what}: {len(launched)} kernels a call "
+                             f"({launched}), want {want}")
+    return len(launched)
+
+
+def check_hit_count_topk(q: int, n_probe: int, p: int, s: int, e: int,
+                         n_clusters: int, k: int, label: str, gen, *,
+                         packed: bool = False, few: bool = False) -> dict:
+    """The top-k route (``hit_count_topk``: the count kernel, then the
+    top-k kernel) against its plain version (the plain counts, a stable
+    sort, a slice): values and positions equal. ``packed``: the valid
+    slots at the front of each cluster; ``few``: 0.2% of the slots valid,
+    fewer than k a query, so the invalid sentinel's ties fill the quota.
+    Timed beside the plain version, the library's two calls
+    (``embedding_bag``, then ``torch.sort(stable=True)`` and the slice)
+    and ``count_sort_ms``: this tree's counts kernel, then the stable sort
+    and the slice, the route the engines took before (two calls)."""
+    dev = torch.device("cuda")
+    table = torch.randint(-1, 2, (q, n_probe, s, e), generator=gen,
+                          device=dev, dtype=torch.int8)
+    codes, valid, cids, need = _scan_index(
+        q, n_probe, p, s, e, n_clusters, gen, packed=packed,
+        share=0.002 if few else 0.25)
+    what = (f"hit_count_topk {label} Q={q} np={n_probe} S={s} k={k}"
+            f"{' packed' if packed else ''}{' few' if few else ''}")
+    got = hc.hit_count_topk(table, codes, valid, cids, k)
+    want = hc.hit_count_topk_plain(table, codes[cids], valid[cids], k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(
+            f"{what}: {int((got[1] != want[1]).sum())} positions and "
+            f"{int((got[0] != want[0]).sum())} values differ from plain")
+    sentinel = int((want[0] == NEG).sum())
+    if few and not sentinel:
+        raise AssertionError(f"{what}: no sentinel ties in the top k")
+
+    def call():
+        return hc.hit_count_topk(table, codes, valid, cids, k)
+
+    def count_sort():
+        c = hc.hit_count(table, codes, valid, cids).reshape(q, -1)
+        v, i = torch.sort(c, dim=1, descending=True, stable=True)
+        return v[:, :k], i[:, :k]
+
+    bag = _bag_call(table, codes, cids)
+
+    def library():
+        v, i = torch.sort(bag().reshape(q, -1), dim=1, descending=True,
+                          stable=True)
+        return v[:, :k], i[:, :k]
+
+    # bytes the function needs: the probed clusters' valid rows and valid
+    # points' codes once, the int8 tables, cids, the (Q, k) outputs; the
+    # route also writes the counts and reads them back
+    n_bytes = need["index_bytes"] + table.numel() + cids.numel() * 8 \
+        + 12 * q * k
+    n_ops = int(valid[cids].sum()) * s
+    bnd, by = bound_ms(n_bytes, n_ops)
+    counts_bytes = 8 * q * n_probe * p + 8 * q * n_probe * (2 * s + 2)
+    out = {"route": "top-k", "tier": label, "Q": q, "np": n_probe, "P": p,
+           "S": s, "E": e, "k": k, "valid": "packed" if packed else
+           ("few" if few else "random"), "sentinel_results": sentinel,
+           "max_abs_err": 0.0, "ms": time_ms(call),
+           "plain_ms": time_ms(lambda: hc.hit_count_topk_plain(
+               table, codes[cids], valid[cids], k)),
+           "library_ms": time_ms(library),
+           "library": "embedding_bag + sort(stable) + slice: two library "
+                      "calls, the valid mask left out",
+           "count_sort_ms": time_ms(count_sort),
+           "count_sort": "hit_count kernel + sort(stable) + slice: two calls",
+           "count_us": kernel_us(call, "hit_count_kernel"),
+           "select_us": kernel_us(call, "hit_topk_kernel"),
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+           "bound_with_counts_ms": bound_ms(n_bytes + counts_bytes,
+                                            n_ops)[0],
+           "kernels_a_call": _hit_kernels(
+               lambda: ops.hit_count_topk_scan(table, codes, valid, cids, k),
+               ("hit_count_kernel", "hit_topk_kernel"), what),
+           **need}
+    del bag
     return out
 
 
@@ -926,8 +1042,31 @@ def phase_kernels(seed: int) -> dict:
     rows["pq_scan"] = [check_pq_scan(128, 16, 3912, s, 256, 1024, metric, gen)
                        for metric, s in (("l2", 48), ("ip", 100))]
     torch.cuda.empty_cache()
+    # tiers M, L and composed H2: the top-k route the engines run (M/L l2,
+    # k = 100, heads the line), at the engines' k and C, smaller batches,
+    # packed valid slots and sentinel ties; then the counts-only kernel
     rows["hit_count"] = [
-        check_hit_count(128, n_probe, 3912, s, 256, 1024, label, gen)
+        check_hit_count_topk(q, n_probe, 3912, s, 256, 1024, k, label, gen,
+                             packed=packed, few=few)
+        for q, n_probe, s, k, label, packed, few in (
+            (128, 8, 48, 100, "M/L l2", False, False),
+            (128, 8, 48, 10, "M/L l2", False, False),
+            (128, 8, 100, 100, "M/L ip", False, False),
+            (128, 8, 100, 10, "M/L ip", False, False),
+            (128, 16, 48, 40, "composed H2 l2", False, False),
+            (128, 16, 48, 400, "composed H2 l2", False, False),
+            (32, 8, 48, 100, "M/L l2", False, False),
+            (8, 8, 48, 100, "M/L l2", False, False),
+            (32, 16, 48, 400, "composed H2 l2", False, False),
+            (8, 16, 48, 400, "composed H2 l2", False, False),
+            (128, 8, 48, 100, "M/L l2", True, False),
+            (128, 8, 100, 100, "M/L ip", True, False),
+            (128, 16, 48, 400, "composed H2 l2", True, False),
+            (128, 8, 48, 100, "M/L l2", False, True))]
+    torch.cuda.empty_cache()
+    rows["hit_count"] += [
+        dict(route="counts",
+             **check_hit_count(128, n_probe, 3912, s, 256, 1024, label, gen))
         for label, n_probe, s in (("M/L l2", 8, 48), ("M/L ip", 8, 100),
                                   ("composed H2 l2", 16, 48))]
     torch.cuda.empty_cache()

@@ -19,11 +19,12 @@ model, stage B builds the masked LUT and the int8 hit table
 (paper's JUNO-H/M/L, plus the two-stage H2):
 
 * "H": masked ADC of every probed point (``pq_scan`` kernel), top-k;
-* "M": reward/penalty hit count (``hit_count`` kernel), top-k by count;
+* "M": reward/penalty hit count, top-k by count (``hit_count`` kernel and
+  its top-k epilogue: no sort);
 * "L": plain hit count, the table clipped to {0, 1}, top-k by count;
 * "H2": hit count → top-C → masked ADC of the C → top-k, either in one
   fused kernel (``fused=True``, ``fused_two_stage``) or composed
-  (``hit_count`` kernel, then a plain-torch rerank).
+  (``hit_count`` kernel's top-C, then a plain-torch rerank).
 
 With ``prefilter="rt"`` (the paper's RT-core stage-1 filter, ``rt/``) the
 probes whose cluster disc the query disc misses in the ray plane are
@@ -407,31 +408,37 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                                             thres_scale=thres_scale)
     probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
                 if prefilter == "rt" else None)
+    p = index.cluster_codes.shape[1]
+    n_in = cids.shape[1] * p
     if mode == "H":
         pt_scores = ops.masked_adc_scan(mlut, index.cluster_codes,
                                         index.ivf.valid, cids, metric=metric,
                                         probe_ok=probe_ok)
         if probe_base is not None:
             pt_scores = pt_scores + probe_base[..., None]
-        higher_better = metric == "ip"
+        flat = pt_scores.reshape(nq, -1)
+        if side is not None:
+            side_s, _ = _side_scores(mlut, cids, side, probe_ok, probe_base,
+                                     bad_score(metric))
+            flat = torch.cat([flat, side_s.float()], dim=1)
+        out_scores, sel = _top_k(flat, k, metric == "ip")
     else:
         if mode == "L":  # plain count: clip penalty/inner to {0, 1}
             table = (table >= 0).to(torch.int8)
-        pt_scores = ops.hit_count_scan(table, index.cluster_codes,
-                                       index.ivf.valid, cids,
-                                       probe_ok=probe_ok).float()
-        higher_better = True
-    flat = pt_scores.reshape(nq, -1)
-    if side is not None:
-        if mode == "H":
-            side_s, _ = _side_scores(mlut, cids, side, probe_ok, probe_base,
-                                     bad_score(metric))
-        else:
+        k_in = min(k, n_in)
+        out_scores, sel = ops.hit_count_topk_scan(
+            table, index.cluster_codes, index.ivf.valid, cids, k_in,
+            probe_ok=probe_ok)
+        if side is not None:
+            # every in-cluster index is below every side index, so the k
+            # best of both are the k best of the k_in in-cluster ones and
+            # the side points, in-cluster first among equal scores
             side_s, _ = _side_scores(table, cids, side, probe_ok, None, NEG)
-        flat = torch.cat([flat, side_s.float()], dim=1)
-    out_scores, sel = _top_k(flat, k, higher_better)
-    p = index.cluster_codes.shape[1]
-    n_in = cids.shape[1] * p
+            out_scores, order = _top_k(
+                torch.cat([out_scores, side_s.float()], dim=1), k, True)
+            sel = torch.where(order < k_in,
+                              torch.gather(sel, 1, order.clamp(max=k_in - 1)),
+                              order - k_in + n_in)
     in_cl = sel < n_in
     s_in = torch.where(in_cl, sel, 0)
     ids = index.ivf.point_ids[torch.gather(cids, 1, s_in // p), s_in % p]
@@ -477,9 +484,9 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
       under ``prefilter="rt"`` the ``fused_three_stage`` kernel also runs
       the sphere test, per probe, in front (unless ``fused3=False``, which
       composes :func:`_rt_probe_mask` with the two-stage kernel);
-    * ``fused=False``: the ``hit_count`` kernel counts, a stable sort takes
-      the top C in (count desc, index asc) order, and the C candidates'
-      LUT entries are gathered and summed in plain torch.
+    * ``fused=False``: the ``hit_count`` kernel counts and its top-k
+      epilogue takes the top C in (count desc, index asc) order, and the C
+      candidates' LUT entries are gathered and summed in plain torch.
 
     A candidate of a pruned probe is invalid, as in the reference, whose
     ``valid`` is already masked. Only the candidates' codes, validity and
@@ -515,9 +522,9 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
         cand_probe = cand // p
         cand_cid = torch.gather(cids, 1, cand_probe)
     else:
-        counts = ops.hit_count_scan(table, index.cluster_codes,
-                                    index.ivf.valid, cids, probe_ok=probe_ok)
-        _, cand = _top_k(counts.reshape(nq, -1), cap, True)
+        _, cand = ops.hit_count_topk_scan(table, index.cluster_codes,
+                                          index.ivf.valid, cids, cap,
+                                          probe_ok=probe_ok)
         cand_probe = cand // p
         cand_cid = torch.gather(cids, 1, cand_probe)
         cand_codes = index.cluster_codes[cand_cid, cand % p].long()  # (Q, C, S)

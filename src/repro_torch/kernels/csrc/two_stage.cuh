@@ -1,6 +1,8 @@
 // The two kernels of the fused two-stage scan, shared by fused_two_stage.cu
 // and fused_three_stage.cu: int8 hit counts -> survivor threshold -> top-C
-// candidates -> masked ADC on the candidates only.
+// candidates -> masked ADC on the candidates only. hit_count.cu runs the
+// count kernel's body (count_body) without the dist writes, and its top-k
+// kernel reads the histograms through sum_hists and theta_bin.
 //
 // Contract: the reference's off-TPU serving path, fused_two_stage_host
 // (src/repro/kernels/fused_two_stage.py, l.259-335), over the points whose
@@ -267,18 +269,20 @@ inline size_t count_smem(int S) {
   return (size_t)S * kPlaneBytes + (size_t)(2 * S + 2) * sizeof(int);
 }
 
-template <bool kSphere, int kS>
-__global__ void __launch_bounds__(kCountThreads, 4)
-count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
-             const uint8_t* __restrict__ codes,   // (n_cl, P, S)
-             const uint8_t* __restrict__ valid,   // (n_cl, P)
-             const int64_t* __restrict__ cids,    // (Q*np)
-             SphereTest sph,
-             uint8_t* probe_ok,                   // (Q*np) in, or out
-             int32_t* __restrict__ counts,        // (Q*np, P)
-             int32_t* __restrict__ hist,          // (Q*np, 2S+2)
-             float* __restrict__ dist,            // (Q*np, P): pruned probes only
-             int n_probe, int P, int S, int E, float bad) {
+// The count kernel's body, which hit_count.cu's kernels share: kDist writes
+// a pruned probe's dist (the fused scans'; hit_count has none), kHist keeps
+// and stores the block's histogram (hit_count's counts-only form has no use
+// for it).
+template <bool kSphere, int kS, bool kDist, bool kHist>
+__device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
+                                           const uint8_t* __restrict__ codes,
+                                           const uint8_t* __restrict__ valid,
+                                           const int64_t* __restrict__ cids,
+                                           SphereTest sph, uint8_t* probe_ok,
+                                           int32_t* __restrict__ counts,
+                                           int32_t* __restrict__ hist,
+                                           float* __restrict__ dist, int n_probe, int P,
+                                           int S, int E, float bad) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_keep;
   if constexpr (kS > 0) S = kS;
@@ -303,17 +307,18 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
     }
     s_keep = keep;
   }
-  for (int i = threadIdx.x; i < nbins; i += kCountThreads) h[i] = 0;
+  if constexpr (kHist)
+    for (int i = threadIdx.x; i < nbins; i += kCountThreads) h[i] = 0;
   __syncthreads();
   int32_t* out = counts + qp * P;
-  int32_t* hout = hist + qp * nbins;
   if (!s_keep) {   // pruned: every point invalid, no table or code read
-    float* drow = dist + qp * P;
     for (int p = threadIdx.x; p < P; p += kCountThreads) {
       out[p] = kNeg;
-      drow[p] = bad;
+      if constexpr (kDist) dist[qp * P + p] = bad;
     }
-    for (int i = threadIdx.x; i < nbins; i += kCountThreads) hout[i] = i == 0 ? P : 0;
+    if constexpr (kHist)
+      for (int i = threadIdx.x; i < nbins; i += kCountThreads)
+        hist[qp * nbins + i] = i == 0 ? P : 0;
     return;
   }
   const uint8_t* crow = codes + cid * (int64_t)P * S;
@@ -346,8 +351,10 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
         ++n_invalid;
       }
     }
-    n_invalid = __reduce_add_sync(0xffffffffu, n_invalid);
-    if (lane == 0 && n_invalid) atomicAdd(&h[0], n_invalid);
+    if constexpr (kHist) {
+      n_invalid = __reduce_add_sync(0xffffffffu, n_invalid);
+      if (lane == 0 && n_invalid) atomicAdd(&h[0], n_invalid);
+    }
     // each lane counts its next valid point a step, so a warp takes as many
     // steps as its lane with the most: 4 where a quarter of the slots are
     // valid and packed at the front of the cluster, as a built index has
@@ -362,12 +369,99 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
         out[c0 + i] = cnt;
         bin = cnt + S + 1;   // in [1, 2S+1]: entries are read by sign
       }
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin >= 0 && lane == (unsigned)(__ffs(peers) - 1)) atomicAdd(&h[bin], __popc(peers));
+      if constexpr (kHist) {
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && lane == (unsigned)(__ffs(peers) - 1)) atomicAdd(&h[bin], __popc(peers));
+      }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nbins; i += kCountThreads) hout[i] = h[i];
+  if constexpr (kHist) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < nbins; i += kCountThreads) hist[qp * nbins + i] = h[i];
+  }
+}
+
+template <bool kSphere, int kS>
+__global__ void __launch_bounds__(kCountThreads, 4)
+count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
+             const uint8_t* __restrict__ codes,   // (n_cl, P, S)
+             const uint8_t* __restrict__ valid,   // (n_cl, P)
+             const int64_t* __restrict__ cids,    // (Q*np)
+             SphereTest sph,
+             uint8_t* probe_ok,                   // (Q*np) in, or out
+             int32_t* __restrict__ counts,        // (Q*np, P)
+             int32_t* __restrict__ hist,          // (Q*np, 2S+2)
+             float* __restrict__ dist,            // (Q*np, P): pruned probes only
+             int n_probe, int P, int S, int E, float bad) {
+  count_body<kSphere, kS, true, true>(table, codes, valid, cids, sph, probe_ok, counts, hist,
+                                      dist, n_probe, P, S, E, bad);
+}
+
+// Per bin b, from the query's np stored histograms hq (np, nbins): tot[b]
+// over every probe, pre[b] over the probes before `probe`, mine[b] of
+// `probe` itself; with kInvalid also invalid_of[i], probe i's bin 0. Each
+// thread of the block (nthreads) sums its bins, its loads issued in
+// batches. The caller synchronises the block afterwards.
+template <bool kInvalid>
+__device__ __forceinline__ void sum_hists(const int32_t* __restrict__ hq, int n_probe, int probe,
+                                          int nbins, int nthreads, int* tot, int* pre,
+                                          int* mine, int* invalid_of) {
+  constexpr int kBatch = 16;  // histogram rows a thread loads at once
+  for (int b = threadIdx.x; b < nbins; b += nthreads) {
+    int t = 0, before = 0;
+    for (int i0 = 0; i0 < n_probe; i0 += kBatch) {
+      int x[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)   // every load issued, in range
+        x[k] = hq[min(i0 + k, n_probe - 1) * nbins + b];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (i0 + k >= n_probe) break;
+        t += x[k];
+        before += i0 + k < probe ? x[k] : 0;
+        if (i0 + k == probe) mine[b] = x[k];
+        if constexpr (kInvalid)
+          if (b == 0) invalid_of[i0 + k] = x[k];
+      }
+    }
+    tot[b] = t;
+    pre[b] = before;
+  }
+}
+
+// theta's bin for C, found by one whole warp over the query's histogram tot:
+// the highest bin whose count and the counts above it reach C (bin 0, the
+// invalid one, when the valid points fall short). Lane l holds the l-th run
+// [lo, hi) of k bins from the top, `above_run` counts the points in the
+// bins above its run; tb and `above` (the points above tb) are the warp's.
+struct ThetaRun {
+  int tb, above, lo, hi, above_run;
+};
+__device__ __forceinline__ ThetaRun theta_bin(const int* tot, int nbins, int C) {
+  const unsigned lane = threadIdx.x & 31u;
+  ThetaRun r;
+  const int k = (nbins + 31) / 32;
+  r.hi = nbins - (int)lane * k;
+  r.lo = max(r.hi - k, 0);
+  int sum = 0;
+  for (int b = r.lo; b < r.hi; ++b) sum += tot[b];
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= (unsigned)o) incl += y;
+  }
+  r.above_run = incl - sum;
+  // the np*P points reach C by bin 0, so some lane's sum does
+  const int f = __ffs(__ballot_sync(0xffffffffu, incl >= C)) - 1;
+  int tb = 0, above = 0;
+  if ((int)lane == f) {
+    tb = r.hi - 1;
+    above = r.above_run;
+    while (above + tot[tb] < C) above += tot[tb--];
+  }
+  r.tb = __shfl_sync(0xffffffffu, tb, f);
+  r.above = __shfl_sync(0xffffffffu, above, f);
+  return r;
 }
 
 // Dynamic shared memory of select_kernel: a span of counts, the list of
@@ -461,51 +555,12 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
     for (int i = threadIdx.x; i < n_probe; i += kSelectThreads)
       pruned[i] = !probe_ok[(int64_t)q * n_probe + i];
 
-  constexpr int kBatch = 16;  // histogram rows a thread loads at once
-  const int32_t* hq = hist + (int64_t)q * n_probe * nbins;
-  for (int b = threadIdx.x; b < nbins; b += kSelectThreads) {
-    int t = 0, before = 0;
-    for (int i0 = 0; i0 < n_probe; i0 += kBatch) {
-      int x[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)   // every load issued, in range
-        x[k] = hq[min(i0 + k, n_probe - 1) * nbins + b];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        if (i0 + k >= n_probe) break;
-        t += x[k];
-        before += i0 + k < probe ? x[k] : 0;
-        if (i0 + k == probe) mine[b] = x[k];
-        if (b == 0) invalid_of[i0 + k] = x[k];
-      }
-    }
-    tot[b] = t;
-    pre[b] = before;
-  }
+  sum_hists<true>(hist + (int64_t)q * n_probe * nbins, n_probe, probe, nbins, kSelectThreads,
+                  tot, pre, mine, invalid_of);
   __syncthreads();
   if (warp == 0) {
-    // theta's bin: the highest bin whose count and the counts above it reach
-    // C (bin 0, the invalid one, when the valid points fall short). Lane l
-    // holds the l-th run of k bins from the top.
-    const int k = (nbins + 31) / 32;
-    const int hi = nbins - (int)lane * k, lo = max(hi - k, 0);
-    int sum = 0;
-    for (int b = lo; b < hi; ++b) sum += tot[b];
-    int incl = sum;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= (unsigned)o) incl += y;
-    }
-    // the np*P points reach C by bin 0, so some lane's sum does
-    const int f = __ffs(__ballot_sync(0xffffffffu, incl >= C)) - 1;
-    int tb = 0, above = 0;
-    if ((int)lane == f) {
-      tb = hi - 1;
-      above = incl - sum;
-      while (above + tot[tb] < C) above += tot[tb--];
-    }
-    tb = __shfl_sync(0xffffffffu, tb, f);
-    above = __shfl_sync(0xffffffffu, above, f);
+    const ThetaRun r = theta_bin(tot, nbins, C);
+    const int tb = r.tb, above = r.above, lo = r.lo, hi = r.hi;
     // points above theta in the probes before this one, and in this one
     int gt_pre = 0, gt_mine = 0;
     for (int b = max(lo, tb + 1); b < hi; ++b) {

@@ -3,8 +3,10 @@
 Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
 ``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135),
 ``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183),
-``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263), and
-``filter_topk`` (stage A of ``repro/core/ivf.py:filter_clusters``). Dispatch
+``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263), with
+``filter_topk`` (stage A of ``repro/core/ivf.py:filter_clusters``) and
+``hit_count_topk_scan`` (the hit counts' top-k of
+``repro/core/juno.py`` l.354 and l.508). Dispatch
 follows the tensors' device: a CPU tensor goes to the kernel's plain
 PyTorch version; a CUDA tensor goes to the hand-written CUDA kernel, or
 the call raises. There is no fallback from a kernel to its plain
@@ -25,7 +27,8 @@ import torch
 
 from .fused_three_stage import fused_three_stage, fused_three_stage_plain
 from .fused_two_stage import fused_two_stage, fused_two_stage_plain
-from .hit_count import hit_count, hit_count_plain
+from .hit_count import (hit_count, hit_count_plain, hit_count_topk,
+                        hit_count_topk_plain)
 from .ivf_filter import (ivf_filter, ivf_filter_plain, ivf_filter_topk,
                          ivf_filter_topk_plain)
 from .pq_scan import pq_scan, pq_scan_plain
@@ -115,6 +118,31 @@ def hit_count_scan(table: torch.Tensor, codes: torch.Tensor,
                          else probe_ok.contiguous())
     return hit_count_plain(table, codes[cids],
                            _probed_valid(valid, cids, probe_ok))
+
+
+def hit_count_topk_scan(table: torch.Tensor, codes: torch.Tensor,
+                        valid: torch.Tensor, cids: torch.Tensor, k: int, *,
+                        probe_ok: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tiers M/L and composed H2: each query's k best hit counts.
+
+    table (Q, np, S, E) int8 with entries in {-1, 0, +1} or {0, 1}, the
+    rest as for :func:`hit_count_scan`; 1 <= k <= np·P. Returns (values
+    (Q, k) f32, positions (Q, k) int64 over the flat np·P axis) in
+    ``lax.top_k``'s order (count desc, position asc): the top-k of
+    :func:`hit_count_scan`'s counts. On the card a call is two kernels
+    (count, top-k) and no sort.
+    """
+    n_flat = cids.shape[1] * codes.shape[1]
+    if not 1 <= k <= n_flat:
+        raise ValueError(f"k={k} outside [1, np*P={n_flat}]")
+    if _on_cuda(table, codes, valid, cids, probe_ok):
+        return hit_count_topk(table.contiguous(), codes.contiguous(),
+                              valid.contiguous(), cids.contiguous(), k,
+                              probe_ok=None if probe_ok is None
+                              else probe_ok.contiguous())
+    return hit_count_topk_plain(table, codes[cids],
+                                _probed_valid(valid, cids, probe_ok), k)
 
 
 def fused_two_stage_scan(mlut: torch.Tensor, table: torch.Tensor,

@@ -205,6 +205,76 @@ def test_hit_count_kernel_matches_plain(cuda, s, valid_frac):
     assert torch.equal(got, want)
 
 
+# (Q, np, P, S, E): P below one warp step, P past eight warps' segments of
+# 512; S 7 and 12 (byte-wise code reads; E = 20 byte-wise table staging),
+# 48 and 100 (the compiled S); np 1, 8 and 16; Q 1, 8 and 128
+_TOPK_SHAPES = {"P7": (8, 3, 7, 8, 16), "P4500": (2, 8, 4500, 48, 256),
+                "S7": (1, 8, 200, 7, 32), "S12": (8, 16, 300, 12, 20),
+                "S100": (8, 8, 1500, 100, 256), "np1": (8, 1, 3912, 48, 256),
+                "Q128": (128, 8, 3912, 48, 256),
+                "np16": (8, 16, 3912, 100, 256)}
+
+
+@pytest.mark.parametrize("layout", ["scattered", "packed", "few"])
+@pytest.mark.parametrize("shape", list(_TOPK_SHAPES))
+def test_hit_count_topk_kernel_matches_plain(cuda, shape, layout):
+    """The top-k route equal to its plain version (values and positions)
+    and the counts-only kernel to its own, with the valid slots scattered,
+    packed at the front of each cluster (empty to full) or few (fewer than
+    k valid points: the sentinel's ties fill the quota in index order),
+    for signed and all-zero tables (one tie run of every valid point),
+    every probe kept or every probe but 0 pruned, k from 1 to np·P."""
+    q, n_probe, p, s, e = _TOPK_SHAPES[shape]
+    _, table, codes, _, cids = _index_form(60 + s + p, 0.0, s=s, e=e, p=p,
+                                           n_clusters=20, q=q,
+                                           n_probe=n_probe)
+    g = torch.Generator(device="cuda").manual_seed(61 + p)
+    if layout == "packed":
+        fill = torch.randint(0, p + 1, (20, 1), generator=g, device=cuda)
+        fill[:3, 0] = torch.tensor([0, 1, p], device=cuda)
+        valid = torch.arange(p, device=cuda)[None, :] < fill
+    else:
+        frac = 0.25 if layout == "scattered" else 0.2 / p
+        valid = torch.rand((20, p), generator=g, device=cuda) < frac
+    probe0 = torch.zeros((q, n_probe), dtype=torch.bool, device=cuda)
+    probe0[:, 0] = True
+    w = n_probe * p
+    for tab in (table, torch.zeros_like(table)):
+        for pok in (None, probe0):
+            masked = valid[cids] if pok is None else \
+                valid[cids] & pok[..., None]
+            got = phit.hit_count(tab, codes, valid, cids, probe_ok=pok)
+            assert torch.equal(got, phit.hit_count_plain(tab, codes[cids],
+                                                         masked))
+            for k in sorted({1, 33, 100, w // 2 + 1, w} & set(range(1, w + 1))):
+                got = ops.hit_count_topk_scan(tab, codes, valid, cids, k,
+                                              probe_ok=pok)
+                want = phit.hit_count_topk_plain(tab, codes[cids], masked, k)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (k, pok is None)
+                assert torch.equal(got[1], want[1]), (k, pok is None)
+
+
+def test_hit_count_launches_its_kernels_only(cuda):
+    """A top-k call is the count kernel and then the top-k kernel, a
+    counts-only call the count kernel alone: no sort, no zeroing, no copy
+    (the nodes of the call captured into a CUDA graph)."""
+    _, table, codes, valid, cids = _index_form(62, 0.5, s=48, q=8,
+                                               n_probe=6)
+    pok = torch.rand(cids.shape, device=cuda) < 0.5
+    calls = {
+        ("hit_count_kernel", "hit_topk_kernel"): lambda: ops.hit_count_topk_scan(
+            table, codes, valid, cids, 40, probe_ok=pok),
+        ("hit_count_kernel",): lambda: ops.hit_count_scan(table, codes, valid,
+                                                          cids)}
+    for want, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        nodes = _captured_nodes(call)
+        assert len(nodes) == len(want), nodes
+        assert all(n in node for n, node in zip(want, nodes)), nodes
+
+
 def test_scans_read_codes_through_cids(cuda):
     """The ops wrappers on the card equal the plain versions over the
     gathered codes, for cids with repeats and an odd S (byte loads)."""
@@ -229,6 +299,8 @@ def test_launch_counts(cuda):
     ops.masked_adc_scan(lut, codes, valid, cids)
     ops.hit_count_scan(table, codes, valid, cids)
     ops.hit_count_scan(table, codes, valid, cids)
+    phit.hit_count_topk_plain(table, codes[cids], valid[cids], 5)
+    ops.hit_count_topk_scan(table, codes, valid, cids, 5)
     grid = [torch.from_numpy(a).to(cuda) for a in synth_grid(3, 3, 8, 3, 4)]
     psph.sphere_hits_plain(*grid[:3], *grid[5:8])
     ops.rt_sphere_hits(*grid[:3], *grid[5:8])
@@ -238,7 +310,7 @@ def test_launch_counts(cuda):
     pivf.ivf_filter_plain(x, x, x[:, 0])
     ops.filter_scores(x, x, x[:, 0].contiguous(), metric="ip")
     assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0,
-                               "pq_scan": 1, "hit_count": 2,
+                               "pq_scan": 1, "hit_count": 3,
                                "sphere_hits": 1, "fused_three_stage": 1,
                                "ivf_filter": 1}
 
@@ -455,7 +527,7 @@ def _captured_nodes(call):
     for a, b in zip(starts, starts[1:] + [len(dot)]):
         text = dot[a:b]
         kind = re.search(r"\b([A-Z][A-Z_]{3,})\b", text).group(1)
-        name = re.search(r"\w*(?:count|select)_kernel\w*", text)
+        name = re.search(r"\w*(?:count|select|topk)_kernel\w*", text)
         nodes.append(name.group(0) if kind == "KERNEL" and name else kind)
     return nodes
 
