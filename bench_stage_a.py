@@ -5,6 +5,7 @@
     python3 bench_stage_a.py --stage-b [--src DIR] [--label NAME]
     python3 bench_stage_a.py --stage-c [--src DIR] [--label NAME]
     python3 bench_stage_a.py --hit-count [--src DIR] [--label NAME]
+    python3 bench_stage_a.py --hit-count --calls FILE [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
     python3 bench_stage_a.py --traces TRACE.json.gz ...
@@ -70,7 +71,19 @@ events), the profiler's mean ``count_us`` (``hit_count_kernel``) and
 ``topk_us`` (``hit_topk_kernel``) a launch, ``sort_us`` (every sort kernel
 of a call), ``kernels`` a call and a hash of the outputs (values as f32,
 positions as int64), so that two trees' outputs can be seen to be
-bit-equal.
+bit-equal. With ``--calls FILE`` it replays instead the calls of one engine
+pass that ``chip_smoke.py --hit-calls`` recorded (the built index's codes
+and valid mask, stage B's tables, the probed cluster ids, k), per tier
+(np 8: M and L, np 16: composed H2), through both routes: the count,
+top-k and sort kernels' ms over the pass (profiler), the kernels a pass,
+on the recorded inputs also the summed device ms of its calls, a hash of
+the outputs; and on four variants of the inputs that each change one
+thing: random {-1, 0, +1} tables, all-zero tables (every valid point in one
+histogram bin), the valid slots packed at the front of each cluster with
+700–1254 a cluster, as the synthetic rows lay them out, and each cluster's
+valid slots capped at the 90th percentile of the probed clusters' fill (its
+fullest clusters cut down, the rest as built); every row also with the
+count kernel's µs a launch by batch size.
 
 With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
 instead (this tree only), over a sweep of shapes, nprobe and D: besides
@@ -479,6 +492,95 @@ def hit_count_rows(card: str, label: str, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+def hit_count_calls(card: str, label: str, reps: int, path: str) -> None:
+    """Replay one engine pass's recorded ``hit_count_topk_scan`` calls
+    (``chip_smoke.py --hit-calls``) through this tree's counts-only and
+    top-k routes, per tier, on the recorded inputs and on three variants
+    of them, to tell what in the engine's inputs sets the count kernel's
+    time."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rec = torch.load(path)
+    codes, valid = rec["codes"].to(dev), rec["valid"].to(dev)
+    n_cl, p = valid.shape
+    fill = torch.randint(700, 1255, (n_cl, 1), generator=gen, device=dev)
+    uniform = torch.arange(p, device=dev)[None, :] < fill
+    calls = [{k: (v.to(dev) if torch.is_tensor(v) else v)
+              for k, v in c.items()} for c in rec["calls"]]
+    has_topk = hasattr(ops, "hit_count_topk_scan")
+    kinds = {"count_us": ("hit_count_kernel",), "topk_us": ("hit_topk_kernel",),
+             "sort_us": ("ort",)}
+    for n_probe in sorted({c["cids"].shape[1] for c in calls}):
+        group = [c for c in calls if c["cids"].shape[1] == n_probe]
+        # the 90th percentile of the fill of the clusters the pass probes
+        cap = int(torch.quantile(torch.cat(
+            [valid.sum(1)[c["cids"]].reshape(-1) for c in group]).float(),
+            0.9))
+        variants = {
+            "engine": [(c["table"], valid) for c in group],
+            "random table": [(torch.randint(-1, 2, c["table"].shape,
+                                            generator=gen, device=dev,
+                                            dtype=torch.int8), valid)
+                             for c in group],
+            "zero table": [(torch.zeros_like(c["table"]), valid)
+                           for c in group],
+            "uniform fill": [(c["table"], uniform) for c in group],
+            "capped fill": [(c["table"], valid & (torch.arange(p, device=dev)
+                                                  < cap)) for c in group]}
+        for variant, ins in variants.items():
+            def counts(c, tab, v):
+                return ops.hit_count_scan(tab, codes, v, c["cids"],
+                                          probe_ok=c["probe_ok"])
+
+            def topk(c, tab, v):
+                if has_topk:
+                    return ops.hit_count_topk_scan(tab, codes, v, c["cids"],
+                                                   c["k"],
+                                                   probe_ok=c["probe_ok"])
+                cnt = counts(c, tab, v).reshape(c["cids"].shape[0], -1)
+                vals, pos = torch.sort(cnt, dim=1, descending=True,
+                                       stable=True)
+                return vals[:, :c["k"]].float(), pos[:, :c["k"]]
+
+            for what, fn in (("counts", counts), ("top-k", topk)):
+                def whole(sel=None, fn=fn):
+                    return [fn(c, *x) for c, x in zip(group, ins)
+                            if sel is None or c["cids"].shape[0] == sel]
+                us, n, n_kernels = kernel_split(whole, 5, kinds)
+                row = {"label": label, "what": what, "variant": variant,
+                       "tier": "M/L" if n_probe == 8 else "composed H2",
+                       "np": n_probe, "calls": len(group),
+                       "route": ("count + top-k kernels" if has_topk else
+                                 "counts kernel + sort(stable) + slice")
+                       if what == "top-k" else "counts kernel",
+                       # kernel ms over the pass, by kind
+                       **{k.replace("_us", "_ms_pass"):
+                          None if us[k] is None else us[k] * n[k] / 1e3
+                          for k in kinds},
+                       "kernels_a_pass": n_kernels, "card": card,
+                       # the count kernel's µs a launch by batch size
+                       "count_us_by_Q": {
+                           q: kernel_split(lambda q=q: whole(q), 5, kinds)[0][
+                               "count_us"]
+                           for q in sorted({c["cids"].shape[0]
+                                            for c in group})}}
+                if variant == "capped fill":
+                    row["cap"] = cap
+                if variant == "engine":
+                    outs = [t for o in whole() for t in
+                            (o if isinstance(o, tuple) else (o,))]
+                    row["device_ms_pass"] = sum(
+                        device_ms(lambda c=c, x=x, fn=fn: fn(c, *x), reps)
+                        for c, x in zip(group, ins))
+                    row["hash"] = _digest([torch.cat([o.reshape(-1).float()
+                                                      for o in outs])],
+                                          ("outputs",))
+                print(json.dumps(row), flush=True)
+        del variants
+        torch.cuda.empty_cache()
+
+
 #: where each phase's stamp goes in the kernel source: (anchor, stamp
 #: inserted before it); phase k ends at stamp k
 _PHASES = (
@@ -596,6 +698,9 @@ def main() -> int:
     ap.add_argument("--hit-count", action="store_true",
                     help="time tiers M/L and composed H2's hit-count scan "
                          "of this tree instead")
+    ap.add_argument("--calls", metavar="FILE",
+                    help="with --hit-count: replay the engine calls that "
+                         "chip_smoke.py --hit-calls wrote instead")
     ap.add_argument("--kernels", action="store_true",
                     help="sweep the ivf_filter kernel's epilogues instead")
     ap.add_argument("--phases", action="store_true",
@@ -625,7 +730,10 @@ def main() -> int:
         stage_c(card, args.label, args.reps)
         return 0
     if args.hit_count:
-        hit_count_rows(card, args.label, args.reps)
+        if args.calls:
+            hit_count_calls(card, args.label, args.reps, args.calls)
+        else:
+            hit_count_rows(card, args.label, args.reps)
         return 0
     if args.kernels:
         kernel_sweep(card, args.reps)

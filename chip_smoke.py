@@ -56,8 +56,13 @@ Phases, each raising on failure:
    a stream of 64 requests that routes to tiers H, H2, M and L: each
    engine's kernel launches over one pass (``ivf_filter`` for stage A in
    all four, one launch a stage-A call, counted on ``filter_clusters``),
-   QPS, latency, signatures and the profiled pass's sort launches and
-   the other sorts' device ms; then
+   QPS, latency, signatures, the profiled pass's sort launches and
+   the other sorts' device ms, and the ``hit_count_topk_scan`` calls of
+   its warm-up pass (batch sizes, np, k, and the valid slots of the
+   clusters they probed beside every cluster's); the unfused scan engine's
+   calls replayed as ``hit_count`` rows (every call equal to its plain
+   version; device ms, count- and top-k-kernel ms, ``count_sort_ms`` and
+   the bound, summed over the pass); then
    per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
    three-stage kernel)
    recall@10-in-100 against ``exact_topk`` and QPS, composed H2 against
@@ -81,12 +86,18 @@ Phases, each raising on failure:
    equal ``rebuild_index`` of the same state, and fold back;
 5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100),
    then ``mutate.ip``;
-6. the kernel line, then the card line, then the result line.
+6. the kernel line, then the card line, then the result line. A
+   kernel's ``launches`` there counts its wrapper's calls in one pass of the
+   four engines over both indexes and the ``mutate`` rounds: a
+   ``hit_count`` call on the top-k route, which every engine takes, is two
+   kernels (count, then top-k).
 
 It needs a CUDA card and the repo's ``src/``; without either it exits
 non-zero before printing any result. Detailed numbers (``chip_smoke.json``),
 the compiler's register report and the profiler traces go to ``--out``
-(default ``build/chip_smoke/``).
+(default ``build/chip_smoke/``); with ``--hit-calls DIR`` the replayed
+``hit_count`` calls, their inputs included, go to DIR for
+``bench_stage_a.py --hit-count --calls``.
 """
 from __future__ import annotations
 
@@ -692,6 +703,92 @@ def check_hit_count_topk(q: int, n_probe: int, p: int, s: int, e: int,
     return out
 
 
+def check_hit_count_pass(name: str, calls: list[dict]) -> list[dict]:
+    """The top-k route over the calls of one engine pass, replayed on their
+    recorded inputs (the built index's codes and valid slots, stage B's
+    tables, the probed cluster ids, k), one row a tier (np 8: M and L, np
+    16: composed H2): each call's values and positions equal to its plain
+    version's; device ms (CUDA events, a call at a time), the profiler's
+    count- and top-k-kernel ms, the plain version's and ``count_sort_ms``
+    (the counts kernel, a stable sort and a slice), and the bound, each
+    summed over the pass's calls."""
+    rows = []
+    for n_probe in sorted({c["cids"].shape[1] for c in calls}):
+        cs = [c for c in calls if c["cids"].shape[1] == n_probe]
+        what = f"hit_count_topk {name} engine pass np={n_probe}"
+
+        def args(c):
+            return c["table"], c["codes"], c["valid"], c["cids"]
+
+        def call(c):
+            return hc.hit_count_topk(*args(c), c["k"], probe_ok=c["probe_ok"])
+
+        def plain(c):
+            v = c["valid"][c["cids"]]
+            if c["probe_ok"] is not None:
+                v = v & c["probe_ok"][..., None]
+            return hc.hit_count_topk_plain(c["table"], c["codes"][c["cids"]],
+                                           v, c["k"])
+
+        def count_sort(c):
+            counts = hc.hit_count(*args(c), probe_ok=c["probe_ok"])
+            v, i = torch.sort(counts.reshape(counts.shape[0], -1), dim=1,
+                              descending=True, stable=True)
+            return v[:, :c["k"]], i[:, :c["k"]]
+
+        n_bytes = n_ops = 0
+        for c in cs:
+            got, want = call(c), plain(c)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{what} Q={c['cids'].shape[0]} "
+                                     f"k={c['k']}: differs from plain")
+            # as check_hit_count_topk: the probed clusters' valid rows and
+            # valid codes, the tables, cids, the (Q, k) outputs
+            rows_ = torch.unique(c["cids"])
+            n_bytes += (rows_.numel() * c["valid"].shape[1]
+                        + int(c["valid"][rows_].sum()) * c["S"]
+                        + c["table"].numel() + c["cids"].numel() * 8
+                        + 12 * c["cids"].shape[0] * c["k"])
+            n_ops += int(c["valid"][c["cids"]].sum()) * c["S"]
+        bnd, by = bound_ms(n_bytes, n_ops)
+
+        def whole_pass():
+            for c in cs:
+                call(c)
+
+        split = {k: kernel_us(whole_pass, kname, reps=5)
+                 for k, kname in (("count", "hit_count_kernel"),
+                                  ("select", "hit_topk_kernel"))}
+        rows.append({
+            "route": "top-k", "tier": "M/L" if n_probe == 8 else "composed H2",
+            "index": name, "shape": "engine pass", "calls": len(cs),
+            "np": n_probe, "S": cs[0]["S"], "max_abs_err": 0.0,
+            "ms": sum(time_ms(lambda c=c: call(c)) for c in cs),
+            "plain_ms": sum(time_ms(lambda c=c: plain(c), reps=5) for c in cs),
+            "count_sort_ms": sum(time_ms(lambda c=c: count_sort(c))
+                                 for c in cs),
+            "library_ms": None,
+            "count_ms": None if split["count"] is None
+            else split["count"] * len(cs) / 1e3,
+            "select_ms": None if split["select"] is None
+            else split["select"] * len(cs) / 1e3,
+            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+            "calls_shape": hit_call_summary(cs)[f"np{n_probe}"]})
+    return rows
+
+
+def save_hit_calls(path: str, calls: list[dict]) -> None:
+    """Write recorded calls, tables included, for ``bench_stage_a.py
+    --hit-count --calls``: the index's codes and valid mask once, then each
+    call's table, cids, k and probe_ok, on the host."""
+    torch.save({"codes": calls[0]["codes"].cpu(),
+                "valid": calls[0]["valid"].cpu(),
+                "calls": [{k: (v.cpu() if torch.is_tensor(v) else v)
+                           for k, v in c.items() if k not in ("codes", "valid")}
+                          for c in calls]}, path)
+
+
 def check_pq_scan(q: int, n_probe: int, p: int, s: int, e: int,
                   n_clusters: int, metric: str, gen) -> dict:
     lut = _lut(q, n_probe, s, e, metric, gen)
@@ -1174,13 +1271,70 @@ class StageACount:
         juno_lib.filter_clusters = self._fn
 
 
+class HitCalls:
+    """Within ``with``: record every ``ops.hit_count_topk_scan`` call the
+    searches make (``core/juno.py`` calls it through ``ops``): the probed
+    cluster ids, k, ``probe_ok`` and the index's codes and valid mask it
+    was given, and with ``tables`` a copy of its hit table, for a replay."""
+
+    def __init__(self, tables: bool = False):
+        self.calls, self._tables = [], tables
+
+    def __enter__(self):
+        self._fn = ops.hit_count_topk_scan
+
+        def recorded(table, codes, valid, cids, k, *, probe_ok=None):
+            self.calls.append(dict(
+                table=table.clone() if self._tables else None, codes=codes,
+                valid=valid, cids=cids.clone(), k=k, S=table.shape[2],
+                probe_ok=None if probe_ok is None else probe_ok.clone()))
+            return self._fn(table, codes, valid, cids, k, probe_ok=probe_ok)
+        ops.hit_count_topk_scan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        ops.hit_count_topk_scan = self._fn
+
+
+def _spread(x: torch.Tensor) -> dict:
+    x = x.float()
+    qs = torch.quantile(x, torch.tensor([0.1, 0.5, 0.9], device=x.device))
+    return {"min": float(x.min()), "p10": float(qs[0]), "p50": float(qs[1]),
+            "p90": float(qs[2]), "max": float(x.max()), "mean": float(x.mean())}
+
+
+def hit_call_summary(calls: list[dict]) -> dict:
+    """The shapes of recorded ``hit_count_topk_scan`` calls and the spread
+    of the valid slots in the clusters they probed (each probe once), beside
+    that of every cluster of the index, by np (8: tiers M and L, 16:
+    composed H2)."""
+    out = {}
+    for n_probe in sorted({c["cids"].shape[1] for c in calls}):
+        cs = [c for c in calls if c["cids"].shape[1] == n_probe]
+        fill = cs[0]["valid"].sum(1)
+        out[f"np{n_probe}"] = {
+            "calls": len(cs), "rows": sum(c["cids"].shape[0] for c in cs),
+            "Q": dict(sorted(collections.Counter(
+                c["cids"].shape[0] for c in cs).items())),
+            "k": sorted({c["k"] for c in cs}), "S": cs[0]["S"],
+            "P": int(cs[0]["valid"].shape[1]),
+            "distinct_clusters_a_call": statistics.mean(
+                int(torch.unique(c["cids"]).numel()) for c in cs),
+            "probed_fill": _spread(torch.cat([fill[c["cids"]].reshape(-1)
+                                              for c in cs])),
+            "index_fill": _spread(fill)}
+    return out
+
+
 def serve_engine(index, queries, stream, *, metric: str, fused: bool,
-                 n_points: int, trace_path: str, rt_grid=None) -> dict:
+                 n_points: int, trace_path: str, rt_grid=None,
+                 record: HitCalls | None = None) -> dict:
     """Warm-up, one pass with the launch counts read, four more timed
     passes and one profiled pass of one engine configuration (with
     ``rt_grid``: ``prefilter="rt"``) over ``index``, a
     ``MutableJunoIndex`` the engines share (its bookkeeping is built
-    once)."""
+    once). The warm-up, the same stream as every pass, records the
+    engine's ``hit_count_topk_scan`` calls (into ``record`` if given)."""
     prefilter = "scan" if rt_grid is None else "rt"
 
     def serve() -> tuple[AnnServeEngine, list, float]:
@@ -1192,7 +1346,9 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
         eng.run()
         return eng, reqs, time.perf_counter() - t
 
-    serve()                                    # warm-up: cuBLAS, allocator
+    record = record or HitCalls()
+    with record:
+        serve()                                # warm-up: cuBLAS, allocator
     stage_a = StageACount()
     _build.reset_launches()
     with stage_a:
@@ -1225,7 +1381,8 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
                            for k, v in eng.stats["signatures"].items()},
             "tiers": sorted({eng.route(r)[1] for r in reqs}),
             "sentinel_results": sentinels, "launches": launches,
-            "stage_a_calls": stage_a.calls}
+            "stage_a_calls": stage_a.calls,
+            "hit_calls": hit_call_summary(record.calls)}
 
 
 def _ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, what: str,
@@ -1700,7 +1857,7 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
 
 
 def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
-                out_dir: str) -> dict:
+                out_dir: str, hit_calls_dir: str | None = None) -> dict:
     t0 = time.perf_counter()
     pts, queries = make_dataset(spec, n_points, 4096, seed=seed)
     t_data = time.perf_counter() - t0
@@ -1732,14 +1889,26 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                                                     stream, spec.metric)
     log(f"grid.{name}", **grid_info)
     engines = {}
+    # the unfused scan engine's calls (tiers M, L and composed H2), tables
+    # kept, are replayed as hit_count rows below
+    replay = HitCalls(tables=True)
     for label, fused, g in (("fused", True, None), ("unfused", False, None),
                             ("rt_fused", True, grid),
                             ("rt_unfused", False, grid)):
         engines[label] = serve_engine(
             mut, queries, stream, metric=spec.metric, fused=fused,
             n_points=n, rt_grid=g,
-            trace_path=os.path.join(out_dir, f"trace_{name}_{label}.json"))
+            trace_path=os.path.join(out_dir, f"trace_{name}_{label}.json"),
+            record=replay if label == "unfused" else None)
         log(f"serve.{name}.{label}", **engines[label])
+    hit_rows = check_hit_count_pass(name, replay.calls)
+    for r in hit_rows:
+        log(f"kernel.hit_count.{name}", **r)
+    if hit_calls_dir:
+        os.makedirs(hit_calls_dir, exist_ok=True)
+        save_hit_calls(os.path.join(hit_calls_dir, f"hit_calls_{name}.pt"),
+                       replay.calls)
+    del replay
 
     cpu_index = index_to(index, "cpu")
     tiers = tier_table(index, cpu_index, queries, pts, spec.metric)
@@ -1760,6 +1929,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
            "grid": grid_info, "sphere_hits": sphere_row,
+           "hit_count_pass": hit_rows,
            "engines": engines, "tiers": tiers,
            "tiers_rt": rt_tiers, "mutate": mutate,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1792,6 +1962,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for the report, ptxas output and traces")
+    ap.add_argument("--hit-calls", metavar="DIR",
+                    help="also write each index's replayed hit_count calls "
+                         "to DIR/hit_calls_<index>.pt (about 1 GB at l2) for "
+                         "bench_stage_a.py --hit-count --calls")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1802,11 +1976,14 @@ def main() -> int:
     phase_build(args.out)
     kernels = phase_kernels(args.seed)
     serves = [phase_serve(name, spec, args.seed, N_POINTS, device["nvidia_smi"],
-                          args.out)
+                          args.out, args.hit_calls)
               for name, spec in (("l2", DEEP_LIKE), ("ip", TTI_LIKE))]
     # the sphere test on each index's own grid leads its rows: that is the
-    # main path's shape (cap is the fullest cell's, known after the build)
+    # main path's shape (cap is the fullest cell's, known after the build);
+    # the hit counts' engine-pass replays follow the synthetic rows
     kernels["kernels"]["sphere_hits"][:0] = [s["sphere_hits"] for s in serves]
+    kernels["kernels"]["hit_count"] += [r for s in serves
+                                        for r in s["hit_count_pass"]]
     line = kernel_line(kernels["kernels"], serves)
     report = {"device": device, **kernels, "serve": serves,
               "seconds": time.perf_counter() - t_start}

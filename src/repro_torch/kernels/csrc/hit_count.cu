@@ -32,8 +32,10 @@
 // Design: the count kernel is the two-stage core's (two_stage.cuh:
 // count_body, one block per (q, probe)): the table staged as two bit planes
 // a subspace (conflict-free lookups), each lane counting its own valid
-// points; for the top-k it also stores each block's histogram of 2S+2 bins
-// (one per count in [-S, S], bin 0 for invalid) whole, so nothing is zeroed.
+// points. It also stores each block's histogram of 2S+2 bins (one per count
+// in [-S, S], bin 0 for invalid) whole, so nothing is zeroed: the top-k
+// reads it, the counts-only entry stores it into a scratch buffer (one form
+// of the kernel for both entries).
 // The top-k kernel (hit_topk_kernel) needs no sort: counts are integers in
 // a few bins, so a point's place in the output is the points of its query
 // in higher bins, plus those of its bin in earlier probes (both from the
@@ -64,7 +66,7 @@ constexpr int kTopkThreads = 256;
 constexpr int kWarps = kTopkThreads / 32;
 constexpr int kBatch = 16;  // counts a lane loads before it uses one
 
-template <int kS, bool kHist>
+template <int kS>
 __global__ void __launch_bounds__(two_stage::kCountThreads, 4)
 hit_count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
                  const uint8_t* __restrict__ codes,   // (n_cl, P, S)
@@ -72,12 +74,12 @@ hit_count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
                  const int64_t* __restrict__ cids,    // (Q*np)
                  const uint8_t* probe_ok,             // (Q*np) or null
                  int32_t* __restrict__ counts,        // (Q*np, P)
-                 int32_t* __restrict__ hist,          // (Q*np, 2S+2) with kHist
+                 int32_t* __restrict__ hist,          // (Q*np, 2S+2)
                  int n_probe, int P, int S, int E) {
   const two_stage::SphereTest none{};
-  two_stage::count_body<false, kS, false, kHist>(table, codes, valid, cids, none,
-                                                 const_cast<uint8_t*>(probe_ok), counts,
-                                                 hist, nullptr, n_probe, P, S, E, 0.f);
+  two_stage::count_body<false, kS, false>(table, codes, valid, cids, none,
+                                          const_cast<uint8_t*>(probe_ok), counts, hist,
+                                          nullptr, n_probe, P, S, E, 0.f);
 }
 
 // A count's bin: 0 for the invalid sentinel, count + S + 1 otherwise.
@@ -222,48 +224,37 @@ hit_topk_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
   }
 }
 
-template <int kS, bool kHist>
+// The count kernel, compiled for the S of the repo's two configurations as
+// the two-stage core is (two_stage::with_compiled_s).
 int launch_count(const void* table, const void* codes, const void* valid, const void* cids,
                  const void* probe_ok, void* counts, void* hist, int Q, int n_probe, int P,
                  int S, int E, cudaStream_t st) {
-  const size_t smem = two_stage::count_smem(S);
-  const int err = scan::allow_smem(hit_count_kernel<kS, kHist>, smem);
-  if (err) return err;
-  hit_count_kernel<kS, kHist><<<(unsigned)(Q * n_probe), two_stage::kCountThreads, smem, st>>>(
-      (const int8_t*)table, (const uint8_t*)codes, (const uint8_t*)valid,
-      (const int64_t*)cids, (const uint8_t*)probe_ok, (int32_t*)counts, (int32_t*)hist,
-      n_probe, P, S, E);
-  return (int)cudaGetLastError();
-}
-
-// The count kernel, compiled for the S of the repo's two configurations
-// (48, 100) as the two-stage core is, and for any S.
-template <bool kHist>
-int launch_count_s(const void* table, const void* codes, const void* valid, const void* cids,
-                   const void* probe_ok, void* counts, void* hist, int Q, int n_probe, int P,
-                   int S, int E, cudaStream_t st) {
-  if (S == 48)
-    return launch_count<48, kHist>(table, codes, valid, cids, probe_ok, counts, hist, Q,
-                                   n_probe, P, S, E, st);
-  if (S == 100)
-    return launch_count<100, kHist>(table, codes, valid, cids, probe_ok, counts, hist, Q,
-                                    n_probe, P, S, E, st);
-  return launch_count<0, kHist>(table, codes, valid, cids, probe_ok, counts, hist, Q,
-                                n_probe, P, S, E, st);
+  return two_stage::with_compiled_s(S, [&](auto ks) {
+    constexpr int kS = decltype(ks)::value;
+    const size_t smem = two_stage::count_smem(S);
+    const int err = scan::allow_smem(hit_count_kernel<kS>, smem);
+    if (err) return err;
+    hit_count_kernel<kS><<<(unsigned)(Q * n_probe), two_stage::kCountThreads, smem, st>>>(
+        (const int8_t*)table, (const uint8_t*)codes, (const uint8_t*)valid,
+        (const int64_t*)cids, (const uint8_t*)probe_ok, (int32_t*)counts, (int32_t*)hist,
+        n_probe, P, S, E);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // table: (Q, np, S, E) int8 in {-1, 0, +1}; codes: (n_cl, P, S) uint8;
 // valid: (n_cl, P) bool; cids: (Q, np) int64 cluster ids; probe_ok: (Q, np)
-// bool or null; out: (Q, np, P) int32, written. One kernel.
+// bool or null; out: (Q, np, P) int32, written; hist (Q, np, 2S+2) int32,
+// scratch that the count kernel writes whole. One kernel.
 extern "C" int hit_count_launch(const void* table, const void* codes,
                                 const void* valid, const void* cids,
-                                const void* probe_ok, void* out,
+                                const void* probe_ok, void* out, void* hist,
                                 int Q, int n_probe, int P, int S, int E,
                                 void* stream) {
-  return launch_count_s<false>(table, codes, valid, cids, probe_ok, out, nullptr, Q, n_probe,
-                               P, S, E, (cudaStream_t)stream);
+  return launch_count(table, codes, valid, cids, probe_ok, out, hist, Q, n_probe, P, S, E,
+                      (cudaStream_t)stream);
 }
 
 // The same inputs and 1 <= k <= np*P; counts (Q, np, P) and hist
@@ -275,8 +266,8 @@ extern "C" int hit_count_topk_launch(const void* table, const void* codes,
                                      void* vals, void* pos, int Q, int n_probe, int P,
                                      int S, int E, int k, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_count_s<true>(table, codes, valid, cids, probe_ok, counts, hist, Q,
-                                 n_probe, P, S, E, st);
+  int err = launch_count(table, codes, valid, cids, probe_ok, counts, hist, Q, n_probe, P, S,
+                         E, st);
   if (err) return err;
   const size_t smem = topk_smem(S);
   err = scan::allow_smem(hit_topk_kernel, smem);

@@ -76,6 +76,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "scan_common.cuh"
 #include "sphere.cuh"
 
@@ -269,11 +271,9 @@ inline size_t count_smem(int S) {
   return (size_t)S * kPlaneBytes + (size_t)(2 * S + 2) * sizeof(int);
 }
 
-// The count kernel's body, which hit_count.cu's kernels share: kDist writes
-// a pruned probe's dist (the fused scans'; hit_count has none), kHist keeps
-// and stores the block's histogram (hit_count's counts-only form has no use
-// for it).
-template <bool kSphere, int kS, bool kDist, bool kHist>
+// The count kernel's body, which hit_count.cu's kernel shares: kDist writes
+// a pruned probe's dist (the fused scans'; hit_count has none).
+template <bool kSphere, int kS, bool kDist>
 __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
                                            const uint8_t* __restrict__ codes,
                                            const uint8_t* __restrict__ valid,
@@ -307,8 +307,7 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
     }
     s_keep = keep;
   }
-  if constexpr (kHist)
-    for (int i = threadIdx.x; i < nbins; i += kCountThreads) h[i] = 0;
+  for (int i = threadIdx.x; i < nbins; i += kCountThreads) h[i] = 0;
   __syncthreads();
   int32_t* out = counts + qp * P;
   if (!s_keep) {   // pruned: every point invalid, no table or code read
@@ -316,9 +315,8 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
       out[p] = kNeg;
       if constexpr (kDist) dist[qp * P + p] = bad;
     }
-    if constexpr (kHist)
-      for (int i = threadIdx.x; i < nbins; i += kCountThreads)
-        hist[qp * nbins + i] = i == 0 ? P : 0;
+    for (int i = threadIdx.x; i < nbins; i += kCountThreads)
+      hist[qp * nbins + i] = i == 0 ? P : 0;
     return;
   }
   const uint8_t* crow = codes + cid * (int64_t)P * S;
@@ -351,10 +349,8 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
         ++n_invalid;
       }
     }
-    if constexpr (kHist) {
-      n_invalid = __reduce_add_sync(0xffffffffu, n_invalid);
-      if (lane == 0 && n_invalid) atomicAdd(&h[0], n_invalid);
-    }
+    n_invalid = __reduce_add_sync(0xffffffffu, n_invalid);
+    if (lane == 0 && n_invalid) atomicAdd(&h[0], n_invalid);
     // each lane counts its next valid point a step, so a warp takes as many
     // steps as its lane with the most: 4 where a quarter of the slots are
     // valid and packed at the front of the cluster, as a built index has
@@ -369,16 +365,12 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
         out[c0 + i] = cnt;
         bin = cnt + S + 1;   // in [1, 2S+1]: entries are read by sign
       }
-      if constexpr (kHist) {
-        const unsigned peers = __match_any_sync(0xffffffffu, bin);
-        if (bin >= 0 && lane == (unsigned)(__ffs(peers) - 1)) atomicAdd(&h[bin], __popc(peers));
-      }
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      if (bin >= 0 && lane == (unsigned)(__ffs(peers) - 1)) atomicAdd(&h[bin], __popc(peers));
     }
   }
-  if constexpr (kHist) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < nbins; i += kCountThreads) hist[qp * nbins + i] = h[i];
-  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nbins; i += kCountThreads) hist[qp * nbins + i] = h[i];
 }
 
 template <bool kSphere, int kS>
@@ -393,8 +385,8 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
              int32_t* __restrict__ hist,          // (Q*np, 2S+2)
              float* __restrict__ dist,            // (Q*np, P): pruned probes only
              int n_probe, int P, int S, int E, float bad) {
-  count_body<kSphere, kS, true, true>(table, codes, valid, cids, sph, probe_ok, counts, hist,
-                                      dist, n_probe, P, S, E, bad);
+  count_body<kSphere, kS, true>(table, codes, valid, cids, sph, probe_ok, counts, hist, dist,
+                                n_probe, P, S, E, bad);
 }
 
 // Per bin b, from the query's np stored histograms hq (np, nbins): tot[b]
@@ -704,6 +696,17 @@ inline int launch_s(const void* lut, const void* table, const void* codes,
   return (int)cudaGetLastError();
 }
 
+// The one place that decides which S get kernels of their own: f(kS) with
+// kS = std::integral_constant<int, S> for the S of the repo's two
+// configurations (48, 100), and <int, 0> (any S) otherwise. Every launcher
+// of the count kernel (launch below, hit_count.cu) dispatches through it.
+template <class F>
+inline int with_compiled_s(int S, F&& f) {
+  if (S == 48) return f(std::integral_constant<int, 48>{});
+  if (S == 100) return f(std::integral_constant<int, 100>{});
+  return f(std::integral_constant<int, 0>{});
+}
+
 // Both kernels on one stream, compiled for the S given when it is one the
 // engines use. hist is (Q*np, 2S+2) int32 scratch that the count kernel
 // writes whole (no zeroing); the other outputs are written. Returns the
@@ -714,17 +717,12 @@ inline int launch(const void* lut, const void* table, const void* codes,
                   void* probe_ok, void* counts, void* dist, void* cand,
                   void* cand_dist, void* hist, int Q, int n_probe, int P, int S,
                   int E, int C, float bad, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (S == 48)
-    return launch_s<kSphere, 48>(lut, table, codes, valid, cids, sph, probe_ok, counts,
-                                 dist, cand, cand_dist, hist, Q, n_probe, P, S, E, C,
-                                 bad, st);
-  if (S == 100)
-    return launch_s<kSphere, 100>(lut, table, codes, valid, cids, sph, probe_ok, counts,
-                                  dist, cand, cand_dist, hist, Q, n_probe, P, S, E, C,
-                                  bad, st);
-  return launch_s<kSphere, 0>(lut, table, codes, valid, cids, sph, probe_ok, counts, dist,
-                              cand, cand_dist, hist, Q, n_probe, P, S, E, C, bad, st);
+  return with_compiled_s(S, [&](auto ks) {
+    return launch_s<kSphere, decltype(ks)::value>(lut, table, codes, valid, cids, sph,
+                                                  probe_ok, counts, dist, cand, cand_dist,
+                                                  hist, Q, n_probe, P, S, E, C, bad,
+                                                  (cudaStream_t)stream);
+  });
 }
 
 }  // namespace two_stage

@@ -75,13 +75,15 @@ def hit_count(table: torch.Tensor, cluster_codes: torch.Tensor,
     probe_ok (Q, np) bool or ``None`` (every probe kept). Returns what
     :func:`hit_count_plain` returns for ``codes = cluster_codes[cids]``,
     ``valid = cluster_valid[cids] & probe_ok[..., None]``. One kernel a
-    call; counts one launch in ``_build.LAUNCHES["hit_count"]``.
+    call, the top-k route's count kernel (its histograms go to a scratch
+    buffer); counts one launch in ``_build.LAUNCHES["hit_count"]``.
     """
     ptrs, (q, n_probe, p, s, e), dev = _check_args(
         table, cluster_codes, cluster_valid, cids, probe_ok)
     out = torch.empty((q, n_probe, p), dtype=torch.int32, device=dev)
-    rc = _launcher()(*ptrs, out.data_ptr(), q, n_probe, p, s, e,
-                     _build.stream_ptr(dev))
+    hist = torch.empty((q, n_probe, 2 * s + 2), dtype=torch.int32, device=dev)
+    rc = _launcher()(*ptrs, out.data_ptr(), hist.data_ptr(), q, n_probe, p,
+                     s, e, _build.stream_ptr(dev))
     _build.check(rc, "hit_count")
     _build.LAUNCHES["hit_count"] += 1
     return out
@@ -98,7 +100,8 @@ def hit_count_topk(table: torch.Tensor, cluster_codes: torch.Tensor,
     (values (Q, k) f32, positions (Q, k) int64) in (count desc, position
     asc) order. Two kernels a call and nothing else on the stream (the
     counts and histograms are scratch that the count kernel writes whole);
-    counts one launch in ``_build.LAUNCHES["hit_count"]``.
+    counts one launch in ``_build.LAUNCHES["hit_count"]``, so that count is
+    of calls: two kernels each.
     """
     ptrs, (q, n_probe, p, s, e), dev = _check_args(
         table, cluster_codes, cluster_valid, cids, probe_ok)
@@ -120,7 +123,7 @@ def hit_count_topk(table: torch.Tensor, cluster_codes: torch.Tensor,
 def _launcher():
     fn = _build.library("hit_count").hit_count_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    fn.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     fn.restype = ci
     return fn
 
