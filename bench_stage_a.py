@@ -6,6 +6,7 @@
     python3 bench_stage_a.py --stage-c [--src DIR] [--label NAME]
     python3 bench_stage_a.py --hit-count [--src DIR] [--label NAME]
     python3 bench_stage_a.py --hit-count --calls FILE [--src DIR] [--label NAME]
+    python3 bench_stage_a.py --pq-scan [--calls FILE] [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
     python3 bench_stage_a.py --traces TRACE.json.gz ...
@@ -84,6 +85,28 @@ histogram bin), the valid slots packed at the front of each cluster with
 valid slots capped at the 90th percentile of the probed clusters' fill (its
 fullest clusters cut down, the rest as built); every row also with the
 count kernel's µs a launch by batch size.
+
+With ``--pq-scan`` it times tier H's scan instead, for the tree of
+``--src`` (two trees in turns as above): the scores-only
+``ops.masked_adc_scan`` and the top-k route, ``ops.masked_adc_topk_scan``
+where the tree has it, else the route before it (the scores, the offset
+add, a stable sort, a slice), over the rows of ``chip_smoke.py`` phase 3
+(np 16, P = 3912, E = 256, 1024 clusters; l2 S = 48 and ip S = 100 with
+stage A's offset; k 100 and 10; Q 128, 32 and 8; a quarter of the slots
+valid at random, packed at the front of each cluster, or 0.1% valid
+(fewer than k = 100 a query at np 16); an
+integer-valued LUT, so that exact ties cross probes; every probe but 0
+pruned; and, as a yardstick of the LUT loads' bank conflicts, Q 128
+rows whose codes have the reading lane as their low 5 bits, so that no
+load conflicts). Each row has ``device_ms`` (CUDA events), the profiler's mean
+``scan_us`` (``pq_scan_kernel``), ``topk_us`` (``pq_topk_kernel``) and
+``merge_us`` (``pq_merge_kernel``) a launch, ``sort_us`` (every sort kernel
+of a call), ``kernels`` a call and a hash of the outputs, so that two
+trees' outputs can be seen to be bit-equal. With ``--calls FILE`` it
+replays instead the tier-H calls of one pass of the unfused scan engine
+that ``chip_smoke.py --hit-calls`` recorded (``pq_calls_<index>.pt``),
+through the top-k route and the scores-only kernel: the kernels' ms over
+the pass by kind, kernels a pass, the summed device ms and a hash.
 
 With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
 instead (this tree only), over a sweep of shapes, nprobe and D: besides
@@ -581,6 +604,181 @@ def hit_count_calls(card: str, label: str, reps: int, path: str) -> None:
         torch.cuda.empty_cache()
 
 
+_PQ_KINDS = {"scan_us": ("pq_scan_kernel",), "topk_us": ("pq_topk_kernel",),
+             "merge_us": ("pq_merge_kernel",), "sort_us": ("ort",)}
+
+
+def _pq_route(ops, lut, codes, valid, cids, k, metric, probe_ok=None,
+              base=None):
+    """Tier H's top-k as this tree runs it: ``ops.masked_adc_topk_scan``
+    where the tree has it, else the route before it (the scores, the
+    offset add, a stable sort of the negated (l2) or plain (ip) scores, a
+    slice). Returns (the call, the route's name)."""
+    if hasattr(ops, "masked_adc_topk_scan"):
+        return (lambda: ops.masked_adc_topk_scan(
+            lut, codes, valid, cids, k, metric=metric, probe_ok=probe_ok,
+            probe_base=base), "select + merge kernels")
+
+    def fn():
+        sc = ops.masked_adc_scan(lut, codes, valid, cids, metric=metric,
+                                 probe_ok=probe_ok)
+        if base is not None:
+            sc = sc + base[..., None]
+        sc = sc.reshape(sc.shape[0], -1)
+        vals, pos = torch.sort(sc if metric == "ip" else -sc, dim=1,
+                               descending=True, stable=True)
+        vals = vals[:, :k]
+        return (vals if metric == "ip" else -vals), pos[:, :k]
+    return fn, "scores kernel + add + sort(stable) + slice"
+
+
+def _pq_row(fn, reps: int) -> dict:
+    """Device ms, the kernels' µs by kind (the sorts summed over a call),
+    kernels a call and a hash of the outputs of one tier-H call."""
+    outs = fn()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    us, n, n_kernels = kernel_split(fn, reps, _PQ_KINDS)
+    if us["sort_us"] is not None:
+        us["sort_us"] *= n["sort_us"]
+    return {"device_ms": device_ms(fn, reps), **us, "kernels": n_kernels,
+            "hash": _digest(outs, ("values", "positions")
+                            if len(outs) == 2 else ("scores",))}
+
+
+def pq_scan_rows(card: str, label: str, reps: int) -> None:
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_probe, p, e, n_clusters = 16, 3912, 256, 1024
+    # (Q, valid layout, LUT kind, probe-0 only, k values) a metric
+    configs = {"l2": [(128, "random", "random", False, (100, 10)),
+                      (32, "random", "random", False, (100,)),
+                      (8, "random", "random", False, (100,)),
+                      (128, "packed", "random", False, (100,)),
+                      (128, "few", "random", False, (100,)),
+                      (128, "random", "integer", False, (100,)),
+                      (128, "random", "random", True, (100,))],
+               "ip": [(128, "random", "random", False, (100, 10)),
+                      (32, "random", "random", False, (100,)),
+                      (8, "random", "random", False, (100,)),
+                      (128, "packed", "random", False, (100,)),
+                      (128, "random", "integer", False, (100,))]}
+    for metric, s in (("l2", 48), ("ip", 100)):
+        codes = torch.randint(0, e, (n_clusters, p, s), generator=gen,
+                              device=dev, dtype=torch.uint8)
+        fill = torch.randint(700, 1255, (n_clusters, 1), generator=gen,
+                             device=dev)
+        u = torch.rand((n_clusters, p), generator=gen, device=dev)
+        valids = {"random": u < 0.25, "few": u < 0.001,
+                  "packed": torch.arange(p, device=dev)[None, :] < fill}
+        for q, layout, lut_kind, pruned, ks in configs[metric]:
+            shp = (q, n_probe, s, e)
+            if lut_kind == "integer":
+                lut = torch.randint(0, 3, shp, generator=gen,
+                                    device=dev).float()
+            elif metric == "l2":
+                lut = torch.rand(shp, generator=gen, device=dev) * 4.0
+            else:
+                lut = torch.randn(shp, generator=gen, device=dev)
+            base = (torch.randn((q, n_probe), generator=gen, device=dev)
+                    if metric == "ip" else None)
+            cids = torch.stack([torch.randperm(n_clusters, generator=gen,
+                                               device=dev)[:n_probe]
+                                for _ in range(q)])
+            pok = None
+            if pruned:
+                pok = torch.zeros((q, n_probe), dtype=torch.bool, device=dev)
+                pok[:, 0] = True
+            v = valids[layout]
+            info = {"label": label, "metric": metric, "Q": q, "np": n_probe,
+                    "P": p, "S": s, "E": e, "valid": layout, "lut": lut_kind,
+                    "pruned": pruned, "card": card}
+            scores = lambda lut=lut, v=v, cids=cids, pok=pok: \
+                ops.masked_adc_scan(lut, codes, v, cids, metric=metric,
+                                    probe_ok=pok)
+            print(json.dumps({"what": "scores", "route": "scores kernel",
+                              **info, **_pq_row(scores, reps)}), flush=True)
+            for k in ks:
+                fn, route = _pq_route(ops, lut, codes, v, cids, k, metric,
+                                      pok, base)
+                print(json.dumps({"what": "top-k", "route": route, "k": k,
+                                  **info, **_pq_row(fn, reps)}), flush=True)
+            del lut, cids
+        # codes whose low 5 bits are the lane that reads them (point p's
+        # lane is p mod 32): no shared-memory load conflicts on the LUT, a
+        # yardstick of what the conflicts of random codes cost
+        spread = (torch.randint(0, 8, (n_clusters, p, s), generator=gen,
+                                device=dev) * 32
+                  + torch.arange(p, device=dev)[None, :, None] % 32
+                  ).to(torch.uint8)
+        q = 128
+        lut = (torch.rand((q, n_probe, s, e), generator=gen, device=dev) * 4.0
+               if metric == "l2"
+               else torch.randn((q, n_probe, s, e), generator=gen, device=dev))
+        base = (torch.randn((q, n_probe), generator=gen, device=dev)
+                if metric == "ip" else None)
+        cids = torch.stack([torch.randperm(n_clusters, generator=gen,
+                                           device=dev)[:n_probe]
+                            for _ in range(q)])
+        for layout in ("random", "packed"):
+            v = valids[layout]
+            info = {"label": label, "metric": metric, "Q": q, "np": n_probe,
+                    "P": p, "S": s, "E": e, "valid": layout, "lut": "random",
+                    "codes": "bank-spread", "pruned": False, "card": card}
+            scores = lambda v=v: ops.masked_adc_scan(lut, spread, v, cids,
+                                                     metric=metric)
+            print(json.dumps({"what": "scores", "route": "scores kernel",
+                              **info, **_pq_row(scores, reps)}), flush=True)
+            fn, route = _pq_route(ops, lut, spread, v, cids, 100, metric,
+                                  None, base)
+            print(json.dumps({"what": "top-k", "route": route, "k": 100,
+                              **info, **_pq_row(fn, reps)}), flush=True)
+        del codes, valids, spread, lut
+        torch.cuda.empty_cache()
+
+
+def pq_scan_calls(card: str, label: str, reps: int, path: str) -> None:
+    """Replay one engine pass's recorded ``masked_adc_topk_scan`` calls
+    (``chip_smoke.py --hit-calls``, tier H of the unfused scan engine)
+    through this tree's tier-H route, and its scores-only kernel alone:
+    the kernels' ms over the pass by kind, kernels a pass, the summed
+    device ms of the calls and a hash of every output."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    rec = torch.load(path)
+    codes, valid = rec["codes"].to(dev), rec["valid"].to(dev)
+    calls = [{k: (v.to(dev) if torch.is_tensor(v) else v)
+              for k, v in c.items()} for c in rec["calls"]]
+    fns = {"top-k": [_pq_route(ops, c["lut"], codes, valid, c["cids"],
+                               c["k"], c["metric"], c["probe_ok"],
+                               c["probe_base"]) for c in calls],
+           "scores": [(lambda c=c: ops.masked_adc_scan(
+               c["lut"], codes, valid, c["cids"], metric=c["metric"],
+               probe_ok=c["probe_ok"]), "scores kernel") for c in calls]}
+    for what, pairs in fns.items():
+        def whole(pairs=pairs):
+            return [fn() for fn, _ in pairs]
+        us, n, n_kernels = kernel_split(whole, 5, _PQ_KINDS)
+        outs = [t for o in whole() for t in
+                (o if isinstance(o, tuple) else (o,))]
+        print(json.dumps({
+            "label": label, "what": what, "tier": "H", "route": pairs[0][1],
+            "calls": len(calls), "np": calls[0]["cids"].shape[1],
+            "Q": dict(collections.Counter(c["cids"].shape[0] for c in calls)),
+            "k": sorted({c["k"] for c in calls}),
+            # kernel ms over the pass, by kind
+            **{k.replace("_us", "_ms_pass"):
+               None if us[k] is None else us[k] * n[k] / 1e3
+               for k in _PQ_KINDS},
+            "kernels_a_pass": n_kernels,
+            "device_ms_pass": sum(device_ms(fn, reps) for fn, _ in pairs),
+            "hash": _digest([torch.cat([o.reshape(-1).float()
+                                        for o in outs])], ("outputs",)),
+            "card": card}), flush=True)
+        del outs
+    torch.cuda.empty_cache()
+
+
 #: where each phase's stamp goes in the kernel source: (anchor, stamp
 #: inserted before it); phase k ends at stamp k
 _PHASES = (
@@ -666,7 +864,8 @@ _KINDS = (("stage A (ivf_filter)", "ivf_filter"),
           ("other sorts", "ort"), ("stage B (selective_lut)", "selective_lut"),
           ("hit_count", "hit_count_kernel"), ("hit_count top-k", "hit_topk_kernel"),
           ("two-stage count", "count_kernel"), ("two-stage select", "select_kernel"),
-          ("pq_scan", "pq_scan"))
+          ("pq_scan", "pq_scan"), ("pq_scan top-k select", "pq_topk_kernel"),
+          ("pq_scan top-k merge", "pq_merge_kernel"))
 
 
 def trace_kinds(paths: list[str]) -> None:
@@ -698,9 +897,13 @@ def main() -> int:
     ap.add_argument("--hit-count", action="store_true",
                     help="time tiers M/L and composed H2's hit-count scan "
                          "of this tree instead")
+    ap.add_argument("--pq-scan", action="store_true",
+                    help="time tier H's scan and its top-k of this tree "
+                         "instead")
     ap.add_argument("--calls", metavar="FILE",
-                    help="with --hit-count: replay the engine calls that "
-                         "chip_smoke.py --hit-calls wrote instead")
+                    help="with --hit-count or --pq-scan: replay the engine "
+                         "calls that chip_smoke.py --hit-calls wrote "
+                         "instead")
     ap.add_argument("--kernels", action="store_true",
                     help="sweep the ivf_filter kernel's epilogues instead")
     ap.add_argument("--phases", action="store_true",
@@ -734,6 +937,12 @@ def main() -> int:
             hit_count_calls(card, args.label, args.reps, args.calls)
         else:
             hit_count_rows(card, args.label, args.reps)
+        return 0
+    if args.pq_scan:
+        if args.calls:
+            pq_scan_calls(card, args.label, args.reps, args.calls)
+        else:
+            pq_scan_rows(card, args.label, args.reps)
         return 0
     if args.kernels:
         kernel_sweep(card, args.reps)

@@ -47,7 +47,18 @@ Phases, each raising on failure:
    the profiler's count- and top-k-kernel time, ``count_sort_ms`` (the
    counts kernel, a stable sort and a slice: the route before the top-k
    kernel) and two kernels a call by capture; then its counts-only kernel
-   at the three shapes of earlier runs, one kernel a call;
+   at the three shapes of earlier runs, one kernel a call; ``pq_scan``'s
+   top-k route, which tier H runs (values and positions bit-equal to a
+   stable sort of the scores-only kernel's own output plus stage A's
+   offset, and within 1e-5 of plain with positions equal up to ties), at
+   np 16 with k 100 and 10, l2 S = 48 and ip S = 100 (with the offset), Q
+   128, 32 and 8, scattered, packed and few valid slots, an integer LUT
+   (exact ties across probes) and every probe but 0 pruned, each with the
+   profiler's select- and merge-kernel time, ``scan_sort_ms`` (the scores
+   kernel, the add, a stable sort and a slice: the route before the top-k
+   kernels), the library's ``embedding_bag`` + sort + slice and two
+   kernels a call by capture; then its scores-only kernel at the two
+   shapes of earlier runs, one kernel a call;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``
    against its plain version on that grid, the main path's ``cap``, and the
@@ -59,10 +70,15 @@ Phases, each raising on failure:
    QPS, latency, signatures, the profiled pass's sort launches and
    the other sorts' device ms, and the ``hit_count_topk_scan`` calls of
    its warm-up pass (batch sizes, np, k, and the valid slots of the
-   clusters they probed beside every cluster's); the unfused scan engine's
-   calls replayed as ``hit_count`` rows (every call equal to its plain
-   version; device ms, count- and top-k-kernel ms, ``count_sort_ms`` and
-   the bound, summed over the pass); then
+   clusters they probed beside every cluster's), and its
+   ``masked_adc_topk_scan`` calls (tier H) likewise (``pq_calls``); no
+   pass may spend 1 ms on sorts other than ``radixSortKVInPlace``; the
+   unfused scan engine's calls replayed as ``hit_count`` rows (every call
+   equal to its plain version; device ms, count- and top-k-kernel ms,
+   ``count_sort_ms`` and the bound, summed over the pass) and as a
+   ``pq_scan`` row (every call bit-equal to the route before the top-k
+   kernels and close to plain; device ms, select- and merge-kernel ms,
+   ``scan_sort_ms`` and the bound, summed over the pass); then
    per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
    three-stage kernel)
    recall@10-in-100 against ``exact_topk`` and QPS, composed H2 against
@@ -90,14 +106,16 @@ Phases, each raising on failure:
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes and the ``mutate`` rounds: a
    ``hit_count`` call on the top-k route, which every engine takes, is two
-   kernels (count, then top-k).
+   kernels (count, then top-k), and so is a ``pq_scan`` call on its top-k
+   route, which every unfused engine takes for tier H (select, then
+   merge); the line says so (``launches_are``).
 
 It needs a CUDA card and the repo's ``src/``; without either it exits
 non-zero before printing any result. Detailed numbers (``chip_smoke.json``),
 the compiler's register report and the profiler traces go to ``--out``
 (default ``build/chip_smoke/``); with ``--hit-calls DIR`` the replayed
-``hit_count`` calls, their inputs included, go to DIR for
-``bench_stage_a.py --hit-count --calls``.
+``hit_count`` and ``pq_scan`` calls, their inputs included, go to DIR for
+``bench_stage_a.py --hit-count --calls`` and ``--pq-scan --calls``.
 """
 from __future__ import annotations
 
@@ -181,6 +199,13 @@ ENGINE_KERNELS = {
     ("rt", False): {"ivf_filter", "selective_lut", "sphere_hits", "pq_scan",
                     "hit_count"},
 }
+# the kernels whose ``launches`` count wrapper calls of several kernels
+CALL_LAUNCHES = {
+    "pq_scan": "wrapper calls; each top-k call (every call of the main "
+               "path) is two kernels: pq_topk_kernel, then pq_merge_kernel",
+    "hit_count": "wrapper calls; each top-k call (every call of the main "
+                 "path) is two kernels: hit_count_kernel, then "
+                 "hit_topk_kernel"}
 # the tiers whose recall and QPS are read, as search() arguments (k=100);
 # under prefilter="rt" fused H2 runs the three-stage kernel
 TIERS = {
@@ -778,19 +803,10 @@ def check_hit_count_pass(name: str, calls: list[dict]) -> list[dict]:
     return rows
 
 
-def save_hit_calls(path: str, calls: list[dict]) -> None:
-    """Write recorded calls, tables included, for ``bench_stage_a.py
-    --hit-count --calls``: the index's codes and valid mask once, then each
-    call's table, cids, k and probe_ok, on the host."""
-    torch.save({"codes": calls[0]["codes"].cpu(),
-                "valid": calls[0]["valid"].cpu(),
-                "calls": [{k: (v.cpu() if torch.is_tensor(v) else v)
-                           for k, v in c.items() if k not in ("codes", "valid")}
-                          for c in calls]}, path)
-
-
 def check_pq_scan(q: int, n_probe: int, p: int, s: int, e: int,
                   n_clusters: int, metric: str, gen) -> dict:
+    """The scores-only ``pq_scan`` kernel against its plain version, timed
+    beside it and the ``embedding_bag`` yardstick; one kernel a call."""
     lut = _lut(q, n_probe, s, e, metric, gen)
     codes, valid, cids, need = _scan_index(q, n_probe, p, s, e, n_clusters,
                                            gen)
@@ -808,16 +824,264 @@ def check_pq_scan(q: int, n_probe: int, p: int, s: int, e: int,
     n_bytes = need["index_bytes"] + 4 * lut.numel() + cids.numel() * 8 \
         + 4 * got.numel()
     bnd, by = bound_ms(n_bytes, int(valid[cids].sum()) * s)
-    out = {"metric": metric, "Q": q, "np": n_probe, "P": p, "S": s, "E": e,
-           "max_abs_err": err,
-           "ms": time_ms(lambda: pqs.pq_scan(lut, codes, valid, cids,
-                                             metric=metric)),
+
+    def call():
+        return pqs.pq_scan(lut, codes, valid, cids, metric=metric)
+
+    out = {"route": "scores", "metric": metric, "Q": q, "np": n_probe,
+           "P": p, "S": s, "E": e, "max_abs_err": err, "ms": time_ms(call),
            "plain_ms": time_ms(lambda: pqs.pq_scan_plain(
                lut, codes[cids], valid[cids], metric=metric)),
            "library_ms": time_ms(lib),
+           "scan_us": kernel_us(call, "pq_scan_kernel"),
+           "kernels_a_call": _hit_kernels(
+               lambda: ops.masked_adc_scan(lut, codes, valid, cids,
+                                           metric=metric),
+               ("pq_scan_kernel",), what),
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes, **need}
     del lib
     return out
+
+
+def _pq_topk_close(got: tuple, own: tuple, plain: torch.Tensor,
+                   scale: torch.Tensor, k: int, metric: str,
+                   what: str) -> float:
+    """Hold the top-k route's (values, positions) to ``own``, the stable
+    sort of the scores-only kernel's output plus the offset (bit-equal,
+    sign bits too), and to the plain (Q, np·P) scores ``plain`` (each
+    value within ``RTOL`` of ``scale``, the sum of its terms' magnitudes
+    plus |offset|, of plain's value at the same place and of plain's score
+    at its own position: positions differ from plain's only inside ties;
+    the ±inf places equal). Returns the largest difference from plain."""
+    if not (torch.equal(got[0], own[0]) and torch.equal(got[1], own[1])
+            and torch.equal(torch.signbit(got[0]), torch.signbit(own[0]))):
+        raise AssertionError(
+            f"{what}: {int((got[1] != own[1]).sum())} positions and "
+            f"{int((got[0] != own[0]).sum())} values differ from the stable "
+            f"sort of the scores kernel's own output")
+    want = pqs._sorted_top(plain, k, metric)
+    fin = torch.isfinite(want[0])
+    if not (torch.equal(torch.isfinite(got[0]), fin)
+            and torch.equal(got[0][~fin], want[0][~fin])
+            and torch.equal(got[1][~fin], want[1][~fin])):
+        raise AssertionError(f"{what}: ±inf places differ from plain")
+    tol = RTOL * torch.maximum(torch.gather(scale, 1, got[1]),
+                               torch.gather(scale, 1, want[1]))
+    err = (got[0] - want[0]).abs()
+    err_own = (got[0] - torch.gather(plain, 1, got[1])).abs()
+    if (err[fin] > tol[fin]).any() or (err_own[fin] > tol[fin]).any():
+        raise AssertionError(f"{what}: values beyond rtol {RTOL} of plain, "
+                             f"or positions that differ outside ties")
+    return float(err[fin].max()) if fin.any() else 0.0
+
+
+def _scan_sort(lut, codes, valid, cids, k, metric, probe_ok=None,
+               base=None):
+    """The route tier H took before the top-k kernels: this tree's scores
+    kernel, the offset add, a stable sort of each query's np·P scores and
+    a slice. Returns the call."""
+    def call():
+        sc = pqs.pq_scan(lut, codes, valid, cids, metric=metric,
+                         probe_ok=probe_ok)
+        if base is not None:
+            sc = sc + base[..., None]
+        return pqs._sorted_top(sc.reshape(sc.shape[0], -1), k, metric)
+    return call
+
+
+def _pq_plain(lut, codes, valid, cids, probe_ok, base, metric):
+    """The plain (Q, np·P) scores (plus the offset) and the sums of their
+    terms' magnitudes (plus |offset|) of one call."""
+    q = lut.shape[0]
+    v = valid[cids] if probe_ok is None else valid[cids] & probe_ok[..., None]
+    plain = pqs.pq_scan_plain(lut, codes[cids], v, metric=metric)
+    scale = pqs.pq_scan_plain(lut.abs(), codes[cids], v)
+    if base is not None:
+        plain = plain + base[..., None]
+        scale = scale + base.abs()[..., None]
+    return plain.reshape(q, -1), scale.reshape(q, -1)
+
+
+def check_pq_scan_topk(q: int, n_probe: int, p: int, s: int, e: int,
+                       n_clusters: int, k: int, metric: str, gen, *,
+                       layout: str = "random", lut_kind: str = "random",
+                       pruned: bool = False) -> dict:
+    """Tier H's top-k route (``pq_scan_topk``: the per-probe select
+    kernel, then the per-query merge kernel) at ip with stage A's offset
+    ``probe_base``: bit-equal to the stable sort of its own scores-only
+    output plus the offset, and close to plain (``_pq_topk_close``).
+    ``layout``: the valid slots at random (a quarter), ``packed`` at the
+    front of each cluster, or ``few`` (0.1%: about 63 a query at np 16,
+    fewer than k = 100, so the ±inf sentinel's ties fill the quota); ``lut_kind`` ``integer``: the
+    LUT holds 0, 1, 2 only, so exact ties cross probes; ``pruned``: every
+    probe but 0 pruned. Timed beside the plain version, ``scan_sort_ms``
+    (the scores kernel, the add, a stable sort and a slice: the route
+    before the top-k kernels) and the library's calls (``embedding_bag``,
+    a stable sort and a slice), with the profiler's µs of the two kernels
+    and two kernels a call by capture."""
+    dev = torch.device("cuda")
+    if lut_kind == "integer":
+        lut = torch.randint(0, 3, (q, n_probe, s, e), generator=gen,
+                            device=dev).float()
+    else:
+        lut = _lut(q, n_probe, s, e, metric, gen)
+    base = (torch.randn((q, n_probe), generator=gen, device=dev)
+            if metric == "ip" else None)
+    codes, valid, cids, need = _scan_index(
+        q, n_probe, p, s, e, n_clusters, gen, packed=layout == "packed",
+        share=0.001 if layout == "few" else 0.25)
+    pok = None
+    if pruned:
+        pok = torch.zeros((q, n_probe), dtype=torch.bool, device=dev)
+        pok[:, 0] = True
+    what = (f"pq_scan_topk {metric} Q={q} np={n_probe} S={s} k={k} {layout}"
+            f"{' integer LUT' if lut_kind == 'integer' else ''}"
+            f"{' pruned' if pruned else ''}")
+
+    def call():
+        return pqs.pq_scan_topk(lut, codes, valid, cids, k, metric=metric,
+                                probe_ok=pok, probe_base=base)
+
+    scan_sort = _scan_sort(lut, codes, valid, cids, k, metric, pok, base)
+    got, own = call(), scan_sort()
+    plain, scale = _pq_plain(lut, codes, valid, cids, pok, base, metric)
+    torch.cuda.synchronize()
+    err = _pq_topk_close(got, own, plain, scale, k, metric, what)
+    sentinel = int((~torch.isfinite(got[0])).sum())
+    if layout == "few" and not sentinel:
+        raise AssertionError(f"{what}: no sentinel ties in the top k")
+    del plain, scale
+    bag = _bag_call(lut, codes, cids)
+
+    def library():
+        v = bag().reshape(q, -1)
+        return pqs._sorted_top(v, k, metric)
+
+    # bytes the function needs: the probed clusters' valid rows and valid
+    # points' codes once, the f32 LUTs, cids, the offsets, probe_ok, the
+    # (Q, k) outputs (the scores, 4·Q·np·P bytes, are not written)
+    n_kept = int((valid[cids] if pok is None
+                  else valid[cids] & pok[..., None]).sum())
+    n_bytes = need["index_bytes"] + 4 * lut.numel() + cids.numel() * 8 \
+        + (0 if base is None else 4 * base.numel()) \
+        + (0 if pok is None else pok.numel()) + 12 * q * k
+    bnd, by = bound_ms(n_bytes, n_kept * s)
+    kk = min(k, p)
+    out = {"route": "top-k", "metric": metric, "Q": q, "np": n_probe,
+           "P": p, "S": s, "E": e, "k": k, "valid": layout, "lut": lut_kind,
+           "pruned": pruned, "sentinel_results": sentinel,
+           "max_abs_err": err, "ms": time_ms(call),
+           "plain_ms": time_ms(lambda: pqs.pq_scan_topk_plain(
+               lut, codes[cids], valid[cids] if pok is None
+               else valid[cids] & pok[..., None], k, metric=metric,
+               probe_base=base), reps=5),
+           "library_ms": time_ms(library),
+           "library": "embedding_bag + sort(stable) + slice: two library "
+                      "calls, the valid mask and offset left out",
+           "scan_sort_ms": time_ms(scan_sort),
+           "scan_sort": "pq_scan kernel + add + sort(stable) + slice",
+           "topk_us": kernel_us(call, "pq_topk_kernel"),
+           "merge_us": kernel_us(call, "pq_merge_kernel"),
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+           # what the route also moves: the candidates, written and read
+           "bound_with_candidates_ms": bound_ms(
+               n_bytes + 16 * q * n_probe * kk, n_kept * s)[0],
+           "kernels_a_call": _hit_kernels(
+               lambda: ops.masked_adc_topk_scan(
+                   lut, codes, valid, cids, k, metric=metric, probe_ok=pok,
+                   probe_base=base),
+               ("pq_topk_kernel", "pq_merge_kernel"), what),
+           **need}
+    del bag
+    return out
+
+
+def check_pq_scan_pass(name: str, calls: list[dict]) -> list[dict]:
+    """Tier H's top-k route over the calls of one engine pass, replayed on
+    their recorded inputs (the built index's codes and valid slots, stage
+    B's LUTs, the probed cluster ids, k, probe_ok, the offsets): each call
+    bit-equal to the route it took before this PR (``_scan_sort``: the
+    scores kernel, the add, a stable sort, a slice) and close to plain;
+    device ms (CUDA events, a call at a time), the profiler's select- and
+    merge-kernel ms, the plain version's and ``scan_sort_ms``, and the
+    bound, summed over the pass's calls."""
+    if not calls:
+        return []
+    what = f"pq_scan_topk {name} engine pass"
+
+    def call(c):
+        return pqs.pq_scan_topk(c["lut"], c["codes"], c["valid"], c["cids"],
+                                c["k"], metric=c["metric"],
+                                probe_ok=c["probe_ok"],
+                                probe_base=c["probe_base"])
+
+    def scan_sort(c):
+        return _scan_sort(c["lut"], c["codes"], c["valid"], c["cids"],
+                          c["k"], c["metric"], c["probe_ok"],
+                          c["probe_base"])
+
+    def plain(c):
+        v = c["valid"][c["cids"]]
+        if c["probe_ok"] is not None:
+            v = v & c["probe_ok"][..., None]
+        return pqs.pq_scan_topk_plain(c["lut"], c["codes"][c["cids"]], v,
+                                      c["k"], metric=c["metric"],
+                                      probe_base=c["probe_base"])
+
+    n_bytes = n_ops = 0
+    err = 0.0
+    for c in calls:
+        pl, sc = _pq_plain(c["lut"], c["codes"], c["valid"], c["cids"],
+                           c["probe_ok"], c["probe_base"], c["metric"])
+        err = max(err, _pq_topk_close(
+            call(c), scan_sort(c)(), pl, sc, c["k"], c["metric"],
+            f"{what} Q={c['cids'].shape[0]} k={c['k']}"))
+        del pl, sc
+        rows_ = torch.unique(c["cids"])
+        s = c["lut"].shape[2]
+        n_bytes += (rows_.numel() * c["valid"].shape[1]
+                    + int(c["valid"][rows_].sum()) * s
+                    + 4 * c["lut"].numel() + c["cids"].numel() * 8
+                    + (0 if c["probe_base"] is None
+                       else 4 * c["probe_base"].numel())
+                    + 12 * c["cids"].shape[0] * c["k"])
+        n_ops += int(c["valid"][c["cids"]].sum()) * s
+    bnd, by = bound_ms(n_bytes, n_ops)
+
+    def whole_pass():
+        for c in calls:
+            call(c)
+
+    split = {k: kernel_us(whole_pass, kname, reps=5)
+             for k, kname in (("select", "pq_topk_kernel"),
+                              ("merge", "pq_merge_kernel"))}
+    return [{
+        "route": "top-k", "tier": "H", "index": name, "shape": "engine pass",
+        "calls": len(calls), "np": calls[0]["cids"].shape[1],
+        "S": calls[0]["S"], "max_abs_err": err,
+        "equal_to_route_before": True,
+        "ms": sum(time_ms(lambda c=c: call(c)) for c in calls),
+        "plain_ms": sum(time_ms(lambda c=c: plain(c), reps=3) for c in calls),
+        "scan_sort_ms": sum(time_ms(scan_sort(c)) for c in calls),
+        "library_ms": None,
+        "select_ms": None if split["select"] is None
+        else split["select"] * len(calls) / 1e3,
+        "merge_ms": None if split["merge"] is None
+        else split["merge"] * len(calls) / 1e3,
+        "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+        "calls_shape": hit_call_summary(calls)}]
+
+
+def save_calls(path: str, calls: list[dict]) -> None:
+    """Write recorded calls, tables included, for ``bench_stage_a.py
+    --hit-count --calls`` or ``--pq-scan --calls``: the index's codes and
+    valid mask once, then each call's table (hit table or LUT), cids, k,
+    probe_ok and the rest, on the host."""
+    torch.save({"codes": calls[0]["codes"].cpu(),
+                "valid": calls[0]["valid"].cpu(),
+                "calls": [{k: (v.cpu() if torch.is_tensor(v) else v)
+                           for k, v in c.items() if k not in ("codes", "valid")}
+                          for c in calls]}, path)
 
 
 def _grid(g: int, cap: int, gen) -> tuple:
@@ -1136,8 +1400,34 @@ def phase_kernels(seed: int) -> dict:
         check_fused_two_stage(q, 16, 3912, s, 256, 1024, c, metric, gen)
         for q, cs in ((128, (320, 3200)), (32, (320,)), (8, (320,)))
         for metric, s in (("l2", 48), ("ip", 100)) for c in cs]
-    rows["pq_scan"] = [check_pq_scan(128, 16, 3912, s, 256, 1024, metric, gen)
-                       for metric, s in (("l2", 48), ("ip", 100))]
+    # tier H: the top-k route the engines run (l2 k = 100 heads the line),
+    # at k 10 and 100, ip with stage A's offset, smaller batches, packed
+    # and few valid slots, an integer LUT (exact ties across probes) and
+    # every probe but 0 pruned; then the scores-only kernel at the two
+    # shapes of earlier runs
+    rows["pq_scan"] = [
+        check_pq_scan_topk(q, 16, 3912, s, 256, 1024, k, metric, gen,
+                           layout=layout, lut_kind=lut, pruned=pruned)
+        for q, metric, s, k, layout, lut, pruned in (
+            (128, "l2", 48, 100, "random", "random", False),
+            (128, "l2", 48, 10, "random", "random", False),
+            (128, "ip", 100, 100, "random", "random", False),
+            (128, "ip", 100, 10, "random", "random", False),
+            (32, "l2", 48, 100, "random", "random", False),
+            (8, "l2", 48, 100, "random", "random", False),
+            (32, "ip", 100, 100, "random", "random", False),
+            (8, "ip", 100, 100, "random", "random", False),
+            (128, "l2", 48, 100, "packed", "random", False),
+            (128, "ip", 100, 100, "packed", "random", False),
+            (128, "l2", 48, 100, "few", "random", False),
+            (128, "l2", 48, 100, "random", "integer", False),
+            (128, "ip", 100, 100, "random", "integer", False),
+            (128, "l2", 48, 100, "random", "random", True),
+            (128, "ip", 100, 10, "packed", "random", True))]
+    torch.cuda.empty_cache()
+    rows["pq_scan"] += [check_pq_scan(128, 16, 3912, s, 256, 1024, metric,
+                                      gen)
+                        for metric, s in (("l2", 48), ("ip", 100))]
     torch.cuda.empty_cache()
     # tiers M, L and composed H2: the top-k route the engines run (M/L l2,
     # k = 100, heads the line), at the engines' k and C, smaller batches,
@@ -1296,6 +1586,37 @@ class HitCalls:
         ops.hit_count_topk_scan = self._fn
 
 
+class PqCalls:
+    """Within ``with``: record every ``ops.masked_adc_topk_scan`` call the
+    searches make (tier H; ``core/juno.py`` calls it through ``ops``): the
+    probed cluster ids, k, ``probe_ok``, the offsets and the index's codes
+    and valid mask it was given, and with ``tables`` a copy of its LUT, for
+    a replay."""
+
+    def __init__(self, tables: bool = False):
+        self.calls, self._tables = [], tables
+
+    def __enter__(self):
+        self._fn = ops.masked_adc_topk_scan
+
+        def recorded(mlut, codes, valid, cids, k, *, metric="l2",
+                     probe_ok=None, probe_base=None):
+            self.calls.append(dict(
+                lut=mlut.clone() if self._tables else None, codes=codes,
+                valid=valid, cids=cids.clone(), k=k, S=mlut.shape[2],
+                metric=metric,
+                probe_ok=None if probe_ok is None else probe_ok.clone(),
+                probe_base=None if probe_base is None
+                else probe_base.clone()))
+            return self._fn(mlut, codes, valid, cids, k, metric=metric,
+                            probe_ok=probe_ok, probe_base=probe_base)
+        ops.masked_adc_topk_scan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        ops.masked_adc_topk_scan = self._fn
+
+
 def _spread(x: torch.Tensor) -> dict:
     x = x.float()
     qs = torch.quantile(x, torch.tensor([0.1, 0.5, 0.9], device=x.device))
@@ -1304,10 +1625,11 @@ def _spread(x: torch.Tensor) -> dict:
 
 
 def hit_call_summary(calls: list[dict]) -> dict:
-    """The shapes of recorded ``hit_count_topk_scan`` calls and the spread
-    of the valid slots in the clusters they probed (each probe once), beside
-    that of every cluster of the index, by np (8: tiers M and L, 16:
-    composed H2)."""
+    """The shapes of recorded ``hit_count_topk_scan`` (or
+    ``masked_adc_topk_scan``) calls and the spread of the valid slots in
+    the clusters they probed (each probe once), beside that of every
+    cluster of the index, by np (8: tiers M and L, 16: composed H2, or
+    tier H)."""
     out = {}
     for n_probe in sorted({c["cids"].shape[1] for c in calls}):
         cs = [c for c in calls if c["cids"].shape[1] == n_probe]
@@ -1328,13 +1650,17 @@ def hit_call_summary(calls: list[dict]) -> dict:
 
 def serve_engine(index, queries, stream, *, metric: str, fused: bool,
                  n_points: int, trace_path: str, rt_grid=None,
-                 record: HitCalls | None = None) -> dict:
+                 record: HitCalls | None = None,
+                 pq_record: PqCalls | None = None) -> dict:
     """Warm-up, one pass with the launch counts read, four more timed
     passes and one profiled pass of one engine configuration (with
     ``rt_grid``: ``prefilter="rt"``) over ``index``, a
     ``MutableJunoIndex`` the engines share (its bookkeeping is built
     once). The warm-up, the same stream as every pass, records the
-    engine's ``hit_count_topk_scan`` calls (into ``record`` if given)."""
+    engine's ``hit_count_topk_scan`` and ``masked_adc_topk_scan`` calls
+    (into ``record`` and ``pq_record`` if given). The profiled pass must
+    run no sort but stage A's and the small final ones
+    (``radixSortKVInPlace``): "other sorts" under 1 ms."""
     prefilter = "scan" if rt_grid is None else "rt"
 
     def serve() -> tuple[AnnServeEngine, list, float]:
@@ -1347,7 +1673,8 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
         return eng, reqs, time.perf_counter() - t
 
     record = record or HitCalls()
-    with record:
+    pq_record = pq_record or PqCalls()
+    with record, pq_record:
         serve()                                # warm-up: cuBLAS, allocator
     stage_a = StageACount()
     _build.reset_launches()
@@ -1371,6 +1698,10 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
                              f"{launches}, expected exactly {sorted(must)}")
     t_repeats = [t_serve] + [serve()[2] for _ in range(4)]
     prof = profile_window(serve, trace_path)
+    if prof["other_sorts_ms"] >= 1.0:
+        raise AssertionError(f"{prefilter} fused={fused}: "
+                             f"{prof['other_sorts_ms']:.2f} ms of sorts over "
+                             f"the scans' outputs in a pass")
     rows = eng.stats["queries"]
     return {"prefilter": prefilter, "fused": fused, "requests": len(reqs),
             "rows": rows, "ticks": eng.stats["ticks"],
@@ -1382,7 +1713,8 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
             "tiers": sorted({eng.route(r)[1] for r in reqs}),
             "sentinel_results": sentinels, "launches": launches,
             "stage_a_calls": stage_a.calls,
-            "hit_calls": hit_call_summary(record.calls)}
+            "hit_calls": hit_call_summary(record.calls),
+            "pq_calls": hit_call_summary(pq_record.calls)}
 
 
 def _ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, what: str,
@@ -1889,9 +2221,9 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                                                     stream, spec.metric)
     log(f"grid.{name}", **grid_info)
     engines = {}
-    # the unfused scan engine's calls (tiers M, L and composed H2), tables
-    # kept, are replayed as hit_count rows below
-    replay = HitCalls(tables=True)
+    # the unfused scan engine's calls (tiers M, L and composed H2; tier H),
+    # tables kept, are replayed as hit_count and pq_scan rows below
+    replay, pq_replay = HitCalls(tables=True), PqCalls(tables=True)
     for label, fused, g in (("fused", True, None), ("unfused", False, None),
                             ("rt_fused", True, grid),
                             ("rt_unfused", False, grid)):
@@ -1899,16 +2231,23 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
             mut, queries, stream, metric=spec.metric, fused=fused,
             n_points=n, rt_grid=g,
             trace_path=os.path.join(out_dir, f"trace_{name}_{label}.json"),
-            record=replay if label == "unfused" else None)
+            record=replay if label == "unfused" else None,
+            pq_record=pq_replay if label == "unfused" else None)
         log(f"serve.{name}.{label}", **engines[label])
     hit_rows = check_hit_count_pass(name, replay.calls)
     for r in hit_rows:
         log(f"kernel.hit_count.{name}", **r)
+    pq_rows = check_pq_scan_pass(name, pq_replay.calls)
+    for r in pq_rows:
+        log(f"kernel.pq_scan.{name}", **r)
     if hit_calls_dir:
         os.makedirs(hit_calls_dir, exist_ok=True)
-        save_hit_calls(os.path.join(hit_calls_dir, f"hit_calls_{name}.pt"),
-                       replay.calls)
-    del replay
+        save_calls(os.path.join(hit_calls_dir, f"hit_calls_{name}.pt"),
+                   replay.calls)
+        save_calls(os.path.join(hit_calls_dir, f"pq_calls_{name}.pt"),
+                   pq_replay.calls)
+    del replay, pq_replay
+    torch.cuda.empty_cache()
 
     cpu_index = index_to(index, "cpu")
     tiers = tier_table(index, cpu_index, queries, pts, spec.metric)
@@ -1929,7 +2268,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
            "grid": grid_info, "sphere_hits": sphere_row,
-           "hit_count_pass": hit_rows,
+           "hit_count_pass": hit_rows, "pq_scan_pass": pq_rows,
            "engines": engines, "tiers": tiers,
            "tiers_rt": rt_tiers, "mutate": mutate,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1954,6 +2293,8 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "variants": rows})
+        if name in CALL_LAUNCHES:
+            line[-1]["launches_are"] = CALL_LAUNCHES[name]
     return {"kernels": line}
 
 
@@ -1963,9 +2304,10 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for the report, ptxas output and traces")
     ap.add_argument("--hit-calls", metavar="DIR",
-                    help="also write each index's replayed hit_count calls "
-                         "to DIR/hit_calls_<index>.pt (about 1 GB at l2) for "
-                         "bench_stage_a.py --hit-count --calls")
+                    help="also write each index's replayed hit_count and "
+                         "pq_scan calls to DIR/hit_calls_<index>.pt and "
+                         "DIR/pq_calls_<index>.pt (about 1 and 2 GB at l2) "
+                         "for bench_stage_a.py --hit-count/--pq-scan --calls")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1984,6 +2326,8 @@ def main() -> int:
     kernels["kernels"]["sphere_hits"][:0] = [s["sphere_hits"] for s in serves]
     kernels["kernels"]["hit_count"] += [r for s in serves
                                         for r in s["hit_count_pass"]]
+    kernels["kernels"]["pq_scan"] += [r for s in serves
+                                      for r in s["pq_scan_pass"]]
     line = kernel_line(kernels["kernels"], serves)
     report = {"device": device, **kernels, "serve": serves,
               "seconds": time.perf_counter() - t_start}

@@ -18,7 +18,8 @@ model, stage B builds the masked LUT and the int8 hit table
 (``selective_lut`` kernel), and stage C scores the probed points by tier
 (paper's JUNO-H/M/L, plus the two-stage H2):
 
-* "H": masked ADC of every probed point (``pq_scan`` kernel), top-k;
+* "H": masked ADC of every probed point, top-k (``pq_scan`` kernels with
+  their top-k epilogue: no sort);
 * "M": reward/penalty hit count, top-k by count (``hit_count`` kernel and
   its top-k epilogue: no sort);
 * "L": plain hit count, the table clipped to {0, 1}, top-k by count;
@@ -410,35 +411,30 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                 if prefilter == "rt" else None)
     p = index.cluster_codes.shape[1]
     n_in = cids.shape[1] * p
+    k_in = min(k, n_in)
     if mode == "H":
-        pt_scores = ops.masked_adc_scan(mlut, index.cluster_codes,
-                                        index.ivf.valid, cids, metric=metric,
-                                        probe_ok=probe_ok)
-        if probe_base is not None:
-            pt_scores = pt_scores + probe_base[..., None]
-        flat = pt_scores.reshape(nq, -1)
-        if side is not None:
-            side_s, _ = _side_scores(mlut, cids, side, probe_ok, probe_base,
-                                     bad_score(metric))
-            flat = torch.cat([flat, side_s.float()], dim=1)
-        out_scores, sel = _top_k(flat, k, metric == "ip")
+        out_scores, sel = ops.masked_adc_topk_scan(
+            mlut, index.cluster_codes, index.ivf.valid, cids, k_in,
+            metric=metric, probe_ok=probe_ok, probe_base=probe_base)
+        side_args = (mlut, probe_base, bad_score(metric), metric == "ip")
     else:
         if mode == "L":  # plain count: clip penalty/inner to {0, 1}
             table = (table >= 0).to(torch.int8)
-        k_in = min(k, n_in)
         out_scores, sel = ops.hit_count_topk_scan(
             table, index.cluster_codes, index.ivf.valid, cids, k_in,
             probe_ok=probe_ok)
-        if side is not None:
-            # every in-cluster index is below every side index, so the k
-            # best of both are the k best of the k_in in-cluster ones and
-            # the side points, in-cluster first among equal scores
-            side_s, _ = _side_scores(table, cids, side, probe_ok, None, NEG)
-            out_scores, order = _top_k(
-                torch.cat([out_scores, side_s.float()], dim=1), k, True)
-            sel = torch.where(order < k_in,
-                              torch.gather(sel, 1, order.clamp(max=k_in - 1)),
-                              order - k_in + n_in)
+        side_args = (table, None, NEG, True)
+    if side is not None:
+        # every in-cluster index is below every side index, so the k best
+        # of both are the k best of the k_in in-cluster ones and the side
+        # points, in-cluster first among equal scores
+        tab, side_base, bad, higher_better = side_args
+        side_s, _ = _side_scores(tab, cids, side, probe_ok, side_base, bad)
+        out_scores, order = _top_k(
+            torch.cat([out_scores, side_s.float()], dim=1), k, higher_better)
+        sel = torch.where(order < k_in,
+                          torch.gather(sel, 1, order.clamp(max=k_in - 1)),
+                          order - k_in + n_in)
     in_cl = sel < n_in
     s_in = torch.where(in_cl, sel, 0)
     ids = index.ivf.point_ids[torch.gather(cids, 1, s_in // p), s_in % p]

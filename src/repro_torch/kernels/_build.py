@@ -33,8 +33,10 @@ SOURCES = ("selective_lut", "fused_two_stage", "pq_scan", "hit_count",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: launches per kernel wrapper since the last :func:`reset_launches`
-LAUNCHES = {name: 0 for name in SOURCES}
+#: launches per kernel wrapper since the last :func:`reset_launches`, and
+#: ``pq_scan_sort``: ``pq_scan_topk`` calls past its kernels' limits, which
+#: run the scores kernel and a stable sort
+LAUNCHES = {name: 0 for name in SOURCES + ("pq_scan_sort",)}
 
 
 def reset_launches() -> None:

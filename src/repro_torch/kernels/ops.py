@@ -4,9 +4,10 @@ Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
 ``masked_adc_scan`` (l.121), ``hit_count_scan`` (l.135),
 ``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183),
 ``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263), with
-``filter_topk`` (stage A of ``repro/core/ivf.py:filter_clusters``) and
-``hit_count_topk_scan`` (the hit counts' top-k of
-``repro/core/juno.py`` l.354 and l.508). Dispatch
+``filter_topk`` (stage A of ``repro/core/ivf.py:filter_clusters``),
+``masked_adc_topk_scan`` (tier H's ``probe_base`` add and top-k,
+``repro/core/juno.py`` l.296-299 and l.354) and ``hit_count_topk_scan``
+(the hit counts' top-k of ``repro/core/juno.py`` l.354 and l.508). Dispatch
 follows the tensors' device: a CPU tensor goes to the kernel's plain
 PyTorch version; a CUDA tensor goes to the hand-written CUDA kernel, or
 the call raises. There is no fallback from a kernel to its plain
@@ -31,7 +32,7 @@ from .hit_count import (hit_count, hit_count_plain, hit_count_topk,
                         hit_count_topk_plain)
 from .ivf_filter import (ivf_filter, ivf_filter_plain, ivf_filter_topk,
                          ivf_filter_topk_plain)
-from .pq_scan import pq_scan, pq_scan_plain
+from .pq_scan import pq_scan, pq_scan_plain, pq_scan_topk, pq_scan_topk_plain
 from .selective_lut import selective_lut, selective_lut_plain
 from .sphere_hits import sphere_hits, sphere_hits_plain
 
@@ -101,6 +102,39 @@ def masked_adc_scan(mlut: torch.Tensor, codes: torch.Tensor,
                        else probe_ok.contiguous())
     return pq_scan_plain(mlut, codes[cids], _probed_valid(valid, cids, probe_ok),
                          metric=metric)
+
+
+def masked_adc_topk_scan(mlut: torch.Tensor, codes: torch.Tensor,
+                         valid: torch.Tensor, cids: torch.Tensor, k: int, *,
+                         metric: str = "l2",
+                         probe_ok: torch.Tensor | None = None,
+                         probe_base: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tier H: each query's k best masked-LUT totals.
+
+    The rest as for :func:`masked_adc_scan`, ``probe_base`` (Q, np) f32 or
+    ``None`` (ip's stage-A offset, added to every point of its probe), and
+    1 <= k <= np·P. Returns (values (Q, k) f32, positions (Q, k) int64
+    over the flat np·P axis) in ``lax.top_k``'s order (l2 distance
+    ascending, ip similarity descending, equal scores by position
+    ascending): the top-k of :func:`masked_adc_scan`'s scores plus
+    ``probe_base``. On the card a call is two kernels (per-probe select,
+    per-query merge) and no sort for k <= ``pq_scan.K_MAX`` and P <=
+    ``pq_scan.P_MAX``; past them the scores kernel and a stable sort.
+    """
+    n_flat = cids.shape[1] * codes.shape[1]
+    if not 1 <= k <= n_flat:
+        raise ValueError(f"k={k} outside [1, np*P={n_flat}]")
+    if _on_cuda(mlut, codes, valid, cids, probe_ok, probe_base):
+        return pq_scan_topk(
+            mlut.contiguous(), codes.contiguous(), valid.contiguous(),
+            cids.contiguous(), k, metric=metric,
+            probe_ok=None if probe_ok is None else probe_ok.contiguous(),
+            probe_base=None if probe_base is None
+            else probe_base.contiguous())
+    return pq_scan_topk_plain(mlut, codes[cids],
+                              _probed_valid(valid, cids, probe_ok), k,
+                              metric=metric, probe_base=probe_base)
 
 
 def hit_count_scan(table: torch.Tensor, codes: torch.Tensor,

@@ -275,6 +275,115 @@ def test_hit_count_launches_its_kernels_only(cuda):
         assert all(n in node for n, node in zip(want, nodes)), nodes
 
 
+def _pq_topk_check(got, lut, codes, valid, cids, pok, base, k, metric):
+    """The top-k route's (values, positions) against a stable sort of the
+    scores-only kernel's own output plus ``base`` (bit-equal), and against
+    the plain version: the ±inf places equal, each value within RTOL of
+    the sum of its terms' magnitudes (plus |base|) of plain's value at the
+    same place and of plain's score at its own position, so that positions
+    differ from plain's only inside ties."""
+    scores = ops.masked_adc_scan(lut, codes, valid, cids, metric=metric,
+                                 probe_ok=pok)
+    if base is not None:
+        scores = scores + base[..., None]
+    q = lut.shape[0]
+    own = ppq._sorted_top(scores.reshape(q, -1), k, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], own[0]) and torch.equal(got[1], own[1])
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(own[0]))
+    masked = valid[cids] if pok is None else valid[cids] & pok[..., None]
+    plain = ppq.pq_scan_plain(lut, codes[cids], masked, metric=metric)
+    scale = ppq.pq_scan_plain(lut.abs(), codes[cids], masked)
+    if base is not None:
+        plain = plain + base[..., None]
+        scale = scale + base.abs()[..., None]
+    plain, scale = plain.reshape(q, -1), scale.reshape(q, -1)
+    want = ppq._sorted_top(plain, k, metric)
+    fin = torch.isfinite(want[0])
+    assert torch.equal(torch.isfinite(got[0]), fin)
+    assert torch.equal(got[0][~fin], want[0][~fin])
+    assert torch.equal(got[1][~fin], want[1][~fin])
+    tol = RTOL * torch.maximum(torch.gather(scale, 1, got[1]),
+                               torch.gather(scale, 1, want[1]))
+    assert ((got[0] - want[0])[fin].abs() <= tol[fin]).all()
+    at_own = torch.gather(plain, 1, got[1])
+    assert ((got[0] - at_own)[fin].abs() <= tol[fin]).all()
+
+
+# (Q, np, P, S, E) as for hit_count's top-k: P below one warp step and
+# past 4096 (16 scores a thread), S 7 and 12 (byte-wise code reads), 48
+# and 100 (the compiled S), np 1, 8 and 16, Q 1, 8 and 128
+_PQ_TOPK_SHAPES = dict(_TOPK_SHAPES, Q1=(1, 16, 3912, 48, 256))
+
+
+@pytest.mark.parametrize("layout", ["scattered", "packed", "few"])
+@pytest.mark.parametrize("shape", list(_PQ_TOPK_SHAPES))
+def test_pq_scan_topk_kernel_matches_plain(cuda, shape, layout):
+    """The top-k route bit-equal to a stable sort of the scores-only
+    kernel's output plus ``probe_base`` and close to plain (ids up to
+    ties), at l2 and at ip with an offset, every probe kept or every probe
+    but 0 pruned, an integer-valued LUT (exact ties across probes), k from
+    1 to K_MAX and past it (the scores kernel and a sort, counted apart)."""
+    q, n_probe, p, s, e = _PQ_TOPK_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(70 + s + p)
+    codes = torch.randint(0, e, (20, p, s), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    cids = torch.randint(0, 20, (q, n_probe), generator=g, device=cuda)
+    if layout == "packed":
+        fill = torch.randint(0, p + 1, (20, 1), generator=g, device=cuda)
+        fill[:3, 0] = torch.tensor([0, 1, p], device=cuda)
+        valid = torch.arange(p, device=cuda)[None, :] < fill
+    else:
+        frac = 0.25 if layout == "scattered" else 0.2 / p
+        valid = torch.rand((20, p), generator=g, device=cuda) < frac
+    probe0 = torch.zeros((q, n_probe), dtype=torch.bool, device=cuda)
+    probe0[:, 0] = True
+    w = n_probe * p
+    ks = {1, 33, 100, w // 2 + 1, w, ppq.K_MAX, ppq.K_MAX + 1}
+    for metric in ("l2", "ip"):
+        shp = (q, n_probe, s, e)
+        luts = [torch.rand(shp, generator=g, device=cuda) * 4
+                if metric == "l2" else torch.randn(shp, generator=g,
+                                                   device=cuda),
+                torch.randint(0, 3, shp, generator=g, device=cuda).float()]
+        base = (torch.randn((q, n_probe), generator=g, device=cuda)
+                if metric == "ip" else None)
+        for lut in luts:
+            for pok in (None, probe0):
+                for k in sorted(ks & set(range(1, w + 1))):
+                    _build.reset_launches()
+                    got = ops.masked_adc_topk_scan(
+                        lut, codes, valid, cids, k, metric=metric,
+                        probe_ok=pok, probe_base=base)
+                    sort = k > ppq.K_MAX or p > ppq.P_MAX
+                    assert _build.LAUNCHES["pq_scan_sort"] == int(sort)
+                    assert _build.LAUNCHES["pq_scan"] == int(not sort)
+                    _pq_topk_check(got, lut, codes, valid, cids, pok, base,
+                                   k, metric)
+
+
+def test_pq_scan_launches_its_kernels_only(cuda):
+    """A top-k call is the per-probe select kernel and then the merge
+    kernel, a scores-only call the scan kernel alone: no sort, no zeroing,
+    no copy (the nodes of the call captured into a CUDA graph)."""
+    lut, _, codes, valid, cids = _index_form(63, 0.5, s=48, q=8, n_probe=6,
+                                             signed=True)
+    pok = torch.rand(cids.shape, device=cuda) < 0.5
+    base = torch.randn(cids.shape, device=cuda)
+    calls = {
+        ("pq_topk_kernel", "pq_merge_kernel"): lambda: ops.masked_adc_topk_scan(
+            lut, codes, valid, cids, 40, metric="ip", probe_ok=pok,
+            probe_base=base),
+        ("pq_scan_kernel",): lambda: ops.masked_adc_scan(lut, codes, valid,
+                                                         cids)}
+    for want, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        nodes = _captured_nodes(call)
+        assert len(nodes) == len(want), nodes
+        assert all(n in node for n, node in zip(want, nodes)), nodes
+
+
 def test_scans_read_codes_through_cids(cuda):
     """The ops wrappers on the card equal the plain versions over the
     gathered codes, for cids with repeats and an odd S (byte loads)."""
@@ -312,7 +421,7 @@ def test_launch_counts(cuda):
     assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0,
                                "pq_scan": 1, "hit_count": 3,
                                "sphere_hits": 1, "fused_three_stage": 1,
-                               "ivf_filter": 1}
+                               "ivf_filter": 1, "pq_scan_sort": 0}
 
 
 @pytest.mark.parametrize("g,cap,q", [(16, 64, 128), (3, 8, 17), (3, 5, 9),
@@ -527,7 +636,8 @@ def _captured_nodes(call):
     for a, b in zip(starts, starts[1:] + [len(dot)]):
         text = dot[a:b]
         kind = re.search(r"\b([A-Z][A-Z_]{3,})\b", text).group(1)
-        name = re.search(r"\w*(?:count|select|topk)_kernel\w*", text)
+        name = re.search(r"\w*(?:count|select|topk|merge|scan)_kernel\w*",
+                         text)
         nodes.append(name.group(0) if kind == "KERNEL" and name else kind)
     return nodes
 
