@@ -650,28 +650,33 @@ def pq_scan_rows(card: str, label: str, reps: int) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     n_probe, p, e, n_clusters = 16, 3912, 256, 1024
-    # (Q, valid layout, LUT kind, probe-0 only, k values) a metric
-    configs = {"l2": [(128, "random", "random", False, (100, 10)),
-                      (32, "random", "random", False, (100,)),
-                      (8, "random", "random", False, (100,)),
-                      (128, "packed", "random", False, (100,)),
-                      (128, "few", "random", False, (100,)),
-                      (128, "random", "integer", False, (100,)),
-                      (128, "random", "random", True, (100,))],
-               "ip": [(128, "random", "random", False, (100, 10)),
-                      (32, "random", "random", False, (100,)),
-                      (8, "random", "random", False, (100,)),
-                      (128, "packed", "random", False, (100,)),
-                      (128, "random", "integer", False, (100,))]}
+    # (Q, valid layout, LUT kind, codes, probe 0 only, k values), at both
+    # metrics; "bank-spread" codes have as low 5 bits the lane that reads
+    # them (point p's lane is p mod 32): no LUT load conflicts, a
+    # yardstick of what the conflicts of random codes cost
+    configs = [(128, "random", "random", "random", False, (100, 10)),
+               (32, "random", "random", "random", False, (100,)),
+               (8, "random", "random", "random", False, (100,)),
+               (128, "packed", "random", "random", False, (100,)),
+               (128, "few", "random", "random", False, (100,)),
+               (128, "random", "integer", "random", False, (100,)),
+               (128, "random", "random", "random", True, (100,)),
+               (128, "random", "random", "bank-spread", False, (100,)),
+               (128, "packed", "random", "bank-spread", False, (100,))]
     for metric, s in (("l2", 48), ("ip", 100)):
-        codes = torch.randint(0, e, (n_clusters, p, s), generator=gen,
-                              device=dev, dtype=torch.uint8)
+        lane = torch.arange(p, device=dev)[None, :, None] % 32
+        codes = {"random": torch.randint(0, e, (n_clusters, p, s),
+                                         generator=gen, device=dev,
+                                         dtype=torch.uint8),
+                 "bank-spread": (torch.randint(0, 8, (n_clusters, p, s),
+                                               generator=gen, device=dev)
+                                 * 32 + lane).to(torch.uint8)}
         fill = torch.randint(700, 1255, (n_clusters, 1), generator=gen,
                              device=dev)
         u = torch.rand((n_clusters, p), generator=gen, device=dev)
         valids = {"random": u < 0.25, "few": u < 0.001,
                   "packed": torch.arange(p, device=dev)[None, :] < fill}
-        for q, layout, lut_kind, pruned, ks in configs[metric]:
+        for q, layout, lut_kind, code_kind, pruned, ks in configs:
             shp = (q, n_probe, s, e)
             if lut_kind == "integer":
                 lut = torch.randint(0, 3, shp, generator=gen,
@@ -689,51 +694,22 @@ def pq_scan_rows(card: str, label: str, reps: int) -> None:
             if pruned:
                 pok = torch.zeros((q, n_probe), dtype=torch.bool, device=dev)
                 pok[:, 0] = True
-            v = valids[layout]
+            c, v = codes[code_kind], valids[layout]
             info = {"label": label, "metric": metric, "Q": q, "np": n_probe,
                     "P": p, "S": s, "E": e, "valid": layout, "lut": lut_kind,
-                    "pruned": pruned, "card": card}
-            scores = lambda lut=lut, v=v, cids=cids, pok=pok: \
-                ops.masked_adc_scan(lut, codes, v, cids, metric=metric,
+                    "codes": code_kind, "pruned": pruned, "card": card}
+            scores = lambda lut=lut, c=c, v=v, cids=cids, pok=pok: \
+                ops.masked_adc_scan(lut, c, v, cids, metric=metric,
                                     probe_ok=pok)
             print(json.dumps({"what": "scores", "route": "scores kernel",
                               **info, **_pq_row(scores, reps)}), flush=True)
             for k in ks:
-                fn, route = _pq_route(ops, lut, codes, v, cids, k, metric,
+                fn, route = _pq_route(ops, lut, c, v, cids, k, metric,
                                       pok, base)
                 print(json.dumps({"what": "top-k", "route": route, "k": k,
                                   **info, **_pq_row(fn, reps)}), flush=True)
             del lut, cids
-        # codes whose low 5 bits are the lane that reads them (point p's
-        # lane is p mod 32): no shared-memory load conflicts on the LUT, a
-        # yardstick of what the conflicts of random codes cost
-        spread = (torch.randint(0, 8, (n_clusters, p, s), generator=gen,
-                                device=dev) * 32
-                  + torch.arange(p, device=dev)[None, :, None] % 32
-                  ).to(torch.uint8)
-        q = 128
-        lut = (torch.rand((q, n_probe, s, e), generator=gen, device=dev) * 4.0
-               if metric == "l2"
-               else torch.randn((q, n_probe, s, e), generator=gen, device=dev))
-        base = (torch.randn((q, n_probe), generator=gen, device=dev)
-                if metric == "ip" else None)
-        cids = torch.stack([torch.randperm(n_clusters, generator=gen,
-                                           device=dev)[:n_probe]
-                            for _ in range(q)])
-        for layout in ("random", "packed"):
-            v = valids[layout]
-            info = {"label": label, "metric": metric, "Q": q, "np": n_probe,
-                    "P": p, "S": s, "E": e, "valid": layout, "lut": "random",
-                    "codes": "bank-spread", "pruned": False, "card": card}
-            scores = lambda v=v: ops.masked_adc_scan(lut, spread, v, cids,
-                                                     metric=metric)
-            print(json.dumps({"what": "scores", "route": "scores kernel",
-                              **info, **_pq_row(scores, reps)}), flush=True)
-            fn, route = _pq_route(ops, lut, spread, v, cids, 100, metric,
-                                  None, base)
-            print(json.dumps({"what": "top-k", "route": route, "k": 100,
-                              **info, **_pq_row(fn, reps)}), flush=True)
-        del codes, valids, spread, lut
+        del codes, valids
         torch.cuda.empty_cache()
 
 

@@ -121,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gzip
 import json
 import os
@@ -875,18 +876,21 @@ def _pq_topk_close(got: tuple, own: tuple, plain: torch.Tensor,
     return float(err[fin].max()) if fin.any() else 0.0
 
 
-def _scan_sort(lut, codes, valid, cids, k, metric, probe_ok=None,
-               base=None):
-    """The route tier H took before the top-k kernels: this tree's scores
-    kernel, the offset add, a stable sort of each query's np·P scores and
-    a slice. Returns the call."""
-    def call():
-        sc = pqs.pq_scan(lut, codes, valid, cids, metric=metric,
-                         probe_ok=probe_ok)
-        if base is not None:
-            sc = sc + base[..., None]
-        return pqs._sorted_top(sc.reshape(sc.shape[0], -1), k, metric)
-    return call
+def _pq_need(lut, valid, cids, probe_ok, base, k: int) -> tuple[int, int]:
+    """What one top-k call must move and do: the bytes of the kept
+    probes' distinct clusters' valid rows and valid points' codes (once),
+    the kept probes' f32 LUTs, cids and offsets, ``probe_ok``, the (Q, k)
+    outputs (a pruned probe's LUT, codes and valid row are never read; the
+    scores, 4·Q·np·P bytes, are not written), and the adds (one a kept
+    valid point and subspace)."""
+    q, _, s, e = lut.shape
+    kept = cids if probe_ok is None else cids[probe_ok]
+    rows_ = torch.unique(kept)
+    n_bytes = (rows_.numel() * valid.shape[1] + int(valid[rows_].sum()) * s
+               + kept.numel() * (4 * s * e + 8 + (0 if base is None else 4))
+               + (0 if probe_ok is None else probe_ok.numel())
+               + 12 * q * k)
+    return n_bytes, int(valid[kept].sum()) * s
 
 
 def _pq_plain(lut, codes, valid, cids, probe_ok, base, metric):
@@ -942,7 +946,11 @@ def check_pq_scan_topk(q: int, n_probe: int, p: int, s: int, e: int,
         return pqs.pq_scan_topk(lut, codes, valid, cids, k, metric=metric,
                                 probe_ok=pok, probe_base=base)
 
-    scan_sort = _scan_sort(lut, codes, valid, cids, k, metric, pok, base)
+    def scan_sort():
+        return pqs.pq_scan_sort_topk(lut, codes, valid, cids, k,
+                                     metric=metric, probe_ok=pok,
+                                     probe_base=base)
+
     got, own = call(), scan_sort()
     plain, scale = _pq_plain(lut, codes, valid, cids, pok, base, metric)
     torch.cuda.synchronize()
@@ -957,15 +965,8 @@ def check_pq_scan_topk(q: int, n_probe: int, p: int, s: int, e: int,
         v = bag().reshape(q, -1)
         return pqs._sorted_top(v, k, metric)
 
-    # bytes the function needs: the probed clusters' valid rows and valid
-    # points' codes once, the f32 LUTs, cids, the offsets, probe_ok, the
-    # (Q, k) outputs (the scores, 4·Q·np·P bytes, are not written)
-    n_kept = int((valid[cids] if pok is None
-                  else valid[cids] & pok[..., None]).sum())
-    n_bytes = need["index_bytes"] + 4 * lut.numel() + cids.numel() * 8 \
-        + (0 if base is None else 4 * base.numel()) \
-        + (0 if pok is None else pok.numel()) + 12 * q * k
-    bnd, by = bound_ms(n_bytes, n_kept * s)
+    n_bytes, n_ops = _pq_need(lut, valid, cids, pok, base, k)
+    bnd, by = bound_ms(n_bytes, n_ops)
     kk = min(k, p)
     out = {"route": "top-k", "metric": metric, "Q": q, "np": n_probe,
            "P": p, "S": s, "E": e, "k": k, "valid": layout, "lut": lut_kind,
@@ -985,7 +986,7 @@ def check_pq_scan_topk(q: int, n_probe: int, p: int, s: int, e: int,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
            # what the route also moves: the candidates, written and read
            "bound_with_candidates_ms": bound_ms(
-               n_bytes + 16 * q * n_probe * kk, n_kept * s)[0],
+               n_bytes + 16 * q * n_probe * kk, n_ops)[0],
            "kernels_a_call": _hit_kernels(
                lambda: ops.masked_adc_topk_scan(
                    lut, codes, valid, cids, k, metric=metric, probe_ok=pok,
@@ -1000,8 +1001,9 @@ def check_pq_scan_pass(name: str, calls: list[dict]) -> list[dict]:
     """Tier H's top-k route over the calls of one engine pass, replayed on
     their recorded inputs (the built index's codes and valid slots, stage
     B's LUTs, the probed cluster ids, k, probe_ok, the offsets): each call
-    bit-equal to the route it took before this PR (``_scan_sort``: the
-    scores kernel, the add, a stable sort, a slice) and close to plain;
+    bit-equal to the route it took before this PR
+    (``pq_scan_sort_topk``: the scores kernel, the add, a stable sort, a
+    slice) and close to plain;
     device ms (CUDA events, a call at a time), the profiler's select- and
     merge-kernel ms, the plain version's and ``scan_sort_ms``, and the
     bound, summed over the pass's calls."""
@@ -1016,9 +1018,10 @@ def check_pq_scan_pass(name: str, calls: list[dict]) -> list[dict]:
                                 probe_base=c["probe_base"])
 
     def scan_sort(c):
-        return _scan_sort(c["lut"], c["codes"], c["valid"], c["cids"],
-                          c["k"], c["metric"], c["probe_ok"],
-                          c["probe_base"])
+        return pqs.pq_scan_sort_topk(c["lut"], c["codes"], c["valid"],
+                                     c["cids"], c["k"], metric=c["metric"],
+                                     probe_ok=c["probe_ok"],
+                                     probe_base=c["probe_base"])
 
     def plain(c):
         v = c["valid"][c["cids"]]
@@ -1034,18 +1037,12 @@ def check_pq_scan_pass(name: str, calls: list[dict]) -> list[dict]:
         pl, sc = _pq_plain(c["lut"], c["codes"], c["valid"], c["cids"],
                            c["probe_ok"], c["probe_base"], c["metric"])
         err = max(err, _pq_topk_close(
-            call(c), scan_sort(c)(), pl, sc, c["k"], c["metric"],
+            call(c), scan_sort(c), pl, sc, c["k"], c["metric"],
             f"{what} Q={c['cids'].shape[0]} k={c['k']}"))
         del pl, sc
-        rows_ = torch.unique(c["cids"])
-        s = c["lut"].shape[2]
-        n_bytes += (rows_.numel() * c["valid"].shape[1]
-                    + int(c["valid"][rows_].sum()) * s
-                    + 4 * c["lut"].numel() + c["cids"].numel() * 8
-                    + (0 if c["probe_base"] is None
-                       else 4 * c["probe_base"].numel())
-                    + 12 * c["cids"].shape[0] * c["k"])
-        n_ops += int(c["valid"][c["cids"]].sum()) * s
+        b, o = _pq_need(c["lut"], c["valid"], c["cids"], c["probe_ok"],
+                        c["probe_base"], c["k"])
+        n_bytes, n_ops = n_bytes + b, n_ops + o
     bnd, by = bound_ms(n_bytes, n_ops)
 
     def whole_pass():
@@ -1062,7 +1059,8 @@ def check_pq_scan_pass(name: str, calls: list[dict]) -> list[dict]:
         "equal_to_route_before": True,
         "ms": sum(time_ms(lambda c=c: call(c)) for c in calls),
         "plain_ms": sum(time_ms(lambda c=c: plain(c), reps=3) for c in calls),
-        "scan_sort_ms": sum(time_ms(scan_sort(c)) for c in calls),
+        "scan_sort_ms": sum(time_ms(lambda c=c: scan_sort(c))
+                            for c in calls),
         "library_ms": None,
         "select_ms": None if split["select"] is None
         else split["select"] * len(calls) / 1e3,
@@ -1561,60 +1559,56 @@ class StageACount:
         juno_lib.filter_clusters = self._fn
 
 
-class HitCalls:
-    """Within ``with``: record every ``ops.hit_count_topk_scan`` call the
-    searches make (``core/juno.py`` calls it through ``ops``): the probed
-    cluster ids, k, ``probe_ok`` and the index's codes and valid mask it
-    was given, and with ``tables`` a copy of its hit table, for a replay."""
+def _clone(t):
+    return None if t is None else t.clone()
 
-    def __init__(self, tables: bool = False):
-        self.calls, self._tables = [], tables
 
-    def __enter__(self):
-        self._fn = ops.hit_count_topk_scan
-
-        def recorded(table, codes, valid, cids, k, *, probe_ok=None):
-            self.calls.append(dict(
-                table=table.clone() if self._tables else None, codes=codes,
+def _hit_call(tables, table, codes, valid, cids, k, *, probe_ok=None):
+    return dict(table=table.clone() if tables else None, codes=codes,
                 valid=valid, cids=cids.clone(), k=k, S=table.shape[2],
-                probe_ok=None if probe_ok is None else probe_ok.clone()))
-            return self._fn(table, codes, valid, cids, k, probe_ok=probe_ok)
-        ops.hit_count_topk_scan = recorded
-        return self
-
-    def __exit__(self, *exc):
-        ops.hit_count_topk_scan = self._fn
+                probe_ok=_clone(probe_ok))
 
 
-class PqCalls:
-    """Within ``with``: record every ``ops.masked_adc_topk_scan`` call the
-    searches make (tier H; ``core/juno.py`` calls it through ``ops``): the
-    probed cluster ids, k, ``probe_ok``, the offsets and the index's codes
-    and valid mask it was given, and with ``tables`` a copy of its LUT, for
+def _pq_call(tables, mlut, codes, valid, cids, k, *, metric="l2",
+             probe_ok=None, probe_base=None):
+    return dict(lut=mlut.clone() if tables else None, codes=codes,
+                valid=valid, cids=cids.clone(), k=k, S=mlut.shape[2],
+                metric=metric, probe_ok=_clone(probe_ok),
+                probe_base=_clone(probe_base))
+
+
+class OpsCalls:
+    """Within ``with``: record every call of ``ops.<name>`` the searches
+    make (``core/juno.py`` calls the kernels through ``ops``):
+    ``pick(tables, *args, **kw)`` keeps its probed cluster ids, k,
+    ``probe_ok`` and the rest, the index's codes and valid mask it was
+    given, and with ``tables`` a copy of its table (hit table or LUT), for
     a replay."""
 
-    def __init__(self, tables: bool = False):
-        self.calls, self._tables = [], tables
+    def __init__(self, name: str, pick, tables: bool = False):
+        self.calls, self._name, self._pick = [], name, pick
+        self._tables = tables
 
     def __enter__(self):
-        self._fn = ops.masked_adc_topk_scan
+        self._fn = getattr(ops, self._name)
 
-        def recorded(mlut, codes, valid, cids, k, *, metric="l2",
-                     probe_ok=None, probe_base=None):
-            self.calls.append(dict(
-                lut=mlut.clone() if self._tables else None, codes=codes,
-                valid=valid, cids=cids.clone(), k=k, S=mlut.shape[2],
-                metric=metric,
-                probe_ok=None if probe_ok is None else probe_ok.clone(),
-                probe_base=None if probe_base is None
-                else probe_base.clone()))
-            return self._fn(mlut, codes, valid, cids, k, metric=metric,
-                            probe_ok=probe_ok, probe_base=probe_base)
-        ops.masked_adc_topk_scan = recorded
+        def recorded(*args, **kw):
+            self.calls.append(self._pick(self._tables, *args, **kw))
+            return self._fn(*args, **kw)
+        setattr(ops, self._name, recorded)
         return self
 
     def __exit__(self, *exc):
-        ops.masked_adc_topk_scan = self._fn
+        setattr(ops, self._name, self._fn)
+
+
+def engine_calls(tables: bool = False) -> dict[str, OpsCalls]:
+    """Recorders of the engines' top-k scans, by the key of their summary
+    in ``serve_engine``'s line: tiers M, L and composed H2's
+    ``hit_count_topk_scan`` calls and tier H's ``masked_adc_topk_scan``
+    calls."""
+    return {"hit_calls": OpsCalls("hit_count_topk_scan", _hit_call, tables),
+            "pq_calls": OpsCalls("masked_adc_topk_scan", _pq_call, tables)}
 
 
 def _spread(x: torch.Tensor) -> dict:
@@ -1650,15 +1644,14 @@ def hit_call_summary(calls: list[dict]) -> dict:
 
 def serve_engine(index, queries, stream, *, metric: str, fused: bool,
                  n_points: int, trace_path: str, rt_grid=None,
-                 record: HitCalls | None = None,
-                 pq_record: PqCalls | None = None) -> dict:
+                 records: dict[str, OpsCalls] | None = None) -> dict:
     """Warm-up, one pass with the launch counts read, four more timed
     passes and one profiled pass of one engine configuration (with
     ``rt_grid``: ``prefilter="rt"``) over ``index``, a
     ``MutableJunoIndex`` the engines share (its bookkeeping is built
     once). The warm-up, the same stream as every pass, records the
     engine's ``hit_count_topk_scan`` and ``masked_adc_topk_scan`` calls
-    (into ``record`` and ``pq_record`` if given). The profiled pass must
+    (into ``records``, :func:`engine_calls`, if given). The profiled pass must
     run no sort but stage A's and the small final ones
     (``radixSortKVInPlace``): "other sorts" under 1 ms."""
     prefilter = "scan" if rt_grid is None else "rt"
@@ -1672,9 +1665,10 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
         eng.run()
         return eng, reqs, time.perf_counter() - t
 
-    record = record or HitCalls()
-    pq_record = pq_record or PqCalls()
-    with record, pq_record:
+    records = records or engine_calls()
+    with contextlib.ExitStack() as stack:
+        for r in records.values():
+            stack.enter_context(r)
         serve()                                # warm-up: cuBLAS, allocator
     stage_a = StageACount()
     _build.reset_launches()
@@ -1713,8 +1707,8 @@ def serve_engine(index, queries, stream, *, metric: str, fused: bool,
             "tiers": sorted({eng.route(r)[1] for r in reqs}),
             "sentinel_results": sentinels, "launches": launches,
             "stage_a_calls": stage_a.calls,
-            "hit_calls": hit_call_summary(record.calls),
-            "pq_calls": hit_call_summary(pq_record.calls)}
+            **{key: hit_call_summary(r.calls)
+               for key, r in records.items()}}
 
 
 def _ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, what: str,
@@ -2223,7 +2217,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     engines = {}
     # the unfused scan engine's calls (tiers M, L and composed H2; tier H),
     # tables kept, are replayed as hit_count and pq_scan rows below
-    replay, pq_replay = HitCalls(tables=True), PqCalls(tables=True)
+    replay = engine_calls(tables=True)
     for label, fused, g in (("fused", True, None), ("unfused", False, None),
                             ("rt_fused", True, grid),
                             ("rt_unfused", False, grid)):
@@ -2231,22 +2225,20 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
             mut, queries, stream, metric=spec.metric, fused=fused,
             n_points=n, rt_grid=g,
             trace_path=os.path.join(out_dir, f"trace_{name}_{label}.json"),
-            record=replay if label == "unfused" else None,
-            pq_record=pq_replay if label == "unfused" else None)
+            records=replay if label == "unfused" else None)
         log(f"serve.{name}.{label}", **engines[label])
-    hit_rows = check_hit_count_pass(name, replay.calls)
+    hit_rows = check_hit_count_pass(name, replay["hit_calls"].calls)
     for r in hit_rows:
         log(f"kernel.hit_count.{name}", **r)
-    pq_rows = check_pq_scan_pass(name, pq_replay.calls)
+    pq_rows = check_pq_scan_pass(name, replay["pq_calls"].calls)
     for r in pq_rows:
         log(f"kernel.pq_scan.{name}", **r)
     if hit_calls_dir:
         os.makedirs(hit_calls_dir, exist_ok=True)
-        save_calls(os.path.join(hit_calls_dir, f"hit_calls_{name}.pt"),
-                   replay.calls)
-        save_calls(os.path.join(hit_calls_dir, f"pq_calls_{name}.pt"),
-                   pq_replay.calls)
-    del replay, pq_replay
+        for key, r in replay.items():
+            save_calls(os.path.join(hit_calls_dir, f"{key}_{name}.pt"),
+                       r.calls)
+    del replay
     torch.cuda.empty_cache()
 
     cpu_index = index_to(index, "cpu")

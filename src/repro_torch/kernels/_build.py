@@ -34,8 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper since the last :func:`reset_launches`, and
-#: ``pq_scan_sort``: ``pq_scan_topk`` calls past its kernels' limits, which
-#: run the scores kernel and a stable sort
+#: ``pq_scan_sort``: calls of ``pq_scan.pq_scan_sort_topk`` (the scores
+#: kernel and a stable sort), which ``pq_scan_topk`` takes past its
+#: kernels' limits
 LAUNCHES = {name: 0 for name in SOURCES + ("pq_scan_sort",)}
 
 

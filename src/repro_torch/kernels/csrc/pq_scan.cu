@@ -227,6 +227,13 @@ struct SelectSmem {
   int w_n[32];
 };
 
+// The most static shared memory a scan-body kernel takes beside its LUT
+// (pq_topk_kernel: a SelectSmem and s_count; TOPK_STATIC_SMEM in
+// kernels/pq_scan.py, whose shape guard leaves this much room).
+constexpr int kTopkStaticSmem = 3072;
+static_assert(sizeof(SelectSmem) + sizeof(int) <= kTopkStaticSmem,
+              "the shape guard in kernels/pq_scan.py leaves too little room");
+
 // The block-wide AND and OR of the items and their number.
 struct Span {
   uint64_t all, any;

@@ -32,6 +32,11 @@ K_MAX = 1024
 #: the most slots a cluster may have for the top-k kernels (8192 points: 16
 #: registers a thread of 512)
 P_MAX = 8192
+#: the most static shared memory the scan kernels take beside the LUT
+#: (``kTopkStaticSmem`` in ``csrc/pq_scan.cu``, which asserts it), and
+#: the most shared memory a block may have on Hopper
+TOPK_STATIC_SMEM = 3072
+SMEM_MAX = 227 * 1024
 
 #: the plain PyTorch version, on any device: lut (Q, np, S, E) f32, codes
 #: (Q, np, P, S) uint8, valid (Q, np, P) bool -> (Q, np, P) f32
@@ -73,7 +78,7 @@ def _check_args(lut, cluster_codes, cluster_valid, cids, probe_ok):
     q, n_probe, s, e = lut.shape
     n_cl, p = cluster_valid.shape
     if q * n_probe >= 2 ** 31 or n_probe * p >= 2 ** 31 \
-            or 4 * s * e + 2048 > 227 * 1024:
+            or 4 * s * e + TOPK_STATIC_SMEM > SMEM_MAX:
         raise ValueError(f"unsupported shape Q={q} np={n_probe} P={p} S={s} "
                          f"E={e}")
     args = [_build.checked(n, t, dt, shp, dev) for n, t, dt, shp in (
@@ -118,6 +123,19 @@ def pq_scan(lut: torch.Tensor, cluster_codes: torch.Tensor,
     return out
 
 
+def _topk_args(lut, cluster_codes, cluster_valid, cids, k, probe_ok,
+               probe_base):
+    ptrs, shape, dev = _check_args(lut, cluster_codes, cluster_valid, cids,
+                                   probe_ok)
+    q, n_probe, p = shape[:3]
+    if not 1 <= k <= n_probe * p:
+        raise ValueError(f"k={k} outside [1, np*P={n_probe * p}]")
+    if probe_base is not None:
+        probe_base = _build.checked("probe_base", probe_base, torch.float32,
+                                    (q, n_probe), dev)
+    return ptrs, shape, dev, probe_base
+
+
 def pq_scan_topk(lut: torch.Tensor, cluster_codes: torch.Tensor,
                  cluster_valid: torch.Tensor, cids: torch.Tensor, k: int, *,
                  metric: str = "l2", probe_ok: torch.Tensor | None = None,
@@ -133,25 +151,17 @@ def pq_scan_topk(lut: torch.Tensor, cluster_codes: torch.Tensor,
     make): two kernels a call (the per-probe select, the per-query merge)
     and nothing else on the stream; counts one launch in
     ``_build.LAUNCHES["pq_scan"]``, so that count is of calls, two kernels
-    each. Above either limit, chosen by shape alone: the scores-only
-    kernel, the ``probe_base`` add and a stable sort with a slice, counted
-    in ``_build.LAUNCHES["pq_scan_sort"]`` instead.
+    each. Above either limit, chosen by shape alone:
+    :func:`pq_scan_sort_topk`.
     """
     bad = bad_score(metric)
-    ptrs, shape, dev = _check_args(lut, cluster_codes, cluster_valid, cids,
-                                   probe_ok)
+    if k > K_MAX or cluster_valid.shape[-1] > P_MAX:
+        return pq_scan_sort_topk(lut, cluster_codes, cluster_valid, cids, k,
+                                 metric=metric, probe_ok=probe_ok,
+                                 probe_base=probe_base)
+    ptrs, shape, dev, probe_base = _topk_args(
+        lut, cluster_codes, cluster_valid, cids, k, probe_ok, probe_base)
     q, n_probe, p, s, e = shape
-    if not 1 <= k <= n_probe * p:
-        raise ValueError(f"k={k} outside [1, np*P={n_probe * p}]")
-    if probe_base is not None:
-        probe_base = _build.checked("probe_base", probe_base, torch.float32,
-                                    (q, n_probe), dev)
-    if k > K_MAX or p > P_MAX:
-        scores = _scores(ptrs, shape, dev, metric)
-        if probe_base is not None:
-            scores = scores + probe_base[..., None]
-        _build.LAUNCHES["pq_scan_sort"] += 1
-        return _sorted_top(scores.reshape(q, -1), k, metric)
     kk = min(k, p)
     cand_val = torch.empty((q, n_probe, kk), dtype=torch.float32, device=dev)
     cand_pos = torch.empty((q, n_probe, kk), dtype=torch.int32, device=dev)
@@ -165,6 +175,30 @@ def pq_scan_topk(lut: torch.Tensor, cluster_codes: torch.Tensor,
     _build.check(rc, "pq_scan")
     _build.LAUNCHES["pq_scan"] += 1
     return vals, pos
+
+
+def pq_scan_sort_topk(lut: torch.Tensor, cluster_codes: torch.Tensor,
+                      cluster_valid: torch.Tensor, cids: torch.Tensor,
+                      k: int, *, metric: str = "l2",
+                      probe_ok: torch.Tensor | None = None,
+                      probe_base: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top-k by a sort (CUDA tensors only): the scores-only kernel,
+    the ``probe_base`` add and a stable sort with a slice, at any k and P.
+    :func:`pq_scan_topk` takes it past :data:`K_MAX` or :data:`P_MAX`; it
+    is also the route tier H took before the top-k kernels. Arguments and
+    result as for :func:`pq_scan_topk`, whose values and positions it
+    equals bit for bit; counts one launch in
+    ``_build.LAUNCHES["pq_scan_sort"]``.
+    """
+    bad_score(metric)
+    ptrs, shape, dev, probe_base = _topk_args(
+        lut, cluster_codes, cluster_valid, cids, k, probe_ok, probe_base)
+    scores = _scores(ptrs, shape, dev, metric)
+    if probe_base is not None:
+        scores = scores + probe_base[..., None]
+    _build.LAUNCHES["pq_scan_sort"] += 1
+    return _sorted_top(scores.reshape(shape[0], -1), k, metric)
 
 
 @functools.cache

@@ -384,6 +384,29 @@ def test_pq_scan_launches_its_kernels_only(cuda):
         assert all(n in node for n, node in zip(want, nodes)), nodes
 
 
+def test_pq_scan_shape_guard_matches_the_kernels(cuda):
+    """The largest LUT the shape guard lets through (S = 224, E = 256:
+    224 KB beside the top-k kernel's static shared memory) launches both
+    entries and is right; one subspace more is refused before a launch."""
+    g = torch.Generator(device="cuda").manual_seed(71)
+    q, n_probe, p, e = 2, 3, 40, 256
+    for s, fits in ((224, True), (225, False)):
+        lut = torch.rand((q, n_probe, s, e), generator=g, device=cuda)
+        codes = torch.randint(0, e, (5, p, s), generator=g, device=cuda,
+                              dtype=torch.uint8)
+        valid = torch.rand((5, p), generator=g, device=cuda) < 0.5
+        cids = torch.randint(0, 5, (q, n_probe), generator=g, device=cuda)
+        assert (4 * s * e + ppq.TOPK_STATIC_SMEM <= ppq.SMEM_MAX) == fits
+        if not fits:
+            with pytest.raises(ValueError, match="unsupported shape"):
+                ops.masked_adc_topk_scan(lut, codes, valid, cids, 10)
+            with pytest.raises(ValueError, match="unsupported shape"):
+                ops.masked_adc_scan(lut, codes, valid, cids)
+            continue
+        got = ops.masked_adc_topk_scan(lut, codes, valid, cids, 10)
+        _pq_topk_check(got, lut, codes, valid, cids, None, None, 10, "l2")
+
+
 def test_scans_read_codes_through_cids(cuda):
     """The ops wrappers on the card equal the plain versions over the
     gathered codes, for cids with repeats and an odd S (byte loads)."""
