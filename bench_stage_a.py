@@ -7,6 +7,7 @@
     python3 bench_stage_a.py --hit-count [--src DIR] [--label NAME]
     python3 bench_stage_a.py --hit-count --calls FILE [--src DIR] [--label NAME]
     python3 bench_stage_a.py --pq-scan [--calls FILE] [--src DIR] [--label NAME]
+    python3 bench_stage_a.py --sphere [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
     python3 bench_stage_a.py --traces TRACE.json.gz ...
@@ -108,6 +109,17 @@ that ``chip_smoke.py --hit-calls`` recorded (``pq_calls_<index>.pt``),
 through the top-k route and the scores-only kernel: the kernels' ms over
 the pass by kind, kernels a pass, the summed device ms and a hash.
 
+With ``--sphere`` it times the rt search's probe mask
+(``core.juno._rt_probe_mask``) of the tree on a synthetic grid at the
+engines' Q 128 (np 16, S 48, D 96 and np 8, S 100, D 200), 32 and 8:
+``device_ms``, ``host_ms``, kernels and host copies a call (profiler) and
+a hash of ``probe_ok``; with the probe entry (``ops.rt_probe_mask``) also
+its device ms, the probe kernel's own µs and an empty kernel's on the same
+grid (the launch floor). A tree without the entry runs its own route. Then
+the projection onto the ray plane at Q 8–1024 and D 96 and 200, as one
+(Q, D) × (D, 2) product and as Q (1, D) × (D, 2) products (``bmm``, the
+search's form): device ms, kernels a call, and whether the two agree.
+
 With ``--kernels`` it times the ``ivf_filter`` kernel's two epilogues
 instead (this tree only), over a sweep of shapes, nprobe and D: besides
 ``device_ms`` (CUDA events), ``kernel_us``, the kernel's own mean duration
@@ -124,7 +136,9 @@ runs. The copy is only measured, never used.
 With ``--traces`` it reads gzipped Chrome traces of the profiled passes
 that ``chip_smoke.py`` writes and sums the device time and launches of
 their kernels by kind (stage A, sorts, stage B, count, select, ``pq_scan``,
-the rest); this needs no card.
+the rt probe mask, the rest), and the segment from each stage-B launch to
+the next scan kernel (kernels a segment, device ms a pass); this needs no
+card.
 
 Prints one JSON line a shape (or trace), each measured one with the card's
 name and power limit. Needs a CUDA card except with ``--traces``; exits
@@ -834,6 +848,99 @@ def phase_sweep(card: str) -> None:
                           "card": card}), flush=True)
 
 
+def sphere_rows(card: str, label: str, reps: int) -> None:
+    """The rt search's probe mask, ``core/juno.py:_rt_probe_mask``, as the
+    scans' rt path calls it, on a synthetic 16×16-cell grid with every
+    real slot one cluster's: device and host ms a call, kernels and host
+    copies a call (profiler), and a hash of ``probe_ok``; on a tree with
+    the probe entry (``ops.rt_probe_mask``) also the probe kernel's own µs
+    and that of an empty kernel on its grid (the launch floor), beside
+    ``ops.rt_probe_mask``'s device ms. A tree without the entry runs its
+    own route (``query_radius``, the dense table, the gathers)."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.core.juno import _rt_probe_mask
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sphere_hits as sph
+    from repro_torch.rt import grid_from_arrays
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for q, n_probe, s, cap, d in ((128, 16, 48, 88, 96), (128, 8, 100, 176, 200),
+                                  (32, 16, 48, 88, 96), (8, 16, 48, 88, 96)):
+        c0, c1, reach, real = _grid(16, cap, gen)
+        slot_of = real[torch.randperm(real.numel(), generator=gen,
+                                      device=dev)].to(torch.int32)
+        proj = np.ascontiguousarray(np.linalg.qr(np.random.default_rng(d)
+                                                 .standard_normal((d, 2)))[0],
+                                    np.float32)
+        host = lambda t: t.cpu().numpy()  # noqa: E731
+        grid = grid_from_arrays(dict(
+            proj=proj, lo=np.zeros(2, np.float32), hi=np.ones(2, np.float32),
+            boxes=np.zeros((256, 4), np.float32),
+            cell_ids=np.full((256, cap), -1, np.int32), cell_c0=host(c0),
+            cell_c1=host(c1), slot_reach=host(reach),
+            cell_reach=host(reach).max(1), slot_of=host(slot_of),
+            radius_scale=np.float32((2.0 / d) ** 0.5),
+            radius_bias=np.float32(-0.02)), dev, prefix="")
+        x = torch.randn((q, d), generator=gen, device=dev) * 0.3
+        tau = torch.rand((q, n_probe, s), generator=gen, device=dev) * 0.05
+        cids = torch.randint(0, real.numel(), (q, n_probe), generator=gen,
+                             device=dev)
+
+        def fn():
+            return _rt_probe_mask(grid, x, tau, cids, 1.0)
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        copies = sum(ev.count for ev in evs if "Memcpy" in ev.key)
+        row = {"label": label, "what": "_rt_probe_mask", "Q": q,
+               "np": n_probe, "S": s, "cap": cap, "D": d,
+               "device_ms": device_ms(fn, reps), "host_ms": host_ms(fn, reps),
+               "kernels": sum(ev.count for ev in evs) - copies,
+               "host_copies": copies,
+               "probe_ok": hashlib.sha256(fn().cpu().numpy().tobytes())
+               .hexdigest()[:16], "card": card}
+        if hasattr(ops, "rt_probe_mask"):
+            qp = x @ grid.proj
+            args = (qp[:, 0], qp[:, 1], tau[:, 0], cids, grid.slot_of,
+                    grid.cell_c0, grid.cell_c1, grid.slot_reach,
+                    grid.radius_scale, grid.radius_bias)
+            probe = lambda: ops.rt_probe_mask(*args)  # noqa: E731
+            row.update(
+                probe_device_ms=device_ms(probe, reps),
+                probe_kernel_us=kernel_us(probe, reps, "sphere_probe_kernel"),
+                floor_kernel_us=kernel_us(lambda: sph.sphere_floor(q, dev),
+                                          reps, "sphere_floor_kernel"),
+                floor_device_ms=device_ms(lambda: sph.sphere_floor(q, dev),
+                                          reps))
+        print(json.dumps(row), flush=True)
+    # the projection onto the ray plane in two forms: the (Q, D) × (D, 2)
+    # product, and Q products (1, D) × (D, 2) as ``_rt_probe`` takes it
+    for d in (96, 200):
+        proj = torch.linalg.qr(torch.randn((d, 2), generator=gen,
+                                           device=dev))[0].contiguous()
+        for q in (8, 32, 128, 1024):
+            x = torch.randn((q, d), generator=gen, device=dev)
+            forms = {"mm": lambda: x @ proj,
+                     "bmm": lambda: torch.bmm(
+                         x[:, None, :], proj.expand(q, -1, -1))[:, 0]}
+            for form, fn in forms.items():
+                print(json.dumps({
+                    "label": label, "what": "projection", "form": form,
+                    "Q": q, "D": d, "device_ms": device_ms(fn, reps),
+                    "kernels": kernels_of(fn)[0],
+                    "equal_to_mm": torch.equal(fn(), forms["mm"]()),
+                    "card": card}), flush=True)
+
+
 #: kernel kinds of ``--traces``, by a substring of the kernel's name
 _KINDS = (("stage A (ivf_filter)", "ivf_filter"),
           ("radixSortKVInPlace", "radixSortKVInPlace"),
@@ -841,7 +948,13 @@ _KINDS = (("stage A (ivf_filter)", "ivf_filter"),
           ("hit_count", "hit_count_kernel"), ("hit_count top-k", "hit_topk_kernel"),
           ("two-stage count", "count_kernel"), ("two-stage select", "select_kernel"),
           ("pq_scan", "pq_scan"), ("pq_scan top-k select", "pq_topk_kernel"),
-          ("pq_scan top-k merge", "pq_merge_kernel"))
+          ("pq_scan top-k merge", "pq_merge_kernel"),
+          ("rt probe mask (sphere_probe)", "sphere_probe_kernel"),
+          ("rt dense table (sphere_hits)", "sphere_hits_kernel"))
+#: the scans' first kernels: the end of ``--traces``' stage-B-to-scan
+#: segment (``hit_count_kernel`` and the fused scans' ``count_kernel``
+#: both hold ``count_kernel``)
+_SCANS = ("pq_topk_kernel", "pq_scan_kernel", "count_kernel")
 
 
 def trace_kinds(paths: list[str]) -> None:
@@ -857,7 +970,31 @@ def trace_kinds(paths: list[str]) -> None:
         print(json.dumps({"trace": path, "kernels": len(events),
                           "device_ms": sum(ms.values()),
                           "kinds": {k: {"ms": ms[k], "launches": n[k]}
-                                    for k in sorted(ms)}}), flush=True)
+                                    for k in sorted(ms)},
+                          "stage_b_to_scan": b_to_scan(events)}), flush=True)
+
+
+def b_to_scan(events: list[dict]) -> dict:
+    """The kernels on the stream between each stage-B launch and the next
+    scan kernel (the rt probe mask's, and tier L's clip): their number a
+    segment (median, min, max) and their device ms summed over the pass."""
+    events = sorted(events, key=lambda e: e["ts"])
+    counts, total = [], 0.0
+    for i, e in enumerate(events):
+        if "selective_lut" not in e["name"]:
+            continue
+        j = i + 1
+        while j < len(events) and not any(k in events[j]["name"]
+                                          for k in _SCANS):
+            j += 1
+        if j == len(events):
+            continue
+        counts.append(j - i - 1)
+        total += sum(ev["dur"] for ev in events[i + 1:j]) / 1e3
+    return {"segments": len(counts),
+            "kernels_median": statistics.median(counts) if counts else None,
+            "kernels_min": min(counts, default=None),
+            "kernels_max": max(counts, default=None), "ms": total}
 
 
 def main() -> int:
@@ -875,6 +1012,9 @@ def main() -> int:
                          "of this tree instead")
     ap.add_argument("--pq-scan", action="store_true",
                     help="time tier H's scan and its top-k of this tree "
+                         "instead")
+    ap.add_argument("--sphere", action="store_true",
+                    help="time the rt search's probe mask of this tree "
                          "instead")
     ap.add_argument("--calls", metavar="FILE",
                     help="with --hit-count or --pq-scan: replay the engine "
@@ -919,6 +1059,9 @@ def main() -> int:
             pq_scan_calls(card, args.label, args.reps, args.calls)
         else:
             pq_scan_rows(card, args.label, args.reps)
+        return 0
+    if args.sphere:
+        sphere_rows(card, args.label, args.reps)
         return 0
     if args.kernels:
         kernel_sweep(card, args.reps)

@@ -58,11 +58,22 @@ Phases, each raising on failure:
    kernel, the add, a stable sort and a slice: the route before the top-k
    kernels), the library's ``embedding_bag`` + sort + slice and two
    kernels a call by capture; then its scores-only kernel at the two
-   shapes of earlier runs, one kernel a call;
+   shapes of earlier runs, one kernel a call; ``sphere_hits``'s probe
+   entry, which the rt search runs (``probe_ok``, radius and slots
+   bit-equal to plain, and the verdicts to the dense entry's table at that
+   radius gathered at the slots), at np 16 and 8, S 48 and 100, Q 128, 32
+   and 8, scale 1, 0 and 1e6, each with the launch floor (an empty kernel
+   on its grid, timed the same way) and one kernel a call by capture;
+   then its dense entry at caps 64 and 32;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
-   and its RT centroid grid built on the card (then ``sphere_hits``
-   against its plain version on that grid, the main path's ``cap``, and the
-   rt router's host time over the request stream), served by four engines —
+   and its RT centroid grid built on the card (then ``sphere_hits``'s probe
+   entry on that grid at Q 128, np 16 and 8, as the search calls it: equal
+   to plain, timed beside its bound and launch floor, and the search's
+   ``_rt_probe_mask`` two kernels a call by capture, the projection GEMM
+   and the probe kernel;
+   the dense entry against its plain version on that grid, the main
+   path's ``cap``; and the rt router's host time over the request stream),
+   served by four engines —
    ``fused`` True and False, each with ``prefilter`` "scan" and "rt" — on
    a stream of 64 requests that routes to tiers H, H2, M and L: each
    engine's kernel launches over one pass (``ivf_filter`` for stage A in
@@ -104,7 +115,9 @@ Phases, each raising on failure:
    then ``mutate.ip``;
 6. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
-   four engines over both indexes and the ``mutate`` rounds: a
+   four engines over both indexes and the ``mutate`` rounds (an rt
+   engine that launches the dense ``sphere_hits`` entry fails; the line's
+   ``sphere_hits`` counts both entries, each in ``entries``): a
    ``hit_count`` call on the top-k route, which every engine takes, is two
    kernels (count, then top-k), and so is a ``pq_scan`` call on its top-k
    route, which every unfused engine takes for tier H (select, then
@@ -163,6 +176,7 @@ from repro_torch.serve.ann import AnnServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
+F64_OPS_PER_S = 34e12          # H100 SXM f64 rate outside the tensor cores
 RTOL = 1e-5                    # f32 sums over S in another order
 N_POINTS = 1_000_000
 SIDE = 256                     # side-buffer capacity of the mutable index
@@ -196,17 +210,24 @@ ENGINE_KERNELS = {
                      "hit_count"},
     ("scan", False): {"ivf_filter", "selective_lut", "pq_scan", "hit_count"},
     ("rt", True): {"ivf_filter", "selective_lut", "fused_three_stage",
-                   "hit_count", "sphere_hits"},
-    ("rt", False): {"ivf_filter", "selective_lut", "sphere_hits", "pq_scan",
+                   "hit_count", "sphere_probe"},
+    ("rt", False): {"ivf_filter", "selective_lut", "sphere_probe", "pq_scan",
                     "hit_count"},
 }
+# the line's kernels whose launches are counted under several keys of
+# ``_build.LAUNCHES``, one an entry: the rt search launches sphere_hits.cu's
+# probe entry, the dense entry is the reference's contract
+ENTRIES = {"sphere_hits": ("sphere_probe", "sphere_hits")}
 # the kernels whose ``launches`` count wrapper calls of several kernels
 CALL_LAUNCHES = {
     "pq_scan": "wrapper calls; each top-k call (every call of the main "
                "path) is two kernels: pq_topk_kernel, then pq_merge_kernel",
     "hit_count": "wrapper calls; each top-k call (every call of the main "
                  "path) is two kernels: hit_count_kernel, then "
-                 "hit_topk_kernel"}
+                 "hit_topk_kernel",
+    "sphere_hits": "launches of both entries of sphere_hits.cu (sphere_probe: "
+                   "the rt search's probe mask, one kernel a call; "
+                   "sphere_hits: the dense table), each in entries"}
 # the tiers whose recall and QPS are read, as search() arguments (k=100);
 # under prefilter="rt" fused H2 runs the three-stage kernel
 TIERS = {
@@ -245,8 +266,10 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, n_f64_ops: float = 0.0
+             ) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S + n_f64_ops / F64_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1166,6 +1189,108 @@ def check_sphere_hits_on_grid(name: str, index, grid, queries, metric: str,
                         grid.cell_c1, grid.slot_reach), grid=f"{name} index")
 
 
+def _probe_row(args: tuple, scale: float, **info) -> dict:
+    """The probe entry against its plain version on ``args`` (q0, q1, τ
+    row, cids, slot_of, c0, c1, reach, radius_scale, radius_bias):
+    ``probe_ok``, radius and slots equal, and the verdicts equal to the
+    dense kernel's table at that radius gathered at the slots; then timed
+    beside its bound, the plain version, the launch floor (an empty kernel
+    on the same grid, timed the same way), both kernels' own µs
+    (profiler) and one kernel a call by capture."""
+    dev = args[0].device
+    got = sph.sphere_probe(*args, scale)
+    want = sph.sphere_probe_plain(*args, scale)
+    dense = sph.sphere_hits(args[0].contiguous(), args[1].contiguous(),
+                            got[1], *args[5:8])
+    torch.cuda.synchronize()
+    what = f"sphere_probe {info}"
+    for name, a, b in zip(("probe_ok", "radius", "slot"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from plain in "
+                                 f"{int((a != b).sum())} places")
+    gathered = torch.gather(dense, 1, got[2].long()) > 0
+    gathered[:, 0] = True
+    if not torch.equal(got[0], gathered):
+        raise AssertionError(f"{what}: probe_ok != the dense table gathered")
+    q, n_probe = args[3].shape
+    s = args[2].shape[1]
+    # bytes: each probe's cid, slot_of entry, three slot-plane reads, its
+    # verdict and its slot; the τ row, the query, the two grid scalars and
+    # the radius. operations: a square and an add a (query, subspace) in
+    # f64; seven a probe and four a radius in f32
+    n_bytes = (q * n_probe * (args[3].element_size() + 4 + 12 + 1 + 4)
+               + q * s * 4 + q * 8 + 8 + q * 4)
+    bnd, by = bound_ms(n_bytes, 7 * q * n_probe + 4 * q, 2 * q * s)
+
+    def call():
+        return ops.rt_probe_mask(*args, scale=scale)
+
+    nodes = captured_kernels(call)
+    if len(nodes) != 1 or "sphere_probe_kernel" not in nodes[0]:
+        raise AssertionError(f"{what}: a call is {nodes}, not one kernel")
+    return {**info, "entry": "sphere_probe", "Q": q, "np": n_probe, "S": s,
+            "cells": args[5].shape[0], "cap": args[5].shape[1],
+            "scale": scale, "max_abs_err": 0.0,
+            "probes_kept": float(got[0].float().mean()),
+            "ms": time_ms(call),
+            "launch_floor_ms": time_ms(lambda: sph.sphere_floor(q, dev)),
+            "kernel_us": kernel_us(call, "sphere_probe_kernel"),
+            "floor_kernel_us": kernel_us(lambda: sph.sphere_floor(q, dev),
+                                         "sphere_floor_kernel"),
+            "plain_ms": time_ms(lambda: sph.sphere_probe_plain(*args, scale)),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "bytes": n_bytes, "kernels_a_call": len(nodes)}
+
+
+def check_sphere_probe(q: int, n_probe: int, s: int, g: int, cap: int,
+                       scale: float, gen) -> dict:
+    """The probe entry over a synthetic grid with pads and an empty cell:
+    every real slot one cluster's, random probed clusters, τ the probe-0
+    row of a (Q, np, S) tensor and q0, q1 a (Q, 2) tensor's columns, as
+    the search passes them."""
+    dev = torch.device("cuda")
+    c0, c1, reach, real = _grid(g, cap, gen)
+    slot_of = real[torch.randperm(real.numel(), generator=gen,
+                                  device=dev)].to(torch.int32)
+    cids = torch.randint(0, real.numel(), (q, n_probe), generator=gen,
+                         device=dev)
+    qp = torch.rand((q, 2), generator=gen, device=dev) * 1.4 - 0.2
+    tau = torch.rand((q, n_probe, s), generator=gen, device=dev) * 0.02
+    scalars = (torch.tensor(0.4, device=dev), torch.tensor(-0.01, device=dev))
+    return _probe_row((qp[:, 0], qp[:, 1], tau[:, 0], cids, slot_of, c0, c1,
+                       reach, *scalars), scale, grid="synthetic")
+
+
+def check_sphere_probe_on_grid(name: str, index, grid, queries, metric: str,
+                               n_probe: int, q: int = 128) -> dict:
+    """The probe entry as the search calls it on the index's own grid: a
+    batch of real queries at ``rt_scale`` 1, τ over every probe as stage B
+    has it; also the search's whole ``_rt_probe`` (the projection GEMM and
+    the probe kernel, which both rt paths run) held to two kernels a call
+    by capture, and its time."""
+    qb = torch.from_numpy(queries[:q]).to(index.ivf.centroids.device)
+    _, cids = filter_clusters(qb, index.ivf, nprobe=n_probe, metric=metric)
+    m = index.codebook.sub_dim
+    res = (qb[:, None, :] - index.ivf.centroids[cids] if metric == "l2"
+           else qb[:, None, :].expand(q, n_probe, -1))
+    tau = density_lib.predict_threshold(
+        index.density, res.reshape(q, n_probe, -1, m))       # (Q, np, S)
+    qp = qb @ grid.proj
+    row = _probe_row((qp[:, 0], qp[:, 1], tau[:, 0], cids, grid.slot_of,
+                      grid.cell_c0, grid.cell_c1, grid.slot_reach,
+                      grid.radius_scale, grid.radius_bias), 1.0,
+                     grid=f"{name} index")
+    nodes = captured_kernels(lambda: _rt_probe_mask(grid, qb, tau, cids, 1.0))
+    if len(nodes) != 2 or nodes[0] in ("MEMCPY", "MEMSET") or \
+            "sphere_probe_kernel" not in nodes[1]:
+        raise AssertionError(f"{name} _rt_probe_mask: {nodes}, not the GEMM "
+                             f"and the probe kernel")
+    return {**row, "mask_kernels_a_call": len(nodes),
+            "mask_nodes": [n[:60] for n in nodes],
+            "mask_ms": time_ms(lambda: _rt_probe_mask(grid, qb, tau, cids,
+                                                      1.0))}
+
+
 def check_fused_three_stage(q: int, n_probe: int, p: int, s: int, e: int,
                             n_clusters: int, cap_c: int, metric: str,
                             coverage: str, gen, distinct: bool = False,
@@ -1455,8 +1580,17 @@ def phase_kernels(seed: int) -> dict:
         for label, n_probe, s in (("M/L l2", 8, 48), ("M/L ip", 8, 100),
                                   ("composed H2 l2", 16, 48))]
     torch.cuda.empty_cache()
-    rows["sphere_hits"] = [check_sphere_hits(128, 16, 64, gen),
-                           check_sphere_hits(128, 16, 32, gen)]
+    # the probe entry (the rt search's) at the engines' np 16 and 8, S 48
+    # and 100, the grids' caps, Q 128, 32 and 8, scale 1, 0 and 1e6; then
+    # the dense entry
+    rows["sphere_hits"] = [
+        check_sphere_probe(q, n_probe, s, 16, cap, scale, gen)
+        for q, n_probe, s, cap, scale in (
+            (128, 16, 48, 88, 1.0), (128, 8, 100, 176, 1.0),
+            (32, 16, 48, 88, 1.0), (8, 16, 48, 88, 1.0),
+            (128, 16, 48, 88, 0.0), (128, 16, 48, 88, FULL))]
+    rows["sphere_hits"] += [check_sphere_hits(128, 16, 64, gen),
+                            check_sphere_hits(128, 16, 32, gen)]
     rows["fused_three_stage"] = [
         check_fused_three_stage(128, 16, 3912, s, 256, 1024, c, metric, cov,
                                 gen)
@@ -2205,9 +2339,13 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                  "radius_scale": float(grid.radius_scale),
                  "probes_kept_at_scale_1": probe_survival(
                      index, grid, queries, spec.metric)}
-    sphere_row = check_sphere_hits_on_grid(name, index, grid, queries,
-                                           spec.metric)
-    log(f"kernel.sphere_hits.{name}", **sphere_row)
+    sphere_rows = [check_sphere_probe_on_grid(name, index, grid, queries,
+                                              spec.metric, n_probe)
+                   for n_probe in (16, 8)]
+    sphere_rows.append(check_sphere_hits_on_grid(name, index, grid, queries,
+                                                 spec.metric))
+    for r in sphere_rows:
+        log(f"kernel.sphere_hits.{name}", **r)
 
     stream = _requests(np.random.default_rng(seed), queries.shape[0])
     mut = MutableJunoIndex(index, side_capacity=SIDE)
@@ -2259,7 +2397,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                           seed)
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
-           "grid": grid_info, "sphere_hits": sphere_row,
+           "grid": grid_info, "sphere_hits": sphere_rows,
            "hit_count_pass": hit_rows, "pq_scan_pass": pq_rows,
            "engines": engines, "tiers": tiers,
            "tiers_rt": rt_tiers, "mutate": mutate,
@@ -2275,16 +2413,26 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
     for name, rows in kernels.items():
         head = rows[0]
         src, replaces = SOURCES[name]
+        counts = {key: sum(e["launches"][key] for s in serves
+                           for e in s["engines"].values())
+                  + sum(s["mutate"]["launches"][key] for s in serves)
+                  for key in ENTRIES.get(name, (name,))}
         line.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": sum(e["launches"][name] for s in serves
-                            for e in s["engines"].values())
-            + sum(s["mutate"]["launches"][name] for s in serves),
+            "replaces": replaces, "launches": sum(counts.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "variants": rows})
+        if name in ENTRIES:
+            # each entry's launches beside its first row's numbers
+            firsts = {r.get("entry", "sphere_hits"): r for r in reversed(rows)}
+            line[-1]["entries"] = {
+                key: {"launches": n, **{
+                    k: firsts[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "launch_floor_ms")
+                    if k in firsts[key]}}
+                for key, n in counts.items()}
         if name in CALL_LAUNCHES:
             line[-1]["launches_are"] = CALL_LAUNCHES[name]
     return {"kernels": line}
@@ -2312,10 +2460,13 @@ def main() -> int:
     serves = [phase_serve(name, spec, args.seed, N_POINTS, device["nvidia_smi"],
                           args.out, args.hit_calls)
               for name, spec in (("l2", DEEP_LIKE), ("ip", TTI_LIKE))]
-    # the sphere test on each index's own grid leads its rows: that is the
-    # main path's shape (cap is the fullest cell's, known after the build);
-    # the hit counts' engine-pass replays follow the synthetic rows
-    kernels["kernels"]["sphere_hits"][:0] = [s["sphere_hits"] for s in serves]
+    # the probe entry on each index's own grid leads its rows (the l2 np 16
+    # row heads the line): that is the main path's shape (cap is the
+    # fullest cell's, known after the build); the dense entry on each grid
+    # follows; the hit counts' engine-pass replays follow the synthetic rows
+    kernels["kernels"]["sphere_hits"][:0] = sorted(
+        (r for s in serves for r in s["sphere_hits"]),
+        key=lambda r: r.get("entry") != "sphere_probe")
     kernels["kernels"]["hit_count"] += [r for s in serves
                                         for r in s["hit_count_pass"]]
     kernels["kernels"]["pq_scan"] += [r for s in serves

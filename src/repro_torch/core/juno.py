@@ -29,10 +29,10 @@ model, stage B builds the masked LUT and the int8 hit table
 
 With ``prefilter="rt"`` (the paper's RT-core stage-1 filter, ``rt/``) the
 probes whose cluster disc the query disc misses in the ray plane are
-pruned from stage C: the ``sphere_hits`` kernel gives each probe its
-verdict (probe 0 always kept) and the scans treat a pruned probe's points
-as invalid slots. Fused H2 then runs all three stages in the
-``fused_three_stage`` kernel unless ``fused3=False``.
+pruned from stage C: the ``sphere_hits`` kernel's probe entry gives each
+probe its verdict in one launch (probe 0 always kept) and the scans treat
+a pruned probe's points as invalid slots. Fused H2 then runs all three
+stages in the ``fused_three_stage`` kernel unless ``fused3=False``.
 
 Mutation (:class:`MutableJunoIndex`): ``insert`` labels new points with
 the ``ivf_filter`` kernel and encodes them with the existing codebooks into
@@ -356,22 +356,36 @@ def _stage_b(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
     return mlut, table, probe_base, tau
 
 
+def _rt_probe(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
+              tau: torch.Tensor, cids: torch.Tensor, rt_scale: float):
+    """Stage-1 spatial pruning: the projection GEMM, then one
+    ``ops.rt_probe_mask`` call: two kernels on the card.
+
+    The radius comes from the probe-0 row of the thresholds ``tau``
+    (Q, np, S) the search already computed; each probed cluster is tested
+    at its grid slot. Probe 0 is always kept, so a query whose disc misses
+    everything degrades to an nprobe-1 search. Returns ``(qp (Q, 2),
+    probe_ok (Q, np) bool, radius (Q,), slot (Q, np) int32)``: the
+    three-stage scan reads the projection, the radius and the probed slots.
+    """
+    # the projection as Q products (1, D) × (D, 2): cuBLAS runs them as one
+    # gemv kernel, where it runs the (Q, D) × (D, 2) product as a split-K
+    # GEMM and a reduce kernel (on the H100, Q 8 to 4096, D 96 and 200)
+    nq = q.shape[0]
+    qp = torch.bmm(q[:, None, :], rt_grid.proj.expand(nq, -1, -1))[:, 0]
+    probe_ok, radius, slot = ops.rt_probe_mask(
+        qp[:, 0], qp[:, 1], tau[:, 0], cids, rt_grid.slot_of,
+        rt_grid.cell_c0, rt_grid.cell_c1, rt_grid.slot_reach,
+        rt_grid.radius_scale, rt_grid.radius_bias, scale=rt_scale)
+    return qp, probe_ok, radius, slot
+
+
 def _rt_probe_mask(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
                    tau: torch.Tensor, cids: torch.Tensor,
                    rt_scale: float) -> torch.Tensor:
-    """Stage-1 spatial pruning: which probed clusters survive the RT test.
-
-    The radius comes from the probe-0 row of the thresholds ``tau``
-    (Q, np, S) the search already computed; the sphere test's (Q, C)
-    survivor mask is gathered at the probed cluster ids ``cids``. Probe 0
-    is always kept, so a query whose disc misses everything degrades to an
-    nprobe-1 search. Returns (Q, np) bool.
-    """
-    radius = rt_lib.query_radius(rt_grid, tau[:, 0, :], rt_scale)
-    hits = rt_lib.survivor_mask(rt_grid, q, radius)             # (Q, C)
-    probe_ok = torch.gather(hits, 1, cids) > 0
-    probe_ok[:, 0] = True
-    return probe_ok
+    """Which probed clusters survive the RT test (:func:`_rt_probe`):
+    (Q, np) bool, probe 0 always True."""
+    return _rt_probe(rt_grid, q, tau, cids, rt_scale)[1]
 
 
 def _top_k(scores: torch.Tensor, k: int, higher_better: bool
@@ -503,13 +517,13 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
     cap = min(rerank or 4 * k, nprobe * p)
     if fused:
         if use_fused3:
-            radius = rt_lib.query_radius(rt_grid, tau[:, 0, :], rt_scale)
-            qp2 = q @ rt_grid.proj                                  # (Q, 2)
+            qp2, _, radius, slot = _rt_probe(rt_grid, q, tau, cids,
+                                             rt_scale)
             _, _, cand, exact, probe_ok = ops.fused_three_stage_scan(
                 mlut, table, index.cluster_codes, index.ivf.valid, cids,
                 qp2[:, 0], qp2[:, 1], radius, rt_grid.cell_c0,
-                rt_grid.cell_c1, rt_grid.slot_reach, rt_grid.slot_of[cids],
-                cap_c=cap, metric=metric)
+                rt_grid.cell_c1, rt_grid.slot_reach, slot, cap_c=cap,
+                metric=metric)
         else:
             _, _, cand, exact = ops.fused_two_stage_scan(
                 mlut, table, index.cluster_codes, index.ivf.valid, cids,

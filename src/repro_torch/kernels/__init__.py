@@ -2,5 +2,6 @@
 and the wrappers that dispatch between them (``ops``): ``selective_lut``
 (stage B), ``fused_two_stage`` (fused H2), ``pq_scan`` (tier H),
 ``hit_count`` (tiers M/L, composed H2), ``sphere_hits`` (the RT
-prefilter), ``fused_three_stage`` (fused H2 under the RT prefilter) and
+prefilter: the search's probe mask, and the dense table),
+``fused_three_stage`` (fused H2 under the RT prefilter) and
 ``ivf_filter`` (stage A, and the owning cluster of each inserted point)."""

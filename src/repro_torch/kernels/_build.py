@@ -33,11 +33,12 @@ SOURCES = ("selective_lut", "fused_two_stage", "pq_scan", "hit_count",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: launches per kernel wrapper since the last :func:`reset_launches`, and
-#: ``pq_scan_sort``: calls of ``pq_scan.pq_scan_sort_topk`` (the scores
-#: kernel and a stable sort), which ``pq_scan_topk`` takes past its
-#: kernels' limits
-LAUNCHES = {name: 0 for name in SOURCES + ("pq_scan_sort",)}
+#: launches per kernel wrapper since the last :func:`reset_launches`;
+#: ``sphere_probe``: launches of ``sphere_hits.cu``'s probe entry (the rt
+#: search's; ``sphere_hits`` counts the dense entry); ``pq_scan_sort``:
+#: calls of ``pq_scan.pq_scan_sort_topk`` (the scores kernel and a stable
+#: sort), which ``pq_scan_topk`` takes past its kernels' limits
+LAUNCHES = {name: 0 for name in SOURCES + ("sphere_probe", "pq_scan_sort")}
 
 
 def reset_launches() -> None:

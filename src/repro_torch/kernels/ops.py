@@ -5,6 +5,8 @@ Port of ``repro/kernels/ops.py:build_selective_lut`` (l.79),
 ``fused_two_stage_scan`` (l.147), ``fused_three_stage_scan`` (l.183),
 ``rt_sphere_hits`` (l.225) and ``filter_scores`` (l.263), with
 ``filter_topk`` (stage A of ``repro/core/ivf.py:filter_clusters``),
+``rt_probe_mask`` (the radius, sphere test and gathers of
+``repro/core/juno.py:_rt_probe_mask``),
 ``masked_adc_topk_scan`` (tier H's ``probe_base`` add and top-k,
 ``repro/core/juno.py`` l.296-299 and l.354) and ``hit_count_topk_scan``
 (the hit counts' top-k of ``repro/core/juno.py`` l.354 and l.508). Dispatch
@@ -34,7 +36,8 @@ from .ivf_filter import (ivf_filter, ivf_filter_plain, ivf_filter_topk,
                          ivf_filter_topk_plain)
 from .pq_scan import pq_scan, pq_scan_plain, pq_scan_topk, pq_scan_topk_plain
 from .selective_lut import selective_lut, selective_lut_plain
-from .sphere_hits import sphere_hits, sphere_hits_plain
+from .sphere_hits import (sphere_hits, sphere_hits_plain, sphere_probe,
+                          sphere_probe_plain)
 
 
 def _on_cuda(*tensors: torch.Tensor | None) -> bool:
@@ -257,6 +260,34 @@ def rt_sphere_hits(q0: torch.Tensor, q1: torch.Tensor, radius: torch.Tensor,
     if _on_cuda(*args):
         return sphere_hits(*(a.contiguous() for a in args))
     return sphere_hits_plain(*args)
+
+
+def rt_probe_mask(q0: torch.Tensor, q1: torch.Tensor, tau: torch.Tensor,
+                  cids: torch.Tensor, slot_of: torch.Tensor,
+                  cell_c0: torch.Tensor, cell_c1: torch.Tensor,
+                  slot_reach: torch.Tensor, radius_scale: torch.Tensor,
+                  radius_bias: torch.Tensor, *, scale: float = 1.0
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rt search's probe mask: which probed clusters survive the sphere
+    test.
+
+    q0, q1 (Q,) f32 ray-plane queries (the columns of ``q @ grid.proj``);
+    tau (Q, S) f32, the probe-0 row of the search's thresholds; cids
+    (Q, np) int64 or int32 probed cluster ids; slot_of, the slot planes,
+    radius_scale and radius_bias the ``CentroidGrid``'s; ``scale`` the rt
+    knob. Returns ``(probe_ok (Q, np) bool, probe 0 True; radius (Q,) f32;
+    slot (Q, np) int32 = slot_of[cids])``, the last two for the three-stage
+    scan. The radius is ``kernels/ref.py:rt_query_radius_ref``;
+    the verdicts equal the dense :func:`rt_sphere_hits` table at that
+    radius gathered at ``slot_of[cids]``. On the card a call is one kernel
+    and copies nothing: the views are read through their strides and
+    ``scale`` is a kernel argument.
+    """
+    args = (q0, q1, tau, cids, slot_of, cell_c0, cell_c1, slot_reach,
+            radius_scale, radius_bias)
+    if _on_cuda(*args):
+        return sphere_probe(*args, scale)
+    return sphere_probe_plain(*args, scale)
 
 
 def filter_scores(queries: torch.Tensor, centroids: torch.Tensor,

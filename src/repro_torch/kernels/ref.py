@@ -2,7 +2,9 @@
 
 Port of ``repro/kernels/ref.py:selective_lut_ref`` (l.12), ``pq_scan_ref``
 (l.33), ``hit_count_ref`` (l.42), ``fused_two_stage_ref`` (l.50),
-``fused_three_stage_ref`` (l.83) and ``rt_sphere_hits_ref`` (l.104). The
+``fused_three_stage_ref`` (l.83) and ``rt_sphere_hits_ref`` (l.104), with
+the rt search's radius (``rt_query_radius_ref``, the port's definition of
+``repro/rt/grid.py:query_radius``). The
 two scans are batched over leading (Q, np) axes; they are also the
 semantics of ``repro/core/scan.py:adc_scan`` and ``hit_count_scan``, which
 the port therefore does not copy. Every top-k is a stable descending sort,
@@ -142,15 +144,48 @@ def rt_sphere_hits_ref(q0, q1, radius, c0, c1, slot_reach):
     (Q,),(Q,),(Q,) f32 ray-plane queries and radii; (n_cells, cap) f32
     centroid planes and reaches -> (Q, n_cells·cap) int8, cell-major.
     hit = ``‖qp − cp‖ ≤ R + reach`` by the signed squared compare
-    (``thr >= 0`` keeps the ``-inf`` pad slots from ever hitting).
+    (``thr >= 0`` keeps the ``-inf`` pad slots from ever hitting), rounded
+    as :func:`sphere_test` says.
+    """
+    return sphere_test(q0[:, None], q1[:, None], radius[:, None],
+                       c0.reshape(1, -1), c1.reshape(1, -1),
+                       slot_reach.reshape(1, -1)).to(torch.int8)
+
+
+def sphere_test(q0, q1, radius, c0, c1, reach):
+    """The disc-vs-disc test, elementwise over broadcast f32 operands
+    -> bool.
 
     Rounded as the reference's oracle is on its CPU backend: the squared
     distance is ``fma(dx, dx, dy*dy)`` — evaluated in float64, where
     ``dx*dx`` is exact, and rounded to float32 once — and every other step
-    rounds on its own.
+    rounds on its own (``csrc/sphere.cuh``).
     """
-    dx = q0[:, None] - c0.reshape(1, -1)
-    dy = q1[:, None] - c1.reshape(1, -1)
+    dx = q0 - c0
+    dy = q1 - c1
     d2 = (dx.double() * dx.double() + (dy * dy).double()).float()
-    thr = radius[:, None] + slot_reach.reshape(1, -1)
-    return ((thr >= 0.0) & (d2 <= thr * thr)).to(torch.int8)
+    thr = radius + reach
+    return (thr >= 0.0) & (d2 <= thr * thr)
+
+
+def rt_query_radius_ref(tau, scale, radius_scale, radius_bias):
+    """The ray-plane query radius, ``scale · radius_scale · √Σ_s τ_s² +
+    radius_bias``, on any device.
+
+    tau (..., S) f32; scale a float; radius_scale, radius_bias () f32 ->
+    (...) f32. The squares and their sum are taken in float64 in s order
+    and rounded once to float32; every later step rounds in float32 on its
+    own, left to right, the square root correctly rounded (taken in f64 and
+    rounded once: torch's float32 ``sqrt`` on the CPU is not). The sum of
+    exact squares in f64, rounded once, does not depend on a reduction
+    order the way a float32 ``torch.sum`` does, so a kernel can reproduce
+    it (``csrc/sphere_hits.cu``). ``scale`` enters as a host scalar: no
+    copy to the device.
+    """
+    t = tau.double()
+    acc = torch.zeros(t.shape[:-1], dtype=torch.float64, device=t.device)
+    for s in range(t.shape[-1]):
+        acc = acc + t[..., s] * t[..., s]
+    root = torch.sqrt(acc.float().double()).float()
+    s32 = torch.tensor(scale, dtype=torch.float32)
+    return s32 * radius_scale * root + radius_bias

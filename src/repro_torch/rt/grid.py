@@ -34,6 +34,7 @@ from ..core.pq import decode
 from ..core.ref import exact_topk
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.ref import rt_query_radius_ref
 
 #: analytic fallback (``calib_queries=0``): a full-space radius R contracts
 #: to ~R·sqrt(2/D) under a (D, 2) orthonormal projection; SIGMA standard
@@ -277,13 +278,16 @@ def query_radius(grid: CentroidGrid, tau: torch.Tensor,
     """Ray-plane query radius from the calibrated thresholds.
 
     tau (Q, S) f32 — the probe-0 row of the search's thresholds ->
-    (Q,) f32 ``scale · radius_scale · sqrt(Σ_s τ_s²) + radius_bias``.
-    ``scale`` is the rt analogue of ``thres_scale``: the radius is monotone
-    in it, and very large values cover every cell.
+    (Q,) f32 ``scale · radius_scale · sqrt(Σ_s τ_s²) + radius_bias``, the
+    search's own definition (``kernels/ref.py:rt_query_radius_ref``: the
+    sum in float64, rounded once). ``scale`` is the rt analogue of
+    ``thres_scale``: the radius is monotone in it, and very large values
+    cover every cell. The search computes the radius inside
+    ``ops.rt_probe_mask``; this and :func:`survivor_mask` serve the dense
+    contract and the tests.
     """
-    s = torch.tensor(scale, dtype=torch.float32, device=tau.device)
-    return (s * grid.radius_scale * torch.sqrt(torch.sum(tau * tau, dim=-1))
-            + grid.radius_bias)
+    return rt_query_radius_ref(tau, scale, grid.radius_scale,
+                               grid.radius_bias)
 
 
 def survivor_mask(grid: CentroidGrid, queries: torch.Tensor,
@@ -291,8 +295,8 @@ def survivor_mask(grid: CentroidGrid, queries: torch.Tensor,
     """Per-(query, cluster) sphere hits, in cluster order.
 
     Projects the queries (Q, D) onto the ray plane, runs the sphere test
-    over every grid slot (``ops.rt_sphere_hits``: the CUDA kernel on the
-    card) and gathers the table at ``slot_of`` -> (Q, C) int8.
+    over every grid slot (``ops.rt_sphere_hits``: the dense CUDA kernel on
+    the card) and gathers the table at ``slot_of`` -> (Q, C) int8.
     """
     qp = queries.float() @ grid.proj
     hits = ops.rt_sphere_hits(qp[:, 0].contiguous(), qp[:, 1].contiguous(),

@@ -58,3 +58,49 @@ def synth_grid(seed, g, cap, q, n_probe=1, *, radii="mixed"):
             radius[i] = np.float32(d - reach.reshape(-1)[j])
     slot_idx = rng.choice(real, (q, n_probe)).astype(np.int32)
     return q0, q1, radius, boxes, cell_reach, c0, c1, reach, slot_idx
+
+
+def query_radius_spec(tau, scale, radius_scale, radius_bias):
+    """The rt search's query radius in numpy, step by step as specified:
+    the squares of τ (Q, S) and their sum in float64 in s order, rounded
+    once to float32; the square root correctly rounded; then ``scale ·
+    radius_scale · root + radius_bias`` in float32, left to right."""
+    t = np.asarray(tau, np.float64)
+    acc = np.zeros(t.shape[:-1])
+    for s in range(t.shape[-1]):
+        acc = acc + t[..., s] * t[..., s]
+    root = np.sqrt(acc.astype(np.float32).astype(np.float64)).astype(np.float32)
+    return (np.float32(scale) * np.float32(radius_scale) * root
+            + np.float32(radius_bias)).astype(np.float32)
+
+
+def probe_inputs(seed, q, n_probe, s, g, cap, *, scale=1.0, boundary=False):
+    """Inputs of the rt probe mask over a :func:`synth_grid` grid (pads, an
+    empty and a full cell): every real slot one cluster's (``slot_of``),
+    random probed clusters, τ (q, n_probe + 1, S) whose probe-0 row the
+    search reads. ``boundary`` puts a quarter of the queries' probe 1 on
+    its disc's boundary: that slot's reach is the float64 gap from the
+    query disc (radius :func:`query_radius_spec`), rounded to float32.
+    Returns numpy ``(qp (q, 2), tau, cids (q, n_probe) int64, slot_of (C,)
+    int32, c0, c1, reach, radius_scale, radius_bias)``.
+    """
+    q0, q1, _, _, _, c0, c1, reach, _ = synth_grid(seed, g, cap, q)
+    rng = np.random.default_rng(seed + 1)
+    real = np.flatnonzero(np.isfinite(reach.reshape(-1)))
+    slot_of = rng.permutation(real).astype(np.int32)
+    cids = rng.integers(0, real.size, (q, n_probe))
+    tau = (np.abs(rng.standard_normal((q, n_probe + 1, s))) * 0.05
+           ).astype(np.float32)
+    rs, rb = np.float32(0.4), np.float32(-0.02)
+    if boundary and n_probe > 1:
+        n_b = min(q, real.size) // 4
+        cids[:n_b, 1] = rng.permutation(real.size)[:n_b]
+        r = query_radius_spec(tau[:, 0], scale, rs, rb)
+        flat = reach.reshape(-1)
+        for i in range(n_b):
+            j = slot_of[cids[i, 1]]
+            d = np.hypot(np.float64(q0[i]) - c0.reshape(-1)[j],
+                         np.float64(q1[i]) - c1.reshape(-1)[j])
+            flat[j] = np.float32(d - np.float64(r[i]))
+    return (np.stack([q0, q1], 1), tau, cids, slot_of, c0, c1, reach,
+            np.asarray(rs), np.asarray(rb))

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from _torch_lut_views import FORMS, contiguous_planes, qsub_view
-from _torch_rt_grids import synth_grid
+from _torch_rt_grids import probe_inputs, synth_grid
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fused_three_stage as pf3
 from repro_torch.kernels import fused_two_stage as pfused
@@ -438,13 +438,17 @@ def test_launch_counts(cuda):
     ops.rt_sphere_hits(*grid[:3], *grid[5:8])
     ops.fused_three_stage_scan(lut, table, codes, valid, cids, *grid[:3],
                                *grid[5:9], cap_c=10)
+    probe = _probe_inputs(4, 3, 4, 6, 3, 8, cuda)
+    psph.sphere_probe_plain(*probe)
+    ops.rt_probe_mask(*probe[:-1], scale=probe[-1])
     x = torch.randn((5, 8), device=cuda)
     pivf.ivf_filter_plain(x, x, x[:, 0])
     ops.filter_scores(x, x, x[:, 0].contiguous(), metric="ip")
     assert _build.LAUNCHES == {"selective_lut": 1, "fused_two_stage": 0,
                                "pq_scan": 1, "hit_count": 3,
                                "sphere_hits": 1, "fused_three_stage": 1,
-                               "ivf_filter": 1, "pq_scan_sort": 0}
+                               "ivf_filter": 1, "sphere_probe": 1,
+                               "pq_scan_sort": 0}
 
 
 @pytest.mark.parametrize("g,cap,q", [(16, 64, 128), (3, 8, 17), (3, 5, 9),
@@ -460,6 +464,93 @@ def test_sphere_hits_kernel_matches_plain(cuda, g, cap, q):
     assert got.shape == (q, g * g * cap) and got.dtype == torch.int8
     assert torch.equal(got, want)
     assert not got[:, ~torch.isfinite(reach.reshape(-1))].any()
+
+
+def _probe_inputs(seed, q, n_probe, s, g, cap, device, *, scale=1.0,
+                  boundary=False, cid_dtype=torch.int64):
+    """``probe_inputs``' arrays on the card as the search passes them: q0,
+    q1 the columns of a (Q, 2) tensor, τ the probe-0 row of a
+    (Q, np + 1, S) tensor; then ``scale``."""
+    qp, tau, cids, *rest = (torch.from_numpy(a).to(device) for a in
+                            probe_inputs(seed, q, n_probe, s, g, cap,
+                                         scale=scale, boundary=boundary))
+    return (qp[:, 0], qp[:, 1], tau[:, 0], cids.to(cid_dtype), *rest, scale)
+
+
+@pytest.mark.parametrize("s", [7, 48, 100, 200])
+@pytest.mark.parametrize("n_probe", [1, 8, 16, 40])
+@pytest.mark.parametrize("q", [1, 17, 128])
+def test_sphere_probe_kernel_matches_plain(cuda, q, n_probe, s):
+    """The probe entry bit-equal to its plain version in ``probe_ok``, the
+    radius and the slots, and its verdicts equal to the dense kernel's
+    table at that radius gathered at ``slot_of[cids]``: caps 16 and 5
+    (not a multiple of 4), pads and an empty cell, ``scale`` 0 (the radius
+    is the negative bias), 1 with boundary reaches and 1e6, τ as a strided
+    probe-0 view, q0/q1 as a (Q, 2) tensor's columns, int64 and int32
+    cids; np 40 loops past a warp, S 200 past the 128 τ values a warp
+    loads in its first round."""
+    for g, cap in ((4, 16), (3, 5)):
+        for scale, boundary in ((0.0, False), (1.0, True), (1e6, False)):
+            for dt in (torch.int64, torch.int32):
+                args = _probe_inputs(q + n_probe + s + cap, q, n_probe, s, g,
+                                     cap, cuda, scale=scale,
+                                     boundary=boundary, cid_dtype=dt)
+                assert q == 1 or not (args[0].is_contiguous()
+                                      or args[2].is_contiguous())
+                got = psph.sphere_probe(*args)
+                want = psph.sphere_probe_plain(*args)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+                dense = psph.sphere_hits(args[0].contiguous(),
+                                         args[1].contiguous(), got[1],
+                                         *args[5:8])
+                gathered = torch.gather(dense, 1, got[2].long()) > 0
+                gathered[:, 0] = True
+                assert torch.equal(got[0], gathered)
+                if scale == 1e6:
+                    assert got[0].all()
+
+
+def test_sphere_probe_is_one_kernel_a_call(cuda):
+    """``ops.rt_probe_mask`` is the probe kernel alone, and the search's
+    ``_rt_probe_mask`` (``_rt_probe``, which the three-stage path calls
+    too) the projection GEMM and the probe kernel: no copy, memset or other
+    kernel (counted on the call captured into a CUDA graph)."""
+    from repro_torch.core.juno import _rt_probe, _rt_probe_mask
+    from repro_torch.rt import grid_from_arrays
+    args = _probe_inputs(5, 128, 16, 48, 16, 8, cuda)
+    call = lambda: ops.rt_probe_mask(*args[:-1], scale=1.0)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    nodes = _captured_nodes(call)
+    assert len(nodes) == 1 and "sphere_probe_kernel" in nodes[0], nodes
+    d, (n_cells, cap) = 96, args[5].shape
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    grid = grid_from_arrays(dict(
+        proj=np.linalg.qr(np.random.default_rng(6).standard_normal((d, 2)))[0]
+        .astype(np.float32), lo=np.zeros(2, np.float32),
+        hi=np.ones(2, np.float32), boxes=np.zeros((n_cells, 4), np.float32),
+        cell_ids=np.full((n_cells, cap), -1, np.int32),
+        cell_c0=host(args[5]), cell_c1=host(args[6]),
+        slot_reach=host(args[7]), cell_reach=host(args[7]).max(1),
+        slot_of=host(args[4]), radius_scale=host(args[8]),
+        radius_bias=host(args[9])), cuda, prefix="")
+    x = torch.randn((128, d), device=cuda)
+    tau = torch.rand((128, 16, 48), device=cuda)
+    cids = args[3]
+    fn = lambda: _rt_probe_mask(grid, x, tau, cids, 1.0)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    nodes = _captured_nodes(fn)
+    assert len(nodes) == 2 and nodes[0] == "KERNEL", nodes
+    assert "sphere_probe_kernel" in nodes[1], nodes
+    qp, *got = _rt_probe(grid, x, tau, cids, 1.0)
+    want = psph.sphere_probe_plain(qp[:, 0], qp[:, 1], tau[:, 0], cids,
+                                   grid.slot_of, grid.cell_c0, grid.cell_c1,
+                                   grid.slot_reach, grid.radius_scale,
+                                   grid.radius_bias)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _close_to_plain(got, want, scale):
@@ -659,8 +750,8 @@ def _captured_nodes(call):
     for a, b in zip(starts, starts[1:] + [len(dot)]):
         text = dot[a:b]
         kind = re.search(r"\b([A-Z][A-Z_]{3,})\b", text).group(1)
-        name = re.search(r"\w*(?:count|select|topk|merge|scan)_kernel\w*",
-                         text)
+        name = re.search(
+            r"\w*(?:count|select|topk|merge|scan|probe)_kernel\w*", text)
         nodes.append(name.group(0) if kind == "KERNEL" and name else kind)
     return nodes
 
