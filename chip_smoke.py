@@ -110,12 +110,37 @@ Phases, each raising on failure:
    ``swap_index()`` (the rebuild, timed) keep tiers H, M and L (ids up to
    score ties; H2's changed rows printed); the freshness tiers
    (``max_minors=2``) take 3 × 256 spills at a constant delta capacity,
-   equal ``rebuild_index`` of the same state, and fold back;
+   equal ``rebuild_index`` of the same state, and fold back; then
+   ``paged.l2`` on the same index and stream: the index and its grid
+   committed to an ``ArtifactStore`` in a temporary directory under
+   ``build/`` (its bytes, the ``put`` and ``verify`` seconds), served by
+   four paged engines (fused or not, scan or rt) over
+   ``PagedIndexData`` with a cache of a quarter of ``cluster_codes``:
+   each engine's ids and scores bit-equal to the resident engine of the
+   same configuration, request by request, its launches exactly that
+   configuration's kernels, evictions > 0, QPS as the median of three
+   passes in turns with the resident engine, the ratio, the cache
+   counters and ``gather``'s host seconds a pass; one gather of the
+   largest batch taken apart (the rows' copy out of the memory map, their
+   sha256, the host→device copies, the stack; one pinned copy beside);
+   the exact rerank of 40
+   candidates from the raw vectors (an ``.npy``): its recall@10 beside the
+   paged engine's, its scores the raw vectors' of its ids; a flipped byte
+   of a probed row failing the first search with ``ArtifactError`` (and
+   ``verify``), restored after; the same 200 inserts and 550 deletes on a
+   paged and a resident engine (the inserts all in the side buffer, found
+   as the resident engine finds them; no deleted id returned); a swap to
+   generation 2 (the resident state rebuilt) that drops the cached rows,
+   keeps the counters and then serves the resident engine's results on
+   it; with ``max_minors=2`` and the store, a full L0 committed as a
+   minor artifact, faulted in on the first search and its ids found; the
+   directory is deleted at the end;
 5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100),
-   then ``mutate.ip``;
+   then ``mutate.ip`` and ``paged.ip``;
 6. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
-   four engines over both indexes and the ``mutate`` rounds (an rt
+   four engines over both indexes, the ``mutate`` rounds and the first
+   pass of each paged engine (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
    ``hit_count`` call on the top-k route, which every engine takes, is two
@@ -136,6 +161,7 @@ import argparse
 import collections
 import contextlib
 import gzip
+import hashlib
 import json
 import os
 import re
@@ -153,7 +179,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch import rt  # noqa: E402
-from repro_torch.build import rebuild_index  # noqa: E402
+from repro_torch.build import (ArtifactError, ArtifactStore,  # noqa: E402
+                               load_index, rebuild_index)
 from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
                               index_to, recall_n_at_k, search)
 from repro_torch.core import density as density_lib  # noqa: E402
@@ -173,6 +200,8 @@ from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
 from repro_torch.kernels.ref import NEG  # noqa: E402
 from repro_torch.serve.ann import AnnServeEngine  # noqa: E402
+from repro_torch.serve.paged import (PagedAnnServeEngine,  # noqa: E402
+                                     PagedIndexData)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
@@ -2316,6 +2345,337 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
     return out
 
 
+# ---------------------------------------------------------------------------
+# paged phase
+# ---------------------------------------------------------------------------
+class GatherClock:
+    """Host seconds and calls of one ``PagedIndexData``'s ``gather``."""
+
+    def __init__(self, paged):
+        self.s, self.calls = 0.0, 0
+        fn = paged.gather
+
+        def timed(cids):
+            t0 = time.perf_counter()
+            out = fn(cids)
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        paged.gather = timed
+
+
+def run_stream(eng, queries, stream) -> tuple[list, float]:
+    """One pass of the stream through ``eng``: (requests, seconds)."""
+    reqs = [eng.submit(queries[r["rows"][0]:r["rows"][1]], k=r["k"],
+                       recall_target=r["recall_target"]) for r in stream]
+    t0 = time.perf_counter()
+    eng.run()
+    return reqs, time.perf_counter() - t0
+
+
+def same_requests(got: list, want: list, what: str) -> None:
+    """Ids and scores bit-equal, request by request."""
+    for a, b in zip(got, want, strict=True):
+        if not (a.done and np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.scores, b.scores)):
+            raise AssertionError(f"{what}: request {a.rid} differs from the "
+                                 f"resident engine's")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
+                 metric: str, fused: bool, grid, n_points: int) -> dict:
+    """One paged engine configuration beside the resident engine of the same
+    configuration (over ``resident``, a ``MutableJunoIndex``): a first pass
+    with the launches counted, every request bit-equal to the resident
+    engine's, then three turns of (resident pass, paged pass)."""
+    prefilter = "scan" if grid is None else "rt"
+    dev = resident.data.ivf.centroids.device
+    pdata = PagedIndexData(path, cache_bytes=cache_bytes, device=dev)
+    clock = GatherClock(pdata)
+    peng = PagedAnnServeEngine(pdata, metric=metric, fused=fused,
+                               prefilter=prefilter)
+    reng = AnnServeEngine(resident, metric=metric, fused=fused,
+                          prefilter=prefilter, rt_grid=grid)
+    _build.reset_launches()
+    got, t_first = run_stream(peng, queries, stream)
+    launches = dict(_build.LAUNCHES)
+    first_verified = pdata.verified_rows
+    want, _ = run_stream(reng, queries, stream)
+    same_requests(got, want, f"paged {prefilter} fused={fused}")
+    for r in got:
+        check_results(r.ids, r.scores, n_points, f"paged request {r.rid}",
+                      rt=grid is not None)
+    must = ENGINE_KERNELS[(prefilter, fused)]
+    if any(launches[n] <= 0 for n in must) or \
+            any(launches[n] != 0 for n in set(launches) - must):
+        raise AssertionError(f"paged {prefilter} fused={fused}: launches "
+                             f"{launches}, expected exactly {sorted(must)}")
+    t_res, t_pag, g_s = [], [], []
+    for _ in range(3):
+        t_res.append(run_stream(reng, queries, stream)[1])
+        g0 = clock.s
+        got, t = run_stream(peng, queries, stream)
+        t_pag.append(t)
+        g_s.append(clock.s - g0)
+    same_requests(got, want, f"paged {prefilter} fused={fused}, last turn")
+    st = peng.cache_stats()
+    if st["evictions"] <= 0:
+        raise AssertionError(f"paged {prefilter} fused={fused}: no eviction "
+                             f"with a cache of {cache_bytes} bytes")
+    rows = peng.stats["queries"] // 4
+    qps, qps_res = rows / statistics.median(t_pag), \
+        rows / statistics.median(t_res)
+    return {"prefilter": prefilter, "fused": fused, "rows": rows,
+            "qps": qps, "qps_resident": qps_res, "paged_over_resident":
+                qps / qps_res, "qps_turns": [rows / t for t in t_pag],
+            "qps_resident_turns": [rows / t for t in t_res],
+            "first_pass_s": t_first, "gather_s_per_pass": g_s,
+            "gather_calls_per_pass": clock.calls // 4,
+            "verified_rows_first_pass": first_verified,
+            "hits": st["hits"], "misses": st["misses"],
+            "evictions": st["evictions"], "verified_rows":
+                st["verified_rows"], "cache_rows": st["rows"],
+            "launches": launches}
+
+
+def gather_breakdown(path: str, index, queries, metric: str) -> dict:
+    """Where one gather's host seconds go, at the engines' largest batch
+    (Q 128, np 16; its U distinct clusters, the rows already in the page
+    cache): copying the U rows out of the memory map, their sha256, the
+    U pageable host→device copies and the stack on the card, beside a
+    whole ``gather`` with a cold cache and, as a yardstick the port does
+    not use, one copy of the U rows from pinned memory."""
+    dev = index.ivf.centroids.device
+    pdata = PagedIndexData(path, cache_bytes=0, device=dev)
+    q = torch.from_numpy(queries[:128]).to(dev)
+    _, cids = filter_clusters(q, index.ivf, nprobe=16, metric=metric)
+    uniq = np.unique(cids.cpu().numpy()).tolist()
+    mm = load_index(path, mmap_mode="r").data.cluster_codes
+    out = {"U": len(uniq), "row_bytes": int(mm[0].nbytes)}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        return got
+    clock("gather_s", lambda: pdata.gather(cids))
+    host = clock("copy_s", lambda: [np.array(mm[c], copy=True)
+                                    for c in uniq])
+    clock("sha256_s", lambda: [hashlib.sha256(h.tobytes()).hexdigest()
+                               for h in host])
+    rows = clock("h2d_s", lambda: [torch.from_numpy(h).to(dev)
+                                   for h in host])
+    clock("stack_s", lambda: torch.stack(rows))
+    pinned = torch.from_numpy(np.stack(host)).pin_memory()
+    clock("pinned_h2d_s", lambda: pinned.to(dev, non_blocking=True))
+    return out
+
+
+def flip_byte(path: str, cid: int) -> int:
+    """Flip the first byte of ``cluster_codes[cid]`` in the artifact at
+    ``path`` (in place); returns its offset in ``arrays.npz``."""
+    mm = load_index(path, mmap_mode="r").data.cluster_codes
+    off = mm.offset + cid * mm.shape[1] * mm.shape[2]
+    with open(os.path.join(path, "arrays.npz"), "r+b") as fh:
+        fh.seek(off)
+        b = fh.read(1)[0]
+        fh.seek(off)
+        fh.write(bytes([b ^ 1]))
+    return off
+
+
+def phase_paged(name: str, metric: str, cfg, index, grid, pts: np.ndarray,
+                queries: np.ndarray, stream, seed: int) -> dict:
+    """The paged tier at 1M points, on the index and stream of the serve
+    phase: the index and its grid committed to an ``ArtifactStore`` under
+    ``build/``, four paged engines with a cache of a quarter of the code
+    bytes, each bit-equal to the resident engine; the exact rerank; a
+    flipped byte failing closed; inserts, deletes, a swap to generation 2
+    and a minor committed to the store. Raises on the first failed
+    check; the directory is deleted at the end."""
+    dev = index.ivf.centroids.device
+    n = index.codes.shape[0]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix=f"paged_{name}_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        store = ArtifactStore(os.path.join(root, "store"))
+        t0 = time.perf_counter()
+        v1 = store.put("main", index, cfg, rt_grid=grid)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.verify("main", v1)
+        verify_s = time.perf_counter() - t0
+        path = store.path("main", v1)
+        vec_path = os.path.join(root, "vectors.npy")
+        np.save(vec_path, pts)
+        cache_bytes = index.cluster_codes.numel() // 4
+        out = {"artifact_bytes": _dir_bytes(path), "put_s": put_s,
+               "verify_s": verify_s, "cache_bytes": cache_bytes,
+               "cluster_bytes": index.cluster_codes.numel(), "engines": {}}
+        resident = MutableJunoIndex(index, side_capacity=SIDE)
+        for label, fused, g in (("fused", True, None),
+                                ("unfused", False, None),
+                                ("rt_fused", True, grid),
+                                ("rt_unfused", False, grid)):
+            out["engines"][label] = paged_engine(
+                path, cache_bytes, resident, queries, stream, metric=metric,
+                fused=fused, grid=g, n_points=n)
+        out["launches"] = {k: sum(e["launches"][k]
+                                  for e in out["engines"].values())
+                           for k in _build.LAUNCHES}
+        out["gather_breakdown"] = gather_breakdown(path, index, queries,
+                                                   metric)
+
+        # the exact rerank of C = 40 candidates from the raw vectors
+        pvec = PagedIndexData(path, cache_bytes=cache_bytes, device=dev,
+                              vectors=vec_path)
+        q = queries[:256]
+        qt = torch.from_numpy(q).to(dev)
+        live = torch.from_numpy(pts).to(dev)
+        _, gt = exact_topk(qt, live, k=10, metric=metric)
+        recall = {}
+        for label, c in (("paged", 0), ("exact_rerank", 40)):
+            eng = PagedAnnServeEngine(pvec, metric=metric, exact_rerank=c)
+            req = eng.submit(q, k=10, mode="H2", nprobe=16)
+            eng.run()
+            ids = torch.from_numpy(req.ids).to(dev)
+            recall[label] = float(recall_n_at_k(ids, gt))
+        v = live[ids.long()]
+        exact = (((v - qt[:, None]) ** 2).sum(-1) if metric == "l2"
+                 else torch.einsum("qcd,qd->qc", v, qt))
+        if not torch.allclose(torch.from_numpy(req.scores).to(dev), exact,
+                              rtol=RTOL, atol=1e-6):
+            raise AssertionError("exact rerank: scores are not the raw "
+                                 "vectors' of the returned ids")
+        out["recall10_at_10"] = recall
+        del live, v, exact, pvec
+
+        # fail-closed: one flipped byte in a row the first query probes
+        _, cids = filter_clusters(qt[:1], index.ivf, nprobe=16, metric=metric)
+        cid = int(cids[0, 0])
+        flip_byte(path, cid)
+        try:
+            bad = PagedAnnServeEngine(PagedIndexData(
+                path, cache_bytes=cache_bytes, device=dev), metric=metric)
+            req = bad.submit(q[:1], k=10, mode="H", nprobe=16)
+            try:
+                bad.run()
+            except ArtifactError as e:
+                fail_closed = str(e)
+            else:
+                raise AssertionError("a flipped byte was served")
+            if req.done or req.ids is not None:
+                raise AssertionError("a request over a flipped byte returned")
+            try:
+                store.verify("main", v1)
+            except ArtifactError:
+                pass
+            else:
+                raise AssertionError("verify passed a flipped byte")
+        finally:
+            flip_byte(path, cid)                   # restore it
+        store.verify("main", v1)
+        out["fail_closed"] = {"cluster": cid, "error": fail_closed}
+
+        # mutation: the same inserts and deletes on a paged engine and a
+        # resident one; then generation 2 (the resident state rebuilt)
+        rng = np.random.default_rng(seed + 202)
+        sigma = float(pts[::16].std())
+        meng = PagedAnnServeEngine(PagedIndexData(
+            path, cache_bytes=cache_bytes, device=dev), metric=metric,
+            side_capacity=SIDE)
+        rmut = MutableJunoIndex(index, side_capacity=SIDE)
+        reng = AnnServeEngine(rmut, metric=metric)
+        new = fresh_points(pts, SPILL, rng, sigma, metric)
+        ids = meng.insert(new)
+        if ids != reng.insert(new) or meng.index.side_fill != SPILL:
+            raise AssertionError(f"paged inserts: ids or side fill "
+                                 f"{meng.index.side_fill}")
+        own = {}
+        for label, e in (("paged", meng), ("resident", reng)):
+            r = e.submit(new, k=10, mode="H", nprobe=16)
+            e.run()
+            own[label] = r
+        _ids_equal_up_to_ties(own["paged"].ids, own["resident"].ids,
+                              own["paged"].scores, own["resident"].scores,
+                              "paged inserts vs resident")
+        found = {k: float((r.ids == np.asarray(ids)[:, None]).any(1).mean())
+                 for k, r in own.items()}
+        if found["paged"] <= 0:
+            raise AssertionError("no inserted point found as itself")
+        cand = rng.choice(n, 2 * DELETE_BATCH, replace=False).tolist()
+        victims = [i for i in cand if i in meng.index._loc][:DELETE_BATCH]
+        victims += ids[:SPILL // 4]
+        if meng.delete(victims) != reng.delete(victims):
+            raise AssertionError("paged deletes")
+        dead = np.asarray(victims)
+        serve_pass(meng, queries, stream, dead, meng.index._next_id)
+        rebuilt = rebuild_index(rmut)
+        v2 = store.put("main", rebuilt, cfg)
+        before = meng.cache_stats()
+        meng.swap_index(PagedIndexData(store.path("main", v2),
+                                       cache_bytes=cache_bytes, device=dev))
+        after = meng.cache_stats()
+        if after["rows"] != 0 or any(after[k] != before[k] for k in
+                                     ("hits", "misses", "evictions")):
+            raise AssertionError(f"swap: cache {before} -> {after}")
+        got, _ = run_stream(meng, queries, stream)
+        want, _ = run_stream(AnnServeEngine(rebuilt, metric=metric),
+                             queries, stream)
+        same_requests(got, want, "paged generation 2")
+        serve_pass(meng, queries, stream, dead, meng.index._next_id)
+        out["mutate"] = {"inserted": SPILL, "side_fill": SPILL,
+                         "own_found": found, "deleted": len(victims),
+                         "generation_2": v2, "cache_after_swap": after}
+
+        # a full L0 commits a minor artifact, faulted in on first search
+        teng = PagedAnnServeEngine(PagedIndexData(
+            store.path("main", v2), cache_bytes=cache_bytes, device=dev),
+            metric=metric, side_capacity=SIDE, max_minors=2,
+            minor_store=store)
+        tres = AnnServeEngine(MutableJunoIndex(rebuilt, side_capacity=SIDE),
+                              metric=metric, max_minors=2)
+        new = fresh_points(pts, SIDE + 16, rng, sigma, metric)
+        for part in (new[:SIDE], new[SIDE:]):
+            tids = teng.insert(part)
+            if tids != tres.index.insert(part):
+                raise AssertionError("minor inserts: ids")
+        minors = teng.index._minors
+        if len(minors) != 1 or minors[0].codes is not None or \
+                store.latest("minors") != 1:
+            raise AssertionError("a full L0 did not commit a minor artifact")
+        mine = minors[0].ids[minors[0].valid]
+        got = teng.submit(new[:SIDE], k=10, mode="H", nprobe=16)
+        teng.run()
+        if minors[0].codes is None:
+            raise AssertionError("the minor was not faulted in")
+        want = teng.index.search(new[:SIDE], k=10, mode="H", nprobe=16,
+                                 metric=metric, batch=128)
+        ref = tres.index.search(new[:SIDE], k=10, mode="H", nprobe=16,
+                                metric=metric, batch=128)
+        _ids_equal_up_to_ties(want[1].cpu(), ref[1].cpu(), want[0].cpu(),
+                              ref[0].cpu(), "paged minors vs resident")
+        found_minor = float(np.isin(mine, got.ids).mean())
+        if found_minor <= 0:
+            raise AssertionError("no id of the minor was found")
+        out["minors"] = {"committed": store.latest("minors"),
+                         "path_is_artifact": os.path.exists(
+                             os.path.join(minors[0].path, "manifest.json")),
+                         "minor_ids_found": found_minor}
+        log(f"paged.{name}", **out)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                 out_dir: str, hit_calls_dir: str | None = None) -> dict:
     t0 = time.perf_counter()
@@ -2395,12 +2755,14 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     del cpu_index
     mutate = phase_mutate(name, spec.metric, mut, grid, pts, queries, stream,
                           seed)
+    paged = phase_paged(name, spec.metric, cfg, index, grid, pts, queries,
+                        stream, seed)
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
            "grid": grid_info, "sphere_hits": sphere_rows,
            "hit_count_pass": hit_rows, "pq_scan_pass": pq_rows,
            "engines": engines, "tiers": tiers,
-           "tiers_rt": rt_tiers, "mutate": mutate,
+           "tiers_rt": rt_tiers, "mutate": mutate, "paged": paged,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": card}
     del index, mut, grid
@@ -2415,7 +2777,8 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
         src, replaces = SOURCES[name]
         counts = {key: sum(e["launches"][key] for s in serves
                            for e in s["engines"].values())
-                  + sum(s["mutate"]["launches"][key] for s in serves)
+                  + sum(s["mutate"]["launches"][key]
+                        + s["paged"]["launches"][key] for s in serves)
                   for key in ENTRIES.get(name, (name,))}
         line.append({
             "name": name, "route": "cuda", "source": src,

@@ -1,7 +1,9 @@
-"""Index artifacts written by ``repro.build.store.save_index`` (reader),
-the fold of minor delta generations (``merge``) and the online rebuild of
-a mutable index (``rebuild``)."""
-from .merge import fold_step  # noqa: F401
+"""Index artifacts (``store``: the writer, the reader and the versioned
+store), the fold and the on-disk format of minor delta generations
+(``merge``) and the online rebuild of a mutable index (``rebuild``)."""
+from .merge import (commit_minor, fold_step, load_minor,  # noqa: F401
+                    minor_codes_loader, save_minor)
 from .rebuild import live_points, rebuild_index  # noqa: F401
-from .store import (ArtifactError, LoadedIndex, index_from_arrays,  # noqa: F401
-                    load_index, read_artifact)
+from .store import (ArtifactError, ArtifactStore, LoadedIndex,  # noqa: F401
+                    config_hash, index_from_arrays, load_index, save_index,
+                    verify_artifact)

@@ -1,14 +1,17 @@
 """LSM-style freshness tiers of the mutable index.
 
 Port of ``repro/core/freshness.py`` (``MinorGeneration``,
-``combined_delta``, ``promote_l0``, ``MergeScheduler``), with the minor
-generations' codes in memory and without the metrics registry:
+``combined_delta``, ``promote_l0``, ``MergeScheduler``), without the
+metrics registry:
 
 * **L0** — the side buffer: inserts land there when their owning
   cluster's padded slots are full.
 * **Minor generations** — sealed snapshots of a full L0
   (:class:`MinorGeneration`, made by :func:`promote_l0`); deletes
-  tombstone their host-side ``valid``.
+  tombstone their host-side ``valid``. With a minor sink
+  (``enable_tiers(minor_store=...)``) a generation is committed to the
+  store and its codes are faulted back in, every row verified, on first
+  touch (``build/merge.py``).
 * **Base** — the padded per-cluster storage; ``build.merge.fold_step``
   moves minor points into freed base slots, a bounded number of clusters
   a call.
@@ -24,6 +27,7 @@ merges: the engine calls :meth:`MergeScheduler.maybe_step` between ticks,
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,19 +41,36 @@ class MinorGeneration:
 
     ``cluster``/``ids``/``valid`` are host arrays; ``valid`` is the only
     mutable field (deletes tombstone it, folds clear drained positions).
-    ``codes`` stay on the index's device.
+    ``codes`` is ``None`` for a disk-backed generation until
+    :meth:`materialize` faults it in through ``loader``, which verifies
+    every row against the minor's manifest (``build/merge.py``).
     """
 
-    gen: int                 #: monotone generation number
-    cluster: np.ndarray      #: (B,) int32 owning clusters
-    ids: np.ndarray          #: (B,) int32 global point ids
-    valid: np.ndarray        #: (B,) bool host-mutable tombstones
-    codes: torch.Tensor      #: (B, S) uint8
+    gen: int                          #: monotone generation number
+    cluster: np.ndarray               #: (B,) int32 owning clusters
+    ids: np.ndarray                   #: (B,) int32 global point ids
+    valid: np.ndarray                 #: (B,) bool host-mutable tombstones
+    codes: torch.Tensor | None        #: (B, S) uint8, or None until faulted
+    loader: Callable[[], torch.Tensor] | None = None
+    path: str | None = None           #: artifact directory when disk-backed
+
+    @property
+    def capacity(self) -> int:
+        """Fixed slot count B of this generation."""
+        return int(self.ids.shape[0])
 
     @property
     def live(self) -> int:
         """Number of non-tombstoned points still in this generation."""
         return int(self.valid.sum())
+
+    def materialize(self) -> torch.Tensor:
+        """The (B, S) codes on the index's device, faulted in (and every
+        row verified; ``ArtifactError`` on corruption) at first call when
+        the generation is disk-backed."""
+        if self.codes is None:
+            self.codes = self.loader()
+        return self.codes
 
 
 def combined_delta(side: SideBuffer, minors: list[MinorGeneration],
@@ -82,7 +103,7 @@ def combined_delta(side: SideBuffer, minors: list[MinorGeneration],
     parts = [side]
     for m in minors:
         parts.append(SideBuffer(
-            codes=m.codes,
+            codes=m.materialize(),
             cluster=torch.from_numpy(np.where(m.valid, m.cluster, -1)
                                      .astype(np.int32)).to(dev),
             ids=torch.from_numpy(m.ids.astype(np.int32)).to(dev),
@@ -97,11 +118,13 @@ def promote_l0(mid) -> MinorGeneration:
     """Seal the current L0 side buffer into a new minor generation.
 
     Every promoted id's location is re-pointed at the generation and L0
-    resets to empty.
+    resets to empty. With a minor sink (``enable_tiers(minor_store=...)``)
+    the generation is committed to the store first, so a failed write
+    changes nothing, and its codes leave memory until first search touch.
 
     Parameters
     ----------
-    mid : MutableJunoIndex
+    mid : MutableIndexBase
         The index whose L0 to promote (``enable_tiers(max_minors > 0)``).
 
     Returns
@@ -121,9 +144,18 @@ def promote_l0(mid) -> MinorGeneration:
     side = mid.side
     gen = mid._minor_gen
     host = lambda t: t.cpu().numpy().copy()  # noqa: E731
-    minor = MinorGeneration(gen=gen, cluster=host(side.cluster),
-                            ids=host(side.ids), valid=host(side.valid),
-                            codes=side.codes)
+    cluster, ids, valid = host(side.cluster), host(side.ids), host(side.valid)
+    codes, loader, path = side.codes, None, None
+    if mid._minor_sink is not None:
+        # the fallible commit first: a failed write leaves the index as it was
+        from ..build import merge
+        store, name = mid._minor_sink
+        path = merge.commit_minor(store, name, host(side.codes), cluster,
+                                  ids, valid, gen=gen)
+        loader = merge.minor_codes_loader(path, side.codes.device)
+        codes = None
+    minor = MinorGeneration(gen=gen, cluster=cluster, ids=ids, valid=valid,
+                            codes=codes, loader=loader, path=path)
     for pos in np.flatnonzero(minor.valid).tolist():
         mid._loc[int(minor.ids[pos])] = (-2 - gen, pos)
     mid._minors.append(minor)
@@ -149,7 +181,7 @@ class MergeScheduler:
 
         Parameters
         ----------
-        index : MutableJunoIndex
+        index : MutableIndexBase
             The index to merge (``enable_tiers`` already called).
         clusters_per_step : int
             Fold budget: clusters merged per :meth:`step`.

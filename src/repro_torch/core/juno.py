@@ -4,8 +4,7 @@ Port of ``repro/core/juno.py`` (``JunoConfig``, ``JunoIndexData``,
 ``build``, ``_calibrate_density``, ``_rt_probe_mask``, ``SideBuffer``,
 ``_side_gather``, ``_score_probed``, ``_search_batch``,
 ``_score_probed_two_stage``, ``_search_batch_two_stage``, ``search``,
-``_label_encode``, and ``MutableIndexBase`` with ``MutableJunoIndex`` as
-one class).
+``_label_encode``, ``MutableIndexBase`` and ``MutableJunoIndex``).
 
 Offline (:func:`build`): IVF k-means → residual PQ codebooks → padded
 per-cluster codes → density grid and threshold-regressor calibration.
@@ -34,10 +33,19 @@ probe its verdict in one launch (probe 0 always kept) and the scans treat
 a pruned probe's points as invalid slots. Fused H2 then runs all three
 stages in the ``fused_three_stage`` kernel unless ``fused3=False``.
 
-Mutation (:class:`MutableJunoIndex`): ``insert`` labels new points with
-the ``ivf_filter`` kernel and encodes them with the existing codebooks into
-free padded slots of their owning cluster, spilling into a fixed-capacity
-:class:`SideBuffer` when the cluster is full; ``delete`` tombstones slots;
+The scans read the probed clusters' codes and validity through a *scan
+view* ``(codes, valid, scan_cids)``: by default the index's
+``cluster_codes``, ``ivf.valid`` and the probed cluster ids, and for the
+paged tier (``serve/paged.py``) a per-batch page buffer of the distinct
+probed clusters' rows with local indices into it. Everything else (the
+residuals, the rt probe, the point ids, the side buffer) reads the true
+cluster ids, so both views give the same results bit for bit.
+
+Mutation (:class:`MutableIndexBase`, :class:`MutableJunoIndex`): ``insert``
+labels new points with the ``ivf_filter`` kernel and encodes them with the
+existing codebooks into free padded slots of their owning cluster,
+spilling into a fixed-capacity :class:`SideBuffer` when the cluster is
+full; ``delete`` tombstones slots;
 ``compact`` folds spills back into freed slots. Side points are scored
 with the same LUT or hit-table gather as their in-cluster siblings (and,
 under rt, with their probe's verdict), in every tier. The index's tensors
@@ -192,6 +200,12 @@ def _side_scores(table: torch.Tensor, cids: torch.Tensor, side: SideBuffer,
                                              device=tot.device)), ok
 
 
+def _scan_view(index: JunoIndexData, cids: torch.Tensor, view):
+    """``(codes, valid, scan_cids)`` the scans read: ``view`` when given
+    (a page buffer (U, P, S), its validity (U, P) and local indices (Q, np)
+    into it), else the whole index and the probed cluster ids."""
+    return view if view is not None else (index.cluster_codes,
+                                          index.ivf.valid, cids)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -403,15 +417,17 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                   thres_scale: float, side: SideBuffer | None = None,
                   prefilter: str = "scan",
                   rt_grid: rt_lib.CentroidGrid | None = None,
-                  rt_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+                  rt_scale: float = 1.0, view=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Modes "H", "M" and "L": τ, stage B and a scan of every probed point.
 
     ``base``/``cids`` (Q, np) come from :func:`filter_clusters`. The scan
-    kernels read the probed clusters' codes through ``cids``; ids are
-    gathered for the k results only. Under ``prefilter="rt"`` the scans
-    score the points of pruned probes as invalid slots
-    (:func:`_rt_probe_mask`); their ids still come back beside the
-    sentinel score, as in the reference. ``side`` points join the flat
+    kernels read the probed clusters' codes and validity through the scan
+    view (:func:`_scan_view`; ``view`` or the whole index); ids are
+    gathered, by the true cluster ids, for the k results only. Under
+    ``prefilter="rt"`` the scans score the points of pruned probes as
+    invalid slots (:func:`_rt_probe_mask`); their ids still come back
+    beside the sentinel score, as in the reference. ``side`` points join the flat
     score vector after the probed slots (:func:`_side_scores`). Returns
     (scores (Q, k), ids (Q, k) int32): l2 H scores are distances (lower
     better), every other score is higher-better (ip similarity, or hit
@@ -423,20 +439,20 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                                             thres_scale=thres_scale)
     probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
                 if prefilter == "rt" else None)
-    p = index.cluster_codes.shape[1]
+    codes, valid, scan_cids = _scan_view(index, cids, view)
+    p = codes.shape[1]
     n_in = cids.shape[1] * p
     k_in = min(k, n_in)
     if mode == "H":
         out_scores, sel = ops.masked_adc_topk_scan(
-            mlut, index.cluster_codes, index.ivf.valid, cids, k_in,
-            metric=metric, probe_ok=probe_ok, probe_base=probe_base)
+            mlut, codes, valid, scan_cids, k_in, metric=metric,
+            probe_ok=probe_ok, probe_base=probe_base)
         side_args = (mlut, probe_base, bad_score(metric), metric == "ip")
     else:
         if mode == "L":  # plain count: clip penalty/inner to {0, 1}
             table = (table >= 0).to(torch.int8)
         out_scores, sel = ops.hit_count_topk_scan(
-            table, index.cluster_codes, index.ivf.valid, cids, k_in,
-            probe_ok=probe_ok)
+            table, codes, valid, scan_cids, k_in, probe_ok=probe_ok)
         side_args = (table, None, NEG, True)
     if side is not None:
         # every in-cluster index is below every side index, so the k best
@@ -462,16 +478,18 @@ def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
                   thres_scale: float, side: SideBuffer | None = None,
                   prefilter: str = "scan",
                   rt_grid: rt_lib.CentroidGrid | None = None,
-                  rt_scale: float = 1.0):
+                  rt_scale: float = 1.0, gather=None):
     """One query batch of mode "H", "M" or "L": stage A, then
-    :func:`_score_probed`. Returns (scores (Q, k) f32, ids (Q, k) int32).
+    :func:`_score_probed` (over ``gather(cids)``'s scan view when
+    ``gather`` is given). Returns (scores (Q, k) f32, ids (Q, k) int32).
     """
     q = queries.float()
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
     return _score_probed(index, q, base, cids, k=k, mode=mode, metric=metric,
                          thres_scale=thres_scale, side=side,
                          prefilter=prefilter, rt_grid=rt_grid,
-                         rt_scale=rt_scale)
+                         rt_scale=rt_scale,
+                         view=None if gather is None else gather(cids))
 
 
 def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
@@ -481,7 +499,7 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                             side: SideBuffer | None = None,
                             prefilter: str = "scan",
                             rt_grid: rt_lib.CentroidGrid | None = None,
-                            rt_scale: float = 1.0
+                            rt_scale: float = 1.0, view=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mode "H2": τ, stage B, hit-count prefilter → top-C → masked ADC.
 
@@ -500,11 +518,12 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
 
     A candidate of a pruned probe is invalid, as in the reference, whose
     ``valid`` is already masked. Only the candidates' codes, validity and
-    ids are gathered. ``side`` points bypass the count prefilter and join
-    the rerank pool directly, as in the reference (``repro/core/juno.py``
-    l.522); under rt they take the probe verdict the cluster lanes got (for
-    the three-stage kernel, the ``probe_ok`` it returns). Returns
-    (scores (Q, k), ids (Q, k) int32).
+    ids are gathered: codes and validity through the scan view
+    (:func:`_scan_view`), ids by the true cluster ids. ``side`` points
+    bypass the count prefilter and join the rerank pool directly, as in
+    the reference (``repro/core/juno.py`` l.522); under rt they take the
+    probe verdict the cluster lanes got (for the three-stage kernel, the
+    ``probe_ok`` it returns). Returns (scores (Q, k), ids (Q, k) int32).
     """
     nq, nprobe = cids.shape
     mlut, table, probe_base, tau = _stage_b(index, q, base, cids,
@@ -513,40 +532,42 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
     use_fused3 = fused and prefilter == "rt" and fused3 is not False
     probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
                 if prefilter == "rt" and not use_fused3 else None)
-    p = index.cluster_codes.shape[1]
+    codes, valid, scan_cids = _scan_view(index, cids, view)
+    p = codes.shape[1]
     cap = min(rerank or 4 * k, nprobe * p)
     if fused:
         if use_fused3:
             qp2, _, radius, slot = _rt_probe(rt_grid, q, tau, cids,
                                              rt_scale)
             _, _, cand, exact, probe_ok = ops.fused_three_stage_scan(
-                mlut, table, index.cluster_codes, index.ivf.valid, cids,
-                qp2[:, 0], qp2[:, 1], radius, rt_grid.cell_c0,
-                rt_grid.cell_c1, rt_grid.slot_reach, slot, cap_c=cap,
-                metric=metric)
+                mlut, table, codes, valid, scan_cids, qp2[:, 0], qp2[:, 1],
+                radius, rt_grid.cell_c0, rt_grid.cell_c1, rt_grid.slot_reach,
+                slot, cap_c=cap, metric=metric)
         else:
             _, _, cand, exact = ops.fused_two_stage_scan(
-                mlut, table, index.cluster_codes, index.ivf.valid, cids,
-                cap_c=cap, metric=metric, probe_ok=probe_ok)
+                mlut, table, codes, valid, scan_cids, cap_c=cap,
+                metric=metric, probe_ok=probe_ok)
         cand = cand.long()
-        cand_probe = cand // p
-        cand_cid = torch.gather(cids, 1, cand_probe)
     else:
-        _, cand = ops.hit_count_topk_scan(table, index.cluster_codes,
-                                          index.ivf.valid, cids, cap,
+        _, cand = ops.hit_count_topk_scan(table, codes, valid, scan_cids, cap,
                                           probe_ok=probe_ok)
-        cand_probe = cand // p
-        cand_cid = torch.gather(cids, 1, cand_probe)
-        cand_codes = index.cluster_codes[cand_cid, cand % p].long()  # (Q, C, S)
+    cand_probe = cand // p
+    cand_slot = cand % p
+    cand_cid = torch.gather(cids, 1, cand_probe)
+    # the candidates' rows in the scan view (the true cluster's without one)
+    cand_row = (cand_cid if scan_cids is cids
+                else torch.gather(scan_cids, 1, cand_probe))
+    if not fused:
+        cand_codes = codes[cand_row, cand_slot].long()              # (Q, C, S)
         s = mlut.shape[2]
         vals = mlut[torch.arange(nq, device=q.device)[:, None, None],
                     cand_probe[..., None], torch.arange(s, device=q.device),
                     cand_codes]                                     # (Q, C, S)
         exact = vals.sum(-1)
-    cand_valid = index.ivf.valid[cand_cid, cand % p]
+    cand_valid = valid[cand_row, cand_slot]
     if probe_ok is not None:
         cand_valid = cand_valid & torch.gather(probe_ok, 1, cand_probe)
-    cand_ids = index.ivf.point_ids[cand_cid, cand % p]
+    cand_ids = index.ivf.point_ids[cand_cid, cand_slot]
     higher_better = metric == "ip"
     if probe_base is not None:
         exact = exact + torch.gather(probe_base, 1, cand_probe)
@@ -569,18 +590,19 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
                             side: SideBuffer | None = None,
                             prefilter: str = "scan",
                             rt_grid: rt_lib.CentroidGrid | None = None,
-                            rt_scale: float = 1.0):
-    """One query batch of mode "H2": stage A, then the two-stage tail.
+                            rt_scale: float = 1.0, gather=None):
+    """One query batch of mode "H2": stage A, then the two-stage tail (over
+    ``gather(cids)``'s scan view when ``gather`` is given).
 
     Returns (scores (Q, k) f32, ids (Q, k) int32).
     """
     q = queries.float()
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
-    return _score_probed_two_stage(index, q, base, cids, k=k, metric=metric,
-                                   thres_scale=thres_scale, rerank=rerank,
-                                   fused=fused, fused3=fused3, side=side,
-                                   prefilter=prefilter, rt_grid=rt_grid,
-                                   rt_scale=rt_scale)
+    return _score_probed_two_stage(
+        index, q, base, cids, k=k, metric=metric, thres_scale=thres_scale,
+        rerank=rerank, fused=fused, fused3=fused3, side=side,
+        prefilter=prefilter, rt_grid=rt_grid, rt_scale=rt_scale,
+        view=None if gather is None else gather(cids))
 
 
 def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
@@ -588,8 +610,8 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
            batch: int = 64, rerank: int = 0, fused: bool = False,
            fused3: bool | None = None, side: SideBuffer | None = None,
            prefilter: str = "scan",
-           rt_grid: rt_lib.CentroidGrid | None = None, rt_scale: float = 1.0
-           ) -> tuple[torch.Tensor, torch.Tensor]:
+           rt_grid: rt_lib.CentroidGrid | None = None, rt_scale: float = 1.0,
+           gather=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Search the index — the online API (paper Alg. 2).
 
     Queries run in chunks of ``batch``; the last chunk is padded with
@@ -642,6 +664,10 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
     rt_scale : float
         Radius multiplier for "rt" (monotone: larger keeps more probes;
         very large values keep every probe).
+    gather : callable, optional
+        ``gather(cids)`` -> the scan view ``(codes, valid, scan_cids)``
+        each batch's scans read (the paged tier's page buffer); ``None``
+        reads the index's own ``cluster_codes`` and ``ivf.valid``.
 
     Returns
     -------
@@ -679,7 +705,7 @@ def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
             qb = torch.cat([qb, qb[-1:].expand(pad, -1)])
         kw = dict(nprobe=nprobe, k=k, metric=metric, thres_scale=thres_scale,
                   side=side, prefilter=prefilter, rt_grid=rt_grid,
-                  rt_scale=rt_scale)
+                  rt_scale=rt_scale, gather=gather)
         if mode == "H2":
             s, ids = _search_batch_two_stage(index, qb, rerank=rerank,
                                              fused=fused, fused3=fused3, **kw)
@@ -717,48 +743,25 @@ def _own_copy(data: JunoIndexData) -> JunoIndexData:
     return data._replace(ivf=ivf, cluster_codes=data.cluster_codes.clone())
 
 
-class MutableJunoIndex:
-    """Online-mutable wrapper over a built :class:`JunoIndexData`.
+class MutableIndexBase:
+    """Host-side slot bookkeeping of a mutable index.
 
-    Port of ``repro/core/juno.py:MutableIndexBase`` and
-    ``MutableJunoIndex`` as one class (the reference's other subclass, the
-    sharded index, is not ported): per-cluster free-slot lists, an
-    id → (cluster, slot) map (cluster −1 = a side-buffer position, ≤ −2 =
-    a minor generation), and a plan-then-commit discipline, so that an
-    ``insert``/``delete``/``compact`` that fails raises before any host or
-    device state is touched.
-
-    ``insert`` encodes new points with the existing codebooks into free
-    padded slots of their owning cluster, spilling into a fixed-capacity
-    :class:`SideBuffer` when a cluster is full; ``delete`` tombstones them
-    through ``valid``; ``compact()`` folds spills back into freed slots.
-    None of them changes the search's shapes.
-
-    The wrapper owns a copy of the index it is given: the constructor and
-    :meth:`swap_data` clone the three tensors a mutation writes
-    (``cluster_codes``, ``ivf.point_ids``, ``ivf.valid``; 192 / 400 MB at
-    1M points, once), so the caller's index still searches as built and
-    two wrappers over one index never see each other's writes, as with
-    the reference's functional updates. Those copies are then updated
-    **in place** (a copy of ``cluster_codes`` a batch is not affordable).
-    A batch writes ``cluster_codes``, then ``point_ids``, then ``valid``
-    last, so a write that fails part-way leaves only invisible slots.
-
-    An optional :class:`repro_torch.rt.CentroidGrid` rides along for
-    ``prefilter="rt"`` (attached, or built by :meth:`ensure_rt_grid`);
-    inserts grow the touched clusters' reaches, deletes leave them.
-
+    Port of ``repro/core/juno.py:MutableIndexBase``: per-cluster free-slot
+    lists, an id → (cluster, slot) map (cluster −1 = a side-buffer
+    position, ≤ −2 = a minor generation), the LSM delta tiers, and a
+    plan-then-commit discipline, so that an ``insert``/``delete``/
+    ``compact`` that fails raises before any host or device state is
+    touched. A subclass supplies the data plane: ``_labels_codes``
+    (insert-time labels and codes), ``_rt_centroids`` (the centroids the rt
+    reaches grow from) and ``_apply_insert``/``_apply_delete`` (the device
+    writes); :class:`MutableJunoIndex` over a resident index,
+    ``serve.paged.PagedJunoIndex`` over a memory-mapped artifact.
     """
 
-    def __init__(self, data: JunoIndexData, *, side_capacity: int = 256,
-                 rt_grid: rt_lib.CentroidGrid | None = None):
-        data = _own_copy(data)
-        self.data = data
-        self.rt_grid = rt_grid
-        self._init_bookkeeping(data.ivf.valid, data.ivf.point_ids,
-                               side_capacity=side_capacity,
-                               first_new_id=int(data.codes.shape[0]),
-                               n_subspaces=int(data.codes.shape[1]))
+    side: SideBuffer
+    rt_grid: rt_lib.CentroidGrid | None = None
+    #: ``(ArtifactStore, name)`` promoted minors are committed to, or None
+    _minor_sink = None
 
     def _init_bookkeeping(self, ivf_valid: torch.Tensor,
                           point_ids: torch.Tensor, *, side_capacity: int,
@@ -785,22 +788,22 @@ class MutableJunoIndex:
         self._delta_cache: tuple[int, SideBuffer] | None = None
         self._rt_muts: int = getattr(self, "_rt_muts", -1) + 1
 
-    # ---- device writes ---------------------------------------------------
-    def _apply_insert(self, cl, sl, ids, codes):
-        dev = self.data.cluster_codes.device
-        cl_t = torch.as_tensor(cl, device=dev)
-        sl_t = torch.as_tensor(sl, device=dev)
-        ids_t = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
-        codes = codes.to(dev)
-        # valid last: a write that fails part-way leaves invisible slots
-        self.data.cluster_codes[cl_t, sl_t] = codes
-        self.data.ivf.point_ids[cl_t, sl_t] = ids_t
-        self.data.ivf.valid[cl_t, sl_t] = True
+    # ---- data-plane hooks (subclass responsibility) ----------------------
+    def _labels_codes(self, pts: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Insert-time (labels (B,) int32, codes (B, S) uint8) on the
+        index's device."""
+        raise NotImplementedError
 
-    def _apply_delete(self, cl, sl):
-        dev = self.data.ivf.valid.device
-        self.data.ivf.valid[torch.as_tensor(cl, device=dev),
-                            torch.as_tensor(sl, device=dev)] = False
+    def _rt_centroids(self) -> torch.Tensor:
+        """(C, D) centroids the rt reaches of inserts are measured from."""
+        raise NotImplementedError
+
+    def _apply_insert(self, cl, sl, ids, codes) -> None:
+        raise NotImplementedError
+
+    def _apply_delete(self, cl, sl) -> None:
+        raise NotImplementedError
 
     def _rt_on_insert(self, pts: torch.Tensor, labels: np.ndarray) -> None:
         """After a committed insert batch: grow the touched clusters'
@@ -813,7 +816,7 @@ class MutableJunoIndex:
         if grid is None:
             return
         res = (pts.cpu().numpy().astype(np.float32)
-               - self.data.ivf.centroids.cpu().numpy()[labels])
+               - self._rt_centroids().cpu().numpy()[labels])
         rp = res @ grid.proj.cpu().numpy()
         self.rt_grid = rt_lib.update_radii(
             grid, labels, np.sqrt(np.sum(rp * rp, axis=-1)))
@@ -840,7 +843,8 @@ class MutableJunoIndex:
         return self._rt_muts
 
     # ---- LSM delta tiers (core/freshness.py) ----------------------------
-    def enable_tiers(self, max_minors: int, *, minor_store=None) -> None:
+    def enable_tiers(self, max_minors: int, *, minor_store=None,
+                     minor_name: str = "minors") -> None:
         """Turn on the LSM freshness tiers (``core/freshness.py``).
 
         With ``max_minors > 0`` a full L0 side buffer no longer makes
@@ -852,15 +856,17 @@ class MutableJunoIndex:
         ----------
         max_minors : int
             Maximum concurrent minor generations (0 disables tiering).
-        minor_store
-            Artifact-backed minors are not ported: anything but ``None``
-            raises ``NotImplementedError``.
+        minor_store : repro_torch.build.ArtifactStore, optional
+            When given, a promoted generation is committed to the store
+            (before any host state changes) and its codes are faulted back
+            in on first search touch, every row verified
+            (``build/merge.py``).
+        minor_name : str
+            Store name the minors are committed under.
         """
-        if minor_store is not None:
-            raise NotImplementedError(
-                "artifact-backed minor generations are not ported to "
-                "repro_torch yet (ROADMAP.md, queue 1: item 8, ArtifactStore)")
         self._max_minors = int(max_minors)
+        if minor_store is not None:
+            self._minor_sink = (minor_store, minor_name)
         self._delta_cache = None
         self._delta_epoch += 1
 
@@ -893,10 +899,12 @@ class MutableJunoIndex:
                                       np.ndarray]:
         """Host ``(valid, cluster, ids, codes)`` over L0 + minors, unpadded
         (what ``build.rebuild.live_points`` folds in)."""
-        tiers = [self.side, *self._minors]
+        tiers = [self.side._asdict()] + [
+            dict(valid=m.valid, cluster=m.cluster, ids=m.ids,
+                 codes=m.materialize()) for m in self._minors]
         host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) \
             else np.asarray(a)  # noqa: E731
-        return tuple(np.concatenate([host(getattr(t, f)) for t in tiers])
+        return tuple(np.concatenate([host(t[f]) for t in tiers])
                      for f in ("valid", "cluster", "ids", "codes"))
 
     # ---- mutation -------------------------------------------------------
@@ -925,8 +933,7 @@ class MutableJunoIndex:
         pts = _as_tensor(points).to(dev)
         if pts.dim() == 1:
             pts = pts[None]
-        labels_t, codes = _label_encode(pts, self.data.ivf,    # (B,), (B, S)
-                                         self.data.codebook)
+        labels_t, codes = self._labels_codes(pts)              # (B,), (B, S)
         labels = labels_t.cpu().numpy()
 
         if not self._placement_fits(labels, len(self._side_free)):
@@ -1094,6 +1101,63 @@ class MutableJunoIndex:
         self._delta_epoch += 1
         return len(pos_l)
 
+
+class MutableJunoIndex(MutableIndexBase):
+    """Online-mutable wrapper over a built :class:`JunoIndexData`.
+
+    ``insert`` encodes new points with the existing codebooks into free
+    padded slots of their owning cluster, spilling into a fixed-capacity
+    :class:`SideBuffer` when a cluster is full; ``delete`` tombstones them
+    through ``valid``; ``compact()`` folds spills back into freed slots.
+    None of them changes the search's shapes.
+
+    The wrapper owns a copy of the index it is given: the constructor and
+    :meth:`swap_data` clone the three tensors a mutation writes
+    (``cluster_codes``, ``ivf.point_ids``, ``ivf.valid``; 192 / 400 MB at
+    1M points, once), so the caller's index still searches as built and
+    two wrappers over one index never see each other's writes, as with
+    the reference's functional updates. Those copies are then updated
+    **in place** (a copy of ``cluster_codes`` a batch is not affordable).
+    A batch writes ``cluster_codes``, then ``point_ids``, then ``valid``
+    last, so a write that fails part-way leaves only invisible slots.
+
+    An optional :class:`repro_torch.rt.CentroidGrid` rides along for
+    ``prefilter="rt"`` (attached, or built by :meth:`ensure_rt_grid`);
+    inserts grow the touched clusters' reaches, deletes leave them.
+    """
+
+    def __init__(self, data: JunoIndexData, *, side_capacity: int = 256,
+                 rt_grid: rt_lib.CentroidGrid | None = None):
+        data = _own_copy(data)
+        self.data = data
+        self.rt_grid = rt_grid
+        self._init_bookkeeping(data.ivf.valid, data.ivf.point_ids,
+                               side_capacity=side_capacity,
+                               first_new_id=int(data.codes.shape[0]),
+                               n_subspaces=int(data.codes.shape[1]))
+
+    def _labels_codes(self, pts):
+        return _label_encode(pts, self.data.ivf, self.data.codebook)
+
+    def _rt_centroids(self):
+        return self.data.ivf.centroids
+
+    # ---- device writes ---------------------------------------------------
+    def _apply_insert(self, cl, sl, ids, codes):
+        dev = self.data.cluster_codes.device
+        cl_t = torch.as_tensor(cl, device=dev)
+        sl_t = torch.as_tensor(sl, device=dev)
+        ids_t = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
+        codes = codes.to(dev)
+        # valid last: a write that fails part-way leaves invisible slots
+        self.data.cluster_codes[cl_t, sl_t] = codes
+        self.data.ivf.point_ids[cl_t, sl_t] = ids_t
+        self.data.ivf.valid[cl_t, sl_t] = True
+
+    def _apply_delete(self, cl, sl):
+        dev = self.data.ivf.valid.device
+        self.data.ivf.valid[torch.as_tensor(cl, device=dev),
+                            torch.as_tensor(sl, device=dev)] = False
 
     def swap_data(self, new_data: JunoIndexData, *,
                   side_capacity: int | None = None) -> None:

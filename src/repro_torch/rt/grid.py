@@ -255,7 +255,8 @@ def grid_from_arrays(arrays: dict, device=None, *,
     """A grid on ``device`` from numpy arrays keyed ``prefix + field``.
 
     The default prefix reads the ``rt_grid.*`` group of an index artifact
-    (``build.store.LoadedIndex.rt_arrays``); every array keeps its bits.
+    (``build.store.load_index`` builds ``LoadedIndex.rt_grid`` with it);
+    every array keeps its bits.
 
     Raises
     ------

@@ -27,9 +27,9 @@ the same signature ``(k, mode, nprobe)`` into one search call:
   surviving probe (``rt.probe_budget``, host numpy, once a request and
   again after each insert batch, which grows the grid's reaches).
 * **Mutation plane** — the engine owns a
-  :class:`~repro_torch.core.juno.MutableJunoIndex` (a bare index is
-  wrapped in one, which copies it; a wrapper passed in is shared):
-  ``insert``,
+  :class:`~repro_torch.core.juno.MutableIndexBase` (a bare index is
+  wrapped in a ``MutableJunoIndex``, which copies it; a wrapper passed in,
+  such as the paged tier's ``PagedJunoIndex``, is shared): ``insert``,
   ``delete`` and ``compact`` run between ticks with no change to any
   search shape (the delta tiers ride along as one fixed-capacity side
   buffer); ``swap_index`` installs a rebuilt index; with ``max_minors``
@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.freshness import MergeScheduler
-from ..core.juno import (JunoIndexData, MutableJunoIndex,
+from ..core.juno import (JunoIndexData, MutableIndexBase, MutableJunoIndex,
                          _search_batch, _search_batch_two_stage)
 from ..rt import grid as rt_lib
 
@@ -99,7 +99,7 @@ class AnnServeEngine:
     # fused serving: rerank budget C = FUSED_RERANK_MULT · k
     FUSED_RERANK_MULT = 32
 
-    def __init__(self, index: JunoIndexData | MutableJunoIndex, *,
+    def __init__(self, index: JunoIndexData | MutableIndexBase, *,
                  metric: str = "l2", thres_scale: float = 1.0,
                  side_capacity: int = 256,
                  batch_buckets: tuple[int, ...] | None = None,
@@ -111,11 +111,12 @@ class AnnServeEngine:
 
         Parameters
         ----------
-        index : JunoIndexData or MutableJunoIndex
+        index : JunoIndexData or MutableIndexBase
             The index to serve; searches run on its device. A bare
             ``JunoIndexData`` is wrapped in a ``MutableJunoIndex``, which
             owns a copy of the tensors a mutation writes: the caller's
-            index, and any other engine over it, is left as it was.
+            index, and any other engine over it, is left as it was. A
+            mutable index passed in is shared.
         metric : str
             "l2" | "ip".
         thres_scale : float
@@ -152,7 +153,7 @@ class AnnServeEngine:
         """
         if prefilter not in ("scan", "rt"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
-        self.index = (index if isinstance(index, MutableJunoIndex)
+        self.index = (index if isinstance(index, MutableIndexBase)
                       else MutableJunoIndex(index,
                                             side_capacity=side_capacity))
         if rt_grid is not None:
@@ -326,14 +327,17 @@ class AnnServeEngine:
         return rows
 
     def _dispatch(self, qb: torch.Tensor, k: int, mode: str, nprobe: int,
-                  side):
-        """Run one padded batch through the search of its tier."""
+                  side, *, k_search: int | None = None, gather=None):
+        """Run one padded batch through the search of its tier: ``k_search``
+        results (default ``k``; the fused rerank budget stays
+        ``FUSED_RERANK_MULT · k``), the scans reading ``gather(cids)``'s
+        scan view when ``gather`` is given (the paged engine's)."""
         grid = (self.index.ensure_rt_grid(metric=self.metric)
                 if self.prefilter == "rt" else None)
-        kw = dict(nprobe=nprobe, k=k, metric=self.metric,
+        kw = dict(nprobe=nprobe, k=k_search or k, metric=self.metric,
                   thres_scale=self.thres_scale, side=side,
                   prefilter=self.prefilter, rt_grid=grid,
-                  rt_scale=self.rt_scale)
+                  rt_scale=self.rt_scale, gather=gather)
         if mode == "H2":
             return _search_batch_two_stage(
                 self.index.data, qb, fused=self.fused, fused3=self.fused3,
@@ -352,7 +356,7 @@ class AnnServeEngine:
     # ---- mutation plane (between ticks) ---------------------------------
     def insert(self, points) -> list[int]:
         """Insert a (B, D) point batch into the served index; returns the
-        assigned global ids (see ``MutableJunoIndex.insert``)."""
+        assigned global ids (see ``MutableIndexBase.insert``)."""
         ids = self.index.insert(points)
         self.stats["inserts"] += len(ids)
         return ids

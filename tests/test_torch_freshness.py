@@ -9,22 +9,33 @@ and the combined delta view (constant capacity ``B · (1 + max_minors)``)
 must be equal, and every tier's results must match the reference's
 (counts exactly, other scores within rtol 1e-5, ids up to ties). The
 search over the tiers must equal the search after ``rebuild_index``.
+
+With a minor store (``enable_tiers(minor_store=...)``) a promoted L0 is
+committed as a minor artifact, equal to the reference's, and faulted back
+in on first search, every row verified: a corrupt row raises, a failed
+commit changes nothing. A minor written by either package loads in the
+other.
 """
 import copy
+import json
+import os
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _torch_mutable import (assert_same_results, assert_same_state,
                             near_points, port_grid)
 from _torch_parity import assert_ids_equal_up_to_ties, to_port
 from repro import rt as jrt
+from repro.build import store as jstore
 from repro.build.merge import fold_step as jax_fold_step
 from repro.core import JunoConfig, build
 from repro.core import freshness as jfresh
 from repro.core import juno as jjuno
 from repro.data import DEEP_LIKE, TTI_LIKE, make_dataset
+from repro_torch.build import ArtifactStore as PortStore
 from repro_torch.build import fold_step, rebuild_index
 from repro_torch.core import freshness as pfresh
 from repro_torch.core.juno import MutableJunoIndex
@@ -181,3 +192,142 @@ def test_combined_delta_capacity_is_constant(tiered):
         assert view.capacity == L0 * (1 + MAX_MINORS)
     with pytest.raises(RuntimeError, match="exceed max_minors"):
         pfresh.combined_delta(pm.side, pm._minors, 1)
+
+
+# ---------------------------------------------------------------------------
+# artifact-backed minor generations (enable_tiers(minor_store=...))
+# ---------------------------------------------------------------------------
+
+def _minor_arrays(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (12, 6), dtype=np.uint8),
+            rng.integers(0, 16, 12).astype(np.int32),
+            np.arange(100, 112, dtype=np.int32), rng.random(12) < 0.8)
+
+
+def test_minors_cross_packages(tmp_path):
+    """A minor written by either package loads in the other, bit-equal,
+    with equal manifests; a flipped code byte fails both loaders closed."""
+    from repro.build import merge as jmerge
+    from repro_torch.build import ArtifactError, merge as pmerge
+    arrays = _minor_arrays(3)
+    paths = {"port": str(tmp_path / "port"), "ref": str(tmp_path / "ref")}
+    assert (pmerge.save_minor(paths["port"], *arrays, gen=4)
+            == jmerge.save_minor(paths["ref"], *arrays, gen=4))
+    loaders = {"port": pmerge.load_minor, "ref": jmerge.load_minor}
+    for path in paths.values():
+        for load in loaders.values():
+            got = load(path)
+            for a, b in zip(got[:4], arrays):
+                assert a.dtype == np.asarray(b).dtype
+                np.testing.assert_array_equal(a, b)
+            assert got[4]["gen"] == 4 and got[4]["capacity"] == 12
+    torch_codes = pmerge.minor_codes_loader(paths["ref"], "cpu")()
+    np.testing.assert_array_equal(torch_codes.numpy(), arrays[0])
+    for path in paths.values():
+        bad = {k: v for k, v in zip(("codes", "cluster", "ids", "valid"),
+                                    map(np.array, arrays))}
+        bad["codes"][5, 2] ^= 1
+        np.savez(os.path.join(path, "minor.npz"), **bad)
+        with pytest.raises(ArtifactError, match="minor code row 5"):
+            pmerge.load_minor(path)
+        with pytest.raises(jstore.ArtifactError, match="minor code row 5"):
+            jmerge.load_minor(path)
+        pmerge.load_minor(path, verify_rows=False)    # the explicit opt-out
+
+
+@pytest.fixture()
+def stored(tmp_path):
+    """Both packages' mutable index with ``max_minors=2`` and a minor store:
+    an L0 of 16 filled by spills into the fullest cluster, then a batch
+    that promotes it into a minor committed to each package's store."""
+    pts, q = make_dataset(DEEP_LIKE, 3000, 24, key=jax.random.PRNGKey(23))
+    cfg = JunoConfig(n_clusters=16, n_entries=32, calib_queries=16,
+                     kmeans_iters=4, capacity_mult=1.1)
+    ref = build(pts, cfg, jax.random.PRNGKey(6))
+    jm = jjuno.MutableJunoIndex(ref, side_capacity=L0)
+    pm = MutableJunoIndex(to_port(ref), side_capacity=L0)
+    pstore = PortStore(str(tmp_path / "port"))
+    jstore_ = jstore.ArtifactStore(str(tmp_path / "ref"))
+    pm.enable_tiers(MAX_MINORS, minor_store=pstore)
+    jm.enable_tiers(MAX_MINORS, minor_store=jstore_)
+    rng = np.random.default_rng(5)
+    c = int(np.argmin([pm.free_slots(i) for i in range(16)]))
+    ids = []
+    for n in (pm.free_slots(c) + L0, 4):
+        new = near_points(pm.data.ivf.centroids[c].numpy(), n, rng)
+        got = pm.insert(new)
+        assert got == jm.insert(new)
+        ids += got
+    assert len(pm._minors) == len(jm._minors) == 1
+    return pm, jm, pstore, jstore_, np.asarray(q), ids
+
+
+def test_promoted_minor_is_committed(stored):
+    pm, jm, pstore, jstore_, _, _ = stored
+    pmin, jmin = pm._minors[0], jm._minors[0]
+    assert pmin.codes is None and jmin.codes is None       # not faulted in
+    assert pstore.latest("minors") == jstore_.latest("minors") == 1
+    assert pmin.path == pstore.path("minors", 1)
+    with open(os.path.join(pmin.path, "manifest.json")) as fh, \
+            open(os.path.join(jmin.path, "manifest.json")) as gh:
+        assert json.load(fh) == json.load(gh)
+    assert pmin.capacity == L0
+    for f in ("cluster", "ids", "valid"):
+        np.testing.assert_array_equal(getattr(pmin, f), getattr(jmin, f))
+
+
+@pytest.mark.parametrize("tier", ["H", "M", "H2", "H2_fused"])
+def test_search_over_stored_minors_matches_reference(stored, tier):
+    """The first search faults the minor in, every row verified; results
+    equal the reference's, and in the distance tiers the promoted ids are
+    found (the spills lie within 1e-3 of their centroid, which the queries
+    are: the top 100 by distance hold every spill; tier M ranks by hit
+    count)."""
+    pm, jm, _, _, _, ids = stored
+    pmin = pm._minors[0]
+    assert len(ids) < 100
+    q = pm.data.ivf.centroids.numpy()[pmin.cluster[:4]] + np.float32(1e-4)
+    kw = dict(metric="l2", nprobe=NPROBE, k=100, batch=4, **TIERS[tier])
+    assert_same_results(pm, jm, q, **kw)
+    assert pmin.codes is not None
+    np.testing.assert_array_equal(pmin.codes.numpy(),
+                                  np.asarray(jm._minors[0].materialize()))
+    if tier != "M":
+        _, got = pm.search(q, **kw)
+        assert np.isin(pmin.ids[pmin.valid], got.numpy()).all()
+
+
+def test_corrupt_stored_minor_fails_closed(stored):
+    from repro_torch.build import ArtifactError
+    pm, _, _, _, q, _ = stored
+    path = os.path.join(pm._minors[0].path, "minor.npz")
+    with np.load(path) as z:
+        arrays = {k: z[k].copy() for k in z.files}
+    arrays["codes"][0, 0] ^= 1
+    np.savez(path, **arrays)
+    with pytest.raises(ArtifactError, match="minor code row 0"):
+        pm.search(q, metric="l2", nprobe=NPROBE, k=10)
+    assert pm._minors[0].codes is None                  # nothing served
+
+
+def test_failed_minor_commit_changes_nothing(stored, monkeypatch):
+    from repro_torch.build import merge as pmerge
+    pm, _, _, _, _, _ = stored
+    c = int(pm._minors[0].cluster[0])
+    rng = np.random.default_rng(9)
+    pm.insert(near_points(pm.data.ivf.centroids[c].numpy(),
+                          L0 - pm.side_fill, rng))
+    before = copy.deepcopy((pm._loc, pm._side_free, pm._next_id,
+                            len(pm._minors), pm._minor_gen))
+    side = [t.clone() for t in pm.side]
+
+    def fail(*a, **kw):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(pmerge, "commit_minor", fail)
+    with pytest.raises(OSError, match="disk full"):
+        pm.insert(near_points(pm.data.ivf.centroids[c].numpy(), 2, rng))
+    assert copy.deepcopy((pm._loc, pm._side_free, pm._next_id,
+                          len(pm._minors), pm._minor_gen)) == before
+    assert all(torch.equal(a, b) for a, b in zip(pm.side, side))

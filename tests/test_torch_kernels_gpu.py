@@ -955,3 +955,87 @@ def test_ivf_filter_topk_kernel_refuses_bad_input(cuda):
                              nprobe=2)
     with pytest.raises(ValueError, match="unknown metric"):
         pivf.ivf_filter_topk(q, cent, csq, nprobe=2, metric="cos")
+
+
+# ---------------------------------------------------------------------------
+# the paged tier's scan view: a page buffer with local indices
+# ---------------------------------------------------------------------------
+
+def _page(codes, valid, cids):
+    """The page buffer of ``cids``' distinct clusters, their validity and
+    the local indices into it (``serve.paged.PagedIndexData.gather``)."""
+    uniq, local = torch.unique(cids, return_inverse=True)
+    return codes[uniq].contiguous(), valid[uniq].contiguous(), local
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("case", ["scattered", "one_cluster", "every_cluster"])
+@pytest.mark.parametrize("s", [48, 100])
+def test_scans_over_a_page_buffer_equal_the_whole_index(cuda, s, case,
+                                                        metric):
+    """Each scan over a page buffer and local indices returns what it
+    returns over the whole ``cluster_codes`` and the true cluster ids,
+    bit for bit: one distinct cluster, scattered ones, and every cluster
+    of the index probed (U past any cache's rows)."""
+    q, n_probe, n_clusters = 8, 6, 40
+    lut, table, codes, valid, cids = _index_form(
+        80 + s, 0.5, s=s, q=q, n_probe=n_probe, n_clusters=n_clusters,
+        signed=metric == "ip")
+    if case == "one_cluster":
+        cids = torch.full_like(cids, 7)
+    elif case == "every_cluster":
+        cids = torch.randperm(q * n_probe, device=cuda)[:q * n_probe]
+        cids = (cids % n_clusters).reshape(q, n_probe)
+    pc, pv, local = _page(codes, valid, cids)
+    base = torch.randn((q, n_probe), device=cuda) if metric == "ip" else None
+    grid = [torch.from_numpy(a).to(cuda)
+            for a in synth_grid(s, 4, 16, q, n_probe, radii="mixed")]
+    sph = (*grid[:3], *grid[5:9])
+    calls = {
+        "pq_topk": lambda c, v, i: ops.masked_adc_topk_scan(
+            lut, c, v, i, 50, metric=metric, probe_base=base),
+        "hit_topk": lambda c, v, i: ops.hit_count_topk_scan(
+            table, c, v, i, 50),
+        "fused_two": lambda c, v, i: ops.fused_two_stage_scan(
+            lut, table, c, v, i, cap_c=60, metric=metric),
+        "fused_three": lambda c, v, i: ops.fused_three_stage_scan(
+            lut, table, c, v, i, *sph, cap_c=60, metric=metric)}
+    for name, call in calls.items():
+        whole, paged = call(codes, valid, cids), call(pc, pv, local)
+        torch.cuda.synchronize()
+        for a, b in zip(whole, paged, strict=True):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_paged_search_equals_resident_on_the_card(cuda, metric, tmp_path):
+    """A small index built on the card, committed to an ``ArtifactStore``
+    and served paged with a cache of two rows: every tier, scan and rt,
+    returns the resident search's scores and ids bit for bit."""
+    from repro_torch import rt
+    from repro_torch.build import ArtifactStore
+    from repro_torch.core import JunoConfig, build, search
+    from repro_torch.data import DEEP_LIKE, TTI_LIKE, make_dataset
+    from repro_torch.serve.paged import PagedIndexData, PagedJunoIndex
+
+    spec = DEEP_LIKE if metric == "l2" else TTI_LIKE
+    pts, q = make_dataset(spec, 20000, 256, seed=3)
+    cfg = JunoConfig(n_clusters=64, n_entries=256, metric=metric)
+    index = build(pts, cfg, seed=3)
+    grid = rt.build_grid(index, metric=metric)
+    store = ArtifactStore(str(tmp_path / "store"))
+    store.put("main", index, cfg, rt_grid=grid)
+    row = index.cluster_codes[0].numel()
+    paged = PagedIndexData(store.path("main", 1), cache_bytes=2 * row)
+    pidx = PagedJunoIndex(paged)
+    for pf in ("scan", "rt"):
+        for mode, fused in (("H", False), ("M", False), ("L", False),
+                            ("H2", False), ("H2", True)):
+            kw = dict(nprobe=16, k=100, mode=mode, fused=fused,
+                      metric=metric, prefilter=pf, batch=128)
+            want = search(index, q, rt_grid=grid if pf == "rt" else None,
+                          **kw)
+            got = pidx.search(q, **kw)
+            for a, b in zip(want, got):
+                assert torch.equal(a, b), (pf, mode, fused)
+    assert paged.cache.evictions > 0 and len(paged.cache) <= 2

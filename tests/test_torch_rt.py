@@ -129,8 +129,7 @@ def test_grids_cross_bit_equal(rt_data, tmp_path):
     cfg = JunoConfig(n_clusters=32, n_entries=32, calib_queries=24,
                      kmeans_iters=5, metric=metric)
     save_index(str(tmp_path / "art"), idx, cfg, rt_grid=grid)
-    art = load_index(str(tmp_path / "art"), device="cpu")
-    from_artifact = rt.grid_from_arrays(art.rt_arrays, "cpu")
+    from_artifact = load_index(str(tmp_path / "art"), device="cpu").rt_grid
     for f, want in ref_arrays.items():
         for g in (loaded, pgrid, from_artifact):
             got = getattr(g, f).numpy()

@@ -90,11 +90,27 @@ def test_fused_outside_h2_raises_value_error(indexed):
             search(port, q[:2], k=10, metric=metric, mode=mode, fused=True)
 
 
-def test_unported_options_raise(indexed):
-    """Artifact-backed minor generations are not ported (the side buffer
-    and the in-memory tiers are: test_torch_mutable.py,
-    test_torch_freshness.py)."""
+def test_unported_options_raise(indexed, tmp_path):
+    """The metrics-registry bindings are not ported yet (ROADMAP queue 1,
+    item 5): ``ArtifactStore(registry=...)``, ``ClusterCache.bind`` and
+    ``PagedIndexData.bind_obs`` raise rather than drop the metrics. The
+    artifact-backed minors they once stood beside are ported
+    (test_torch_freshness.py, test_torch_paged.py)."""
+    from repro_torch.build import ArtifactStore
+    from repro_torch.core.juno import JunoConfig as PortConfig
+    from repro_torch.serve.paged import ClusterCache, PagedIndexData
+
     metric, q, _, port = indexed
-    mut = MutableJunoIndex(port)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mut.enable_tiers(2, minor_store=object())
+        ArtifactStore(str(tmp_path / "store"), registry=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ClusterCache(1 << 20).bind(object())
+    store = ArtifactStore(str(tmp_path / "store"))
+    store.put("main", port, PortConfig(n_clusters=port.ivf.n_clusters,
+                                       metric=metric))
+    paged = PagedIndexData(store.path("main", 1), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        paged.bind_obs(object())
+    mut = MutableJunoIndex(port)
+    mut.enable_tiers(2, minor_store=store)      # ported: no longer raises
+    assert mut._minor_sink == (store, "minors")
