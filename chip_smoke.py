@@ -17,8 +17,10 @@ Phases, each raising on failure:
    top-16 ids equal away from a tie, at (Q, C, D) = (128, 1024, 96) and
    (128, 1024, 200) for a search batch and (1000, 1024, 96) for an insert
    batch, l2 and ip; its top-nprobe epilogue, which stage A runs, at the
-   search shapes with nprobe 8, 16 and 32 and the insert shape with nprobe
-   1: scores within that bound, ids equal away from a tie at the nprobe-th
+   search shapes with nprobe 8, 16 and 32, the insert shape with nprobe
+   1 and the streaming build's eval batch, nprobe 1, at (Q, C, D) =
+   (8192, 1024, 96), (8192, 10240, 96) and (8192, 1024, 200): scores
+   within that bound, ids equal away from a tie at the nprobe-th
    place, and equal, index-ascending, where centroids repeat), timed with
    CUDA events (median of 20) beside the plain version, the PyTorch calls
    that compute the same result where there are any (``embedding_bag``,
@@ -134,13 +136,35 @@ Phases, each raising on failure:
    keeps the counters and then serves the resident engine's results on
    it; with ``max_minors=2`` and the store, a full L0 committed as a
    minor artifact, faulted in on the first search and its ids found; the
-   directory is deleted at the end;
+   directory is deleted at the end; then ``obs.l2``: the four engines
+   (fused or not, scan or rt) with obs on and off, three passes in turns,
+   ids and scores bit-equal request by request, QPS of each and the
+   ratio; the registry's tick, row and per-tier request counts equal to
+   the engines' own; every ``engine.dispatch`` span under an
+   ``engine.tick``; a ``RecallProbe(every=8)`` on the fused engine (its
+   online recall@10 beside the tiers' recall); an ``ArtifactStore`` with
+   a registry (one put, load and verify counted); a fused paged engine
+   with its fetch plane bound (fault spans = misses, ``juno_cache_*`` =
+   ``cache_stats()``, bit-equal to obs off); the merged dump as JSONL in
+   ``--out``, passing ``validate_events``; then ``pipeline.l2``: the
+   serve phase's 1M points through ``build_streaming`` (probe counters,
+   shapes and dtypes of the in-memory index's, recall@10-in-100 of H, M
+   and L within 0.01 of its) and 10M DEEP-like points streamed out of
+   ``make_dataset``'s draws, never held whole (C = 10,240, P = 3912,
+   ``max_train_points`` 1M): each pass's seconds, the device's peak over
+   passes 1–2 below the raw points' bytes, the fused and unfused engines'
+   QPS, tiers H, H2, M and L's recall against an exact top-100 streamed
+   over the source, ``split_shards``/``merge_shards`` bit-equal, and an
+   ``ArtifactStore`` round trip served bit-equal (the mutate phase's
+   freshness engine also holds its ``MergeScheduler``'s series to its
+   stats);
 5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100),
-   then ``mutate.ip`` and ``paged.ip``;
+   then ``mutate.ip``, ``paged.ip`` and ``obs.ip``;
 6. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
-   four engines over both indexes, the ``mutate`` rounds and the first
-   pass of each paged engine (an rt
+   four engines over both indexes, the ``mutate`` rounds, the first
+   pass of each paged engine, the ``obs`` passes and the ``pipeline``
+   builds and 10M engine passes (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
    ``hit_count`` call on the top-k route, which every engine takes, is two
@@ -180,15 +204,18 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch import rt  # noqa: E402
 from repro_torch.build import (ArtifactError, ArtifactStore,  # noqa: E402
-                               load_index, rebuild_index)
+                               BuildProbe, array_source, build_streaming,
+                               load_index, merge_shards, rebuild_index,
+                               split_shards)
 from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
                               index_to, recall_n_at_k, search)
 from repro_torch.core import density as density_lib  # noqa: E402
 from repro_torch.core import juno as juno_lib  # noqa: E402
-from repro_torch.core.ivf import filter_clusters  # noqa: E402
+from repro_torch.core.ivf import cluster_capacity, filter_clusters  # noqa: E402
 from repro_torch.core.juno import (MutableJunoIndex, SideBuffer,  # noqa: E402
                                    _label_encode, _rt_probe_mask)
-from repro_torch.data import DEEP_LIKE, TTI_LIKE, make_dataset  # noqa: E402
+from repro_torch.data import (DEEP_LIKE, TTI_LIKE, make_dataset,  # noqa: E402
+                              point_chunks)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
 from repro_torch.kernels import fused_two_stage as fts  # noqa: E402
@@ -199,6 +226,10 @@ from repro_torch.kernels import pq_scan as pqs  # noqa: E402
 from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
 from repro_torch.kernels.ref import NEG  # noqa: E402
+from repro_torch.obs import (MetricsRegistry, Observability,  # noqa: E402
+                             RecallProbe, Tracer, to_events, validate_events,
+                             write_jsonl)
+from repro_torch.serve import ann as ann_lib  # noqa: E402
 from repro_torch.serve.ann import AnnServeEngine  # noqa: E402
 from repro_torch.serve.paged import (PagedAnnServeEngine,  # noqa: E402
                                      PagedIndexData)
@@ -1466,9 +1497,10 @@ def check_ivf_filter_topk(q: int, c: int, d: int, nprobe: int, metric: str,
     within that bound; with repeated centroids (``dup``: exact ties) ids
     equal, index-ascending. Timed beside the plain version, the library's
     two calls (``addmm``/``mm``, then ``torch.sort(stable=True)`` and the
-    slice) and this tree's matrix kernel followed by the same sort and
-    slice (``matrix_sort_ms``, the route stage A took before the
-    epilogue)."""
+    slice; at nprobe 1 ``addmm``/``mm``, then ``min``/``max`` along the
+    row, which keeps the first extremum) and this tree's matrix kernel
+    followed by the same sort and slice (``matrix_sort_ms``, the route
+    stage A took before the epilogue)."""
     dev = torch.device("cuda")
     qs = torch.randn((q, d), generator=gen, device=dev)
     cent = torch.randn((c, d), generator=gen, device=dev)
@@ -1507,6 +1539,8 @@ def check_ivf_filter_topk(q: int, c: int, d: int, nprobe: int, metric: str,
     def library():
         m = (torch.addmm(csq[None, :], qs, cent.T, alpha=-2.0)
              if metric == "l2" else torch.mm(qs, cent.T))
+        if nprobe == 1:
+            return (torch.min if metric == "l2" else torch.max)(m, dim=1)
         key = -m if metric == "l2" else m
         v, i = torch.sort(key, dim=1, descending=True, stable=True)
         return v[:, :nprobe], i[:, :nprobe]
@@ -1530,7 +1564,8 @@ def check_ivf_filter_topk(q: int, c: int, d: int, nprobe: int, metric: str,
                 qs, cent, csq, nprobe=nprobe, metric=metric)),
             "library_ms": time_ms(library),
             "library": ("addmm" if metric == "l2" else "mm")
-            + " + sort(stable) + slice: two library calls",
+            + (" + min/max along the row" if nprobe == 1 else
+               " + sort(stable) + slice") + ": two library calls",
             "matrix_sort_ms": time_ms(matrix_sort),
             "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
 
@@ -1658,6 +1693,11 @@ def phase_kernels(seed: int) -> dict:
     rows["ivf_filter"] += [
         check_ivf_filter_topk(1000, 1024, 96, 1, "l2", gen),
         check_ivf_filter_topk(128, 1024, 96, 16, "l2", gen, dup=True)]
+    # the streaming build's assignment: one eval batch of 8192 rows at
+    # nprobe 1, at the 1M (C 1024) and 10M (C 10240) builds' shapes
+    rows["ivf_filter"] += [check_ivf_filter_topk(8192, c, d, 1, "l2", gen)
+                           for c, d in ((1024, 96), (10240, 96), (1024, 200))]
+    torch.cuda.empty_cache()
     rows["ivf_filter"] += [dict(epilogue="matrix",
                                 **check_ivf_filter(q, 1024, d, metric, gen))
                            for q, d in ((128, 96), (128, 200), (1000, 96))
@@ -1704,7 +1744,10 @@ def check_results(ids, scores, n_points: int, what: str, *,
 
 class StageACount:
     """Within ``with``: count the searches' stage-A calls
-    (``filter_clusters``, as ``core/juno.py`` calls it)."""
+    (``filter_clusters``, as ``core/juno.py`` and the engines'
+    ``serve/ann.py`` call it)."""
+
+    MODULES = (juno_lib, ann_lib)
 
     def __init__(self):
         self.calls = 0
@@ -1715,11 +1758,13 @@ class StageACount:
         def counted(*args, **kw):
             self.calls += 1
             return self._fn(*args, **kw)
-        juno_lib.filter_clusters = counted
+        for m in self.MODULES:
+            m.filter_clusters = counted
         return self
 
     def __exit__(self, *exc):
-        juno_lib.filter_clusters = self._fn
+        for m in self.MODULES:
+            m.filter_clusters = self._fn
 
 
 def _clone(t):
@@ -2294,8 +2339,10 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
     if mut.rt_grid is None:
         raise AssertionError("the rt grid was not rebuilt after the swap")
 
-    # the freshness tiers: 3 × SIDE forced spills with max_minors=2
-    teng = AnnServeEngine(mut, metric=metric, max_minors=2)
+    # the freshness tiers: 3 × SIDE forced spills with max_minors=2; the
+    # engine's obs bundle gives its MergeScheduler a registry
+    teng = AnnServeEngine(mut, metric=metric, max_minors=2,
+                          obs=Observability())
     c = fullest(mut)
     caps = []
     for i in range(3):
@@ -2321,6 +2368,7 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
                              f"points, {len(mut._minors)} minors")
     compare_tiers(tier_results(mut, q, metric), want, "drained vs rebuild")
     del rebuilt, want
+    merge_series = merge_series_check(teng)
     out = {"rounds": ROUNDS, "inserted": ROUNDS * INSERT_BATCH,
            "deleted": len(deleted), "stream_compactions": compactions,
            "deleted_ids_on_pads": dead_pads, "side_fill_per_round": side_fills,
@@ -2338,11 +2386,32 @@ def phase_mutate(name: str, metric: str, mut, grid, pts: np.ndarray,
            "tiers_delta_capacity": caps, "tiers_pending": pending,
            "tiers_moved": moved_tiers,
            "scheduler": teng.scheduler.stats,
+           "merge_series": merge_series,
            "engine_stats": {k: eng.stats[k] for k in
                             ("inserts", "deletes", "swaps", "ticks")},
            "launches": stream_launches}
     log(f"mutate.{name}", **out)
     return out
+
+
+def merge_series_check(eng) -> dict:
+    """The engine's ``MergeScheduler`` registry series against its own
+    ``stats``: steps, folds and drains counted alike, a step-seconds
+    observation a step and a drain-seconds one a drain."""
+    st, snap = eng.scheduler.stats, eng.obs.registry.snapshot()
+    got = {"steps": snap.get("juno_merge_steps_total", 0),
+           "folded": snap.get("juno_merge_folded_total", 0),
+           "drains": snap.get("juno_merge_drains_total", 0),
+           "step_seconds_n": snap.get("juno_merge_step_seconds",
+                                      {"n": 0})["n"],
+           "drain_seconds_n": snap.get("juno_merge_drain_seconds",
+                                       {"n": 0})["n"]}
+    want = {"steps": st["steps"], "folded": st["folded"],
+            "drains": st["drains"], "step_seconds_n": st["steps"],
+            "drain_seconds_n": st["drains"]}
+    if got != want or st["steps"] <= 0:
+        raise AssertionError(f"juno_merge_* {got} != scheduler {want}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -2378,8 +2447,8 @@ def same_requests(got: list, want: list, what: str) -> None:
     for a, b in zip(got, want, strict=True):
         if not (a.done and np.array_equal(a.ids, b.ids)
                 and np.array_equal(a.scores, b.scores)):
-            raise AssertionError(f"{what}: request {a.rid} differs from the "
-                                 f"resident engine's")
+            raise AssertionError(f"{what}: request {a.rid} differs from its "
+                                 f"counterpart's")
 
 
 def _dir_bytes(path: str) -> int:
@@ -2675,6 +2744,442 @@ def phase_paged(name: str, metric: str, cfg, index, grid, pts: np.ndarray,
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+# ---------------------------------------------------------------------------
+# obs phase
+# ---------------------------------------------------------------------------
+def engine_series(eng, reqs: list) -> dict:
+    """An obs-on engine's ``juno_engine_*`` counters against its own
+    counts: ticks, rows served and, by mode, the requests routed to that
+    tier (``reqs``: every request it served)."""
+    snap = eng.obs.registry.snapshot()
+    routed = collections.Counter(eng.route(r)[1] for r in reqs)
+    by_mode = {k.split('"')[1]: v for k, v in snap.items()
+               if k.startswith("juno_engine_requests_total")}
+    got = {"ticks": snap["juno_engine_ticks_total"],
+           "queries": snap["juno_engine_queries_total"], "requests": by_mode}
+    want = {"ticks": eng.stats["ticks"], "queries": eng.stats["queries"],
+            "requests": dict(routed)}
+    if got != want:
+        raise AssertionError(f"juno_engine_* {got} != the engine's {want}")
+    return got
+
+
+def phase_obs(name: str, metric: str, cfg, index, grid, pts: np.ndarray,
+              queries: np.ndarray, stream, tiers: dict, out_dir: str) -> dict:
+    """Observability at 1M points on the serve phase's index and stream:
+    the four resident engines with obs on and off in turns (ids and scores
+    bit-equal, QPS of each, the series against the engines' counts, every
+    dispatch span under a tick span), a recall probe on the fused engine,
+    a fused paged engine with its fetch plane bound, an ``ArtifactStore``
+    with a registry; the bundle's JSONL to ``out_dir``."""
+    dev = index.ivf.centroids.device
+    mut = MutableJunoIndex(index, side_capacity=SIDE)
+    root = Observability(tracer=Tracer(max_spans=1 << 21))
+    regs, out = [], {"engines": {}}
+    _build.reset_launches()
+    for label, fused, g in (("fused", True, None), ("unfused", False, None),
+                            ("rt_fused", True, grid),
+                            ("rt_unfused", False, grid)):
+        pf = "scan" if g is None else "rt"
+        kw = dict(metric=metric, fused=fused, prefilter=pf, rt_grid=g)
+        child = root.child()
+        off, on = AnnServeEngine(mut, **kw), AnnServeEngine(mut, obs=child,
+                                                            **kw)
+        run_stream(off, queries, stream)               # warm-up, both
+        run_stream(on, queries, stream)
+        t_off, t_on = [], []
+        for _ in range(3):
+            want, t = run_stream(off, queries, stream)
+            t_off.append(t)
+            got, t = run_stream(on, queries, stream)
+            t_on.append(t)
+            same_requests(got, want, f"obs.{name} {label} on vs off")
+        rows = on.stats["queries"] // 4
+        series = engine_series(on, on.completed)
+        regs.append(child.registry)
+        q_on, q_off = rows / statistics.median(t_on), \
+            rows / statistics.median(t_off)
+        out["engines"][label] = {"qps_on": q_on, "qps_off": q_off,
+                                 "on_over_off": q_on / q_off,
+                                 "qps_on_turns": [rows / t for t in t_on],
+                                 "qps_off_turns": [rows / t for t in t_off],
+                                 "series": series}
+    spans = root.tracer.spans()
+    by_id = {sp.span_id: sp for sp in spans}
+    orphans = sum(sp.name == "engine.dispatch"
+                  and by_id.get(sp.parent_id, sp).name != "engine.tick"
+                  for sp in spans)
+    if orphans or root.tracer.dropped:
+        raise AssertionError(f"{orphans} dispatch spans outside a tick, "
+                             f"{root.tracer.dropped} spans dropped")
+    out["spans"] = dict(collections.Counter(sp.name for sp in spans))
+
+    # the recall probe on the fused engine: one request in 8 a tier
+    probe = RecallProbe(torch.from_numpy(pts).to(dev), k=10, every=8,
+                        metric=metric)
+    rbundle = Observability(tracer=root.tracer, recall=probe)
+    reng = AnnServeEngine(mut, metric=metric, fused=True, obs=rbundle)
+    got, _ = run_stream(reng, queries, stream)
+    want, _ = run_stream(AnnServeEngine(mut, metric=metric, fused=True),
+                         queries, stream)
+    same_requests(got, want, f"obs.{name} fused with the recall probe")
+    regs.append(rbundle.registry)
+    snap = rbundle.registry.snapshot()
+    out["recall_probe"] = {
+        "online_recall_at_10": {k.split('mode="')[1][:-2]: v
+                                for k, v in snap.items()
+                                if k.startswith("juno_recall_online_at_k")},
+        "samples": {k.split('"')[1]: v for k, v in snap.items()
+                    if k.startswith("juno_recall_samples_total")},
+        "tiers_recall10_at_100": {t: tiers[t]["recall10_at_100"]
+                                  for t in TIERS}}
+    del probe, rbundle, reng
+
+    # the store's series, then a fused paged engine with its fetch plane
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f"obs_{name}_",
+                           dir=os.path.join(REPO, "build"))
+    try:
+        store_reg = MetricsRegistry()
+        store = ArtifactStore(os.path.join(tmp, "store"), registry=store_reg)
+        v = store.put("main", index, cfg)
+        store.get("main", v, device=dev)
+        store.verify("main", v)
+        ops_seen = {k.split('"')[1]: v for k, v in store_reg.snapshot().items()
+                    if k.startswith("juno_store_ops_total")}
+        if ops_seen != {"put": 1, "load": 1, "verify": 1}:
+            raise AssertionError(f"juno_store_ops_total {ops_seen}")
+        regs.append(store_reg)
+        out["store_ops"] = ops_seen
+        cache = index.cluster_codes.numel() // 4
+        pchild = root.child()
+        faults0 = sum(sp.name == "paged.fault" for sp in root.tracer.spans())
+        pon = PagedAnnServeEngine(PagedIndexData(
+            store.path("main", v), cache_bytes=cache, device=dev),
+            metric=metric, fused=True, obs=pchild)
+        poff = PagedAnnServeEngine(PagedIndexData(
+            store.path("main", v), cache_bytes=cache, device=dev),
+            metric=metric, fused=True)
+        want, t_poff = run_stream(poff, queries, stream)   # off first
+        got, t_pon = run_stream(pon, queries, stream)
+        same_requests(got, want, f"obs.{name} paged on vs off")
+        st = pon.cache_stats()
+        psnap = pchild.registry.snapshot()
+        faults = sum(sp.name == "paged.fault"
+                     for sp in root.tracer.spans()) - faults0
+        cache_series = {k: psnap[f"juno_cache_{k}_total"]
+                        for k in ("hits", "misses", "evictions")}
+        cache_series.update(bytes=psnap["juno_cache_bytes"],
+                            rows=psnap["juno_cache_rows"])
+        if (faults != st["misses"] or psnap["juno_paged_faults_total"]
+                != st["misses"] or any(cache_series[k] != st[k]
+                                       for k in cache_series)):
+            raise AssertionError(f"paged obs: {faults} fault spans, series "
+                                 f"{cache_series}, cache {st}")
+        regs.append(pchild.registry)
+        out["paged"] = {"fault_spans": faults, "cache_series": cache_series,
+                        "verify_seconds_n": psnap[
+                            "juno_paged_verify_seconds"]["n"],
+                        "verified_rows": st["verified_rows"],
+                        "pass_s_off_first": t_poff, "pass_s_on_second": t_pon}
+        del pon, poff
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    merged = MetricsRegistry()
+    for reg in regs:
+        merged.merge(reg)
+    events = to_events(merged, root.tracer, extra_meta={"index": name,
+                                                        "card": torch.cuda.get_device_name(0)})
+    problems = validate_events(events)
+    if problems:
+        raise AssertionError(f"obs.{name} dump: {problems[:5]}")
+    path = os.path.join(out_dir, f"obs_{name}.jsonl")
+    write_jsonl(path, events)
+    out["jsonl"] = {"path": os.path.relpath(path, REPO),
+                    "events": len(events), "bytes": os.path.getsize(path)}
+    out["launches"] = {"obs": dict(_build.LAUNCHES)}
+    log(f"obs.{name}", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline phase
+# ---------------------------------------------------------------------------
+N_STREAM = 10_000_000          # the DEEP10M subset's size
+C_STREAM = 10_240              # its clusters: P = 3912, as at 1M
+TRAIN_STREAM = 1_000_000       # its reservoir (max_train_points)
+STREAM_CHUNK = 65_536          # rows a chunk of the streamed sources
+
+
+class TimedSource:
+    """A chunk source that records each pass: its start and end, the host
+    seconds spent drawing chunks, and the device's peak allocation at the
+    pass's end. ``watch(chunk)``, if given, sees every chunk of the first
+    pass as it streams by (its seconds, ``watch_s``, are not the build's)."""
+
+    def __init__(self, fn, watch=None):
+        self.fn, self.watch, self.passes = fn, watch, []
+
+    def __call__(self):
+        rec = {"start": time.perf_counter(), "draw_s": 0.0, "watch_s": 0.0}
+        watch = self.watch if not self.passes else None
+        self.passes.append(rec)
+
+        def it():
+            chunks = iter(self.fn())
+            while True:
+                t0 = time.perf_counter()
+                chunk = next(chunks, None)
+                rec["draw_s"] += time.perf_counter() - t0
+                if chunk is None:
+                    break
+                if watch is not None:
+                    t0 = time.perf_counter()
+                    watch(chunk)
+                    rec["watch_s"] += time.perf_counter() - t0
+                yield chunk
+            rec["end"] = time.perf_counter()
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return it()
+
+
+def rechunk(fn, rows: int):
+    """A chunk source of ``rows``-row chunks over another source."""
+    def it():
+        buf, have = [], 0
+        for c in fn():
+            buf.append(c)
+            have += c.shape[0]
+            while have >= rows:
+                cat = np.concatenate(buf)
+                yield cat[:rows]
+                buf, have = [cat[rows:]], have - rows
+        if have:
+            yield np.concatenate(buf)
+    return it
+
+
+class StreamedTopk:
+    """Exact l2 top-k ids of ``q`` over the rows fed to it in stream
+    order, chunk by chunk on the card (each chunk's top-k, then a merge
+    with the running best by a stable sort)."""
+
+    def __init__(self, q: torch.Tensor, k: int):
+        self.q, self.k, self.base = q, k, 0
+        self.best_s = torch.full((q.shape[0], 0), float("-inf"),
+                                 device=q.device)
+        self.ids = torch.zeros((q.shape[0], 0), dtype=torch.int64,
+                               device=q.device)
+
+    def __call__(self, chunk: np.ndarray) -> None:
+        c = torch.from_numpy(chunk).to(self.q.device)
+        s = -(torch.sum(c * c, dim=-1)[None] - 2.0 * (self.q @ c.T))
+        v, i = torch.topk(s, min(self.k, c.shape[0]), dim=1)
+        cat_s = torch.cat([self.best_s, v], dim=1)
+        cat_i = torch.cat([self.ids, i + self.base], dim=1)
+        srt, sel = torch.sort(cat_s, dim=1, descending=True, stable=True)
+        self.best_s = srt[:, :self.k]
+        self.ids = torch.gather(cat_i, 1, sel[:, :self.k])
+        self.base += c.shape[0]
+
+
+def _leaves(index) -> dict:
+    out = {}
+    for group in ("ivf", "codebook", "density"):
+        obj = getattr(index, group)
+        out.update({f"{group}.{f}": getattr(obj, f)
+                    for f in type(obj)._fields})
+    out.update({f: getattr(index, f)
+                for f in ("codes", "cluster_codes", "points_sq")})
+    return out
+
+
+def host_copy_s(n_batches: int, row_bytes: int, dev) -> float:
+    """Seconds of ``n_batches`` device→host copies of one eval batch's
+    bytes (8192 rows × ``row_bytes``), each after a small kernel: what the
+    streaming build's one copy a batch costs without the batch's work."""
+    buf = torch.zeros((8192, row_bytes), dtype=torch.uint8, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        buf.add_(1)
+        buf.cpu()
+    return time.perf_counter() - t0
+
+
+def phase_pipeline(cfg, index, pts: np.ndarray, queries: np.ndarray,
+                   stream, seed: int) -> dict:
+    """The streaming build on the card: (a) the l2 serve phase's points
+    through ``array_source``, held to the in-memory index (probe counters,
+    shapes, dtypes, recall of tiers H, M and L within 0.01); (b) 10M
+    DEEP-like points streamed out of ``make_dataset``'s draws, never held
+    whole: pass times, the device's peak over passes 1–2, serving through
+    the fused and unfused engines, tier recall against a streamed exact
+    top-100, the shard split/merge and the store round trip."""
+    dev = index.ivf.centroids.device
+    out = {"launches": {}}
+
+    # (a) 1M: the serve phase's points and config, streamed
+    n = pts.shape[0]
+    probe = BuildProbe()
+    _build.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    sidx = build_streaming(array_source(pts, STREAM_CHUNK), cfg, seed=seed,
+                           probe=probe, device=dev)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    out["launches"]["stream_1m"] = dict(_build.LAUNCHES)
+    chunks = -(-n // STREAM_CHUNK)
+    if (probe.passes not in (2, 3) or probe.chunks != probe.passes * chunks
+            or probe.max_chunk_rows > STREAM_CHUNK
+            or probe.train_rows != min(n, cfg.max_train_points)
+            or probe.n_points != n):
+        raise AssertionError(f"1M stream probe {vars(probe)}")
+    for key, (a, b) in {k: (v, _leaves(index)[k])
+                        for k, v in _leaves(sidx).items()}.items():
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"1M stream {key}: {a.shape} {a.dtype} vs "
+                                 f"in-memory {b.shape} {b.dtype}")
+    q = torch.from_numpy(queries).to(dev)
+    _, gt = exact_topk(q, torch.from_numpy(pts).to(dev), k=10)
+    recall = {}
+    for tier in ("H", "M", "L"):
+        kw = dict(TIERS[tier], k=100, metric="l2", batch=128)
+        r = {tag: recall_n_at_k(search(ix, q, **kw)[1].long(), gt)
+             for tag, ix in (("in_memory", index), ("streamed", sidx))}
+        if r["streamed"] < r["in_memory"] - 0.01:
+            raise AssertionError(f"1M stream tier {tier}: recall {r}")
+        recall[tier] = r
+    out["stream_1m"] = {"probe": vars(probe), "build_s": build_s,
+                        "points_per_s": n / build_s,
+                        "recall10_at_100": recall}
+    del sidx
+    torch.cuda.empty_cache()
+
+    # (b) 10M, out of core
+    cfg10 = JunoConfig(n_clusters=C_STREAM, n_entries=256, sub_dim=2,
+                       metric="l2", max_train_points=TRAIN_STREAM)
+    draws = point_chunks(DEEP_LIKE, N_STREAM, seed=seed)
+    # the ground truth of 1024 of the l2 phase's queries (the same
+    # mixture: its first draws), streamed over the build's first pass
+    q = torch.from_numpy(queries[:1024]).to(dev)
+    truth = StreamedTopk(q, 100)
+    src = TimedSource(rechunk(draws, STREAM_CHUNK), watch=truth)
+    probe = BuildProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    idx10 = build_streaming(src, cfg10, seed=seed, probe=probe, device=dev)
+    _sync(dev)
+    total_s = time.perf_counter() - t0
+    out["launches"]["stream_10m"] = dict(_build.LAUNCHES)
+    raw = N_STREAM * DEEP_LIKE.dim * 4
+    peak12 = src.passes[1]["peak_bytes"]
+    p = idx10.cluster_codes.shape[1]
+    if (peak12 >= raw or probe.n_points != N_STREAM
+            or probe.train_rows != TRAIN_STREAM
+            or probe.max_chunk_rows > STREAM_CHUNK
+            or p != cluster_capacity(N_STREAM, C_STREAM, cfg10.capacity_mult)):
+        raise AssertionError(f"10M stream: peak {peak12} B of {raw}, probe "
+                             f"{vars(probe)}, P {p}")
+    passes = [{"s": r["end"] - r["start"] - r["watch_s"],
+               "draw_s": r["draw_s"]} for r in src.passes]
+    n_batches = -(-N_STREAM // 8192)
+    build_s = total_s - src.passes[0]["watch_s"]
+    ten = {"N": N_STREAM, "C": C_STREAM, "P": p, "probe": vars(probe),
+           "passes": passes, "train_s": src.passes[1]["start"]
+           - src.passes[0]["end"], "build_s": build_s,
+           "points_per_s": N_STREAM / build_s,
+           "device_peak_passes_1_2_bytes": peak12, "raw_points_bytes": raw,
+           "device_peak_build_bytes": torch.cuda.max_memory_allocated(),
+           "cluster_codes_bytes": idx10.cluster_codes.numel(),
+           "eval_batches": n_batches,
+           "host_copies_alone_s": host_copy_s(
+               n_batches, 8 + idx10.codes.shape[1], dev)}
+    if truth.base != N_STREAM:
+        raise AssertionError(f"ground truth over {truth.base} rows")
+    gt = truth.ids
+    ten["ground_truth_s"] = src.passes[0]["watch_s"]
+
+    # serving: the fused and unfused scan engines on the stream
+    mut10 = MutableJunoIndex(idx10, side_capacity=SIDE)
+    ten["engines"] = {}
+    for label, fused in (("fused", True), ("unfused", False)):
+        eng = AnnServeEngine(mut10, metric="l2", fused=fused)
+        run_stream(eng, queries, stream)               # warm-up
+        _build.reset_launches()
+        reqs, t = run_stream(eng, queries, stream)
+        launches = dict(_build.LAUNCHES)
+        must = ENGINE_KERNELS[("scan", fused)]
+        if any(launches[k] <= 0 for k in must) or \
+                any(launches[k] != 0 for k in set(launches) - must):
+            raise AssertionError(f"10M {label}: launches {launches}")
+        for r in reqs:
+            check_results(r.ids, r.scores, N_STREAM, f"10M request {r.rid}")
+        times = [t] + [run_stream(eng, queries, stream)[1] for _ in range(2)]
+        rows = eng.stats["queries"] // 4
+        out["launches"][f"serve_10m_{label}"] = launches
+        ten["engines"][label] = {"qps": rows / statistics.median(times),
+                                 "qps_repeats": [rows / x for x in times],
+                                 "rows": rows}
+    ten["tiers"] = {}
+    for tier in ("H", "H2_fused", "H2_composed", "M", "L"):
+        kw = dict(TIERS[tier], k=100, metric="l2", batch=128)
+        scores, ids = search(idx10, q, **kw)
+        check_results(ids.cpu(), scores.cpu(), N_STREAM, f"10M {tier}")
+        r = recall_n_at_k(ids.long(), gt[:, :10])
+        if tier in ("H", "H2_fused", "H2_composed") and r < 0.2:
+            raise AssertionError(f"10M {tier}: recall@10-in-100 {r:.4f}")
+        ten["tiers"][tier] = {"recall10_at_100": r}
+    del mut10
+    torch.cuda.empty_cache()
+
+    # the shard split and merge, bit for bit
+    merged = merge_shards(split_shards(idx10, 4))
+    bad = [k for k, v in _leaves(merged).items()
+           if not torch.equal(v, _leaves(idx10)[k])]
+    if bad:
+        raise AssertionError(f"10M split/merge differs in {bad}")
+    ten["shards_split_merge_equal"] = 4
+    del merged
+    torch.cuda.empty_cache()
+
+    # the store round trip, served bit-equal through the fused engine
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stream10m_",
+                           dir=os.path.join(REPO, "build"))
+    try:
+        store = ArtifactStore(os.path.join(tmp, "store"))
+        t0 = time.perf_counter()
+        v = store.put("main", idx10, cfg10)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.verify("main", v)
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = store.get("main", v, device=dev, verify="manifest")
+        get_s = time.perf_counter() - t0
+        got, _ = run_stream(AnnServeEngine(loaded.data, metric="l2",
+                                           fused=True), queries, stream)
+        want, _ = run_stream(AnnServeEngine(idx10, metric="l2", fused=True),
+                             queries, stream)
+        same_requests(got, want, "10M stored vs in-memory")
+        ten["store"] = {"bytes": _dir_bytes(store.path("main", v)),
+                        "put_s": put_s, "verify_s": verify_s, "get_s": get_s,
+                        "requests_bit_equal": len(got)}
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ten["rt_grid"] = "not built at 10M (ROADMAP.md)"
+    out["stream_10m"] = ten
+    del idx10
+    torch.cuda.empty_cache()
+    log("pipeline.l2", **out)
+    return out
+
 
 def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                 out_dir: str, hit_calls_dir: str | None = None) -> dict:
@@ -2708,6 +3213,13 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
         log(f"kernel.sphere_hits.{name}", **r)
 
     stream = _requests(np.random.default_rng(seed), queries.shape[0])
+    phase_s, t_phase = {}, time.perf_counter()
+
+    def lap(key):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[key] = now - t_phase
+        t_phase = now
     mut = MutableJunoIndex(index, side_capacity=SIDE)
     grid_info["router_s_per_pass"] = router_seconds(mut, grid, queries,
                                                     stream, spec.metric)
@@ -2738,6 +3250,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                        r.calls)
     del replay
     torch.cuda.empty_cache()
+    lap("grid_and_engines")
 
     cpu_index = index_to(index, "cpu")
     tiers = tier_table(index, cpu_index, queries, pts, spec.metric)
@@ -2753,16 +3266,27 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
                          "rt": rt_tiers[t]["recall10_at_100"]}
                      for t in TIERS})
     del cpu_index
+    lap("tiers")
     mutate = phase_mutate(name, spec.metric, mut, grid, pts, queries, stream,
                           seed)
+    lap("mutate")
     paged = phase_paged(name, spec.metric, cfg, index, grid, pts, queries,
                         stream, seed)
+    lap("paged")
+    obs = phase_obs(name, spec.metric, cfg, index, grid, pts, queries,
+                    stream, tiers, out_dir)
+    lap("obs")
+    pipeline = (phase_pipeline(cfg, index, pts, queries, stream, seed)
+                if name == "l2" else None)
+    lap("pipeline")
+    log(f"seconds.{name}", data_s=t_data, build_s=t_build, **phase_s)
     out = {"name": name, "N": n, "D": spec.dim, "S": s, "E": 256, "P": p,
            "C_clusters": 1024, "data_s": t_data, "build_s": t_build,
            "grid": grid_info, "sphere_hits": sphere_rows,
            "hit_count_pass": hit_rows, "pq_scan_pass": pq_rows,
            "engines": engines, "tiers": tiers,
            "tiers_rt": rt_tiers, "mutate": mutate, "paged": paged,
+           "obs": obs, "pipeline": pipeline, "phase_s": phase_s,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": card}
     del index, mut, grid
@@ -2779,6 +3303,8 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
                            for e in s["engines"].values())
                   + sum(s["mutate"]["launches"][key]
                         + s["paged"]["launches"][key] for s in serves)
+                  + sum(ls[key] for s in serves for ph in ("obs", "pipeline")
+                        if s[ph] for ls in s[ph]["launches"].values())
                   for key in ENTRIES.get(name, (name,))}
         line.append({
             "name": name, "route": "cuda", "source": src,

@@ -14,9 +14,11 @@ H2), each stage A/B/C step a hand-written CUDA kernel; the RT prefilter
 (``rt/``: the centroid grid, the ``sphere_hits`` kernel, the
 ``fused_three_stage`` kernel for fused H2 and the engine's probe-budget
 routing); the mutable index (side buffer, insert/delete/compact, the LSM
-freshness tiers, the online rebuild and hot swap); the offline build, the
-artifact reader, and the serving engine in both its configurations
-(``fused=False`` and ``fused=True``) with its mutation plane. See
-ROADMAP.md for what is still to come.
+freshness tiers, the online rebuild and hot swap); the offline build and
+the streaming (out-of-core) build (``build/pipeline.py``), the artifact
+store, the serving engine in both its configurations (``fused=False``
+and ``fused=True``) with its mutation plane, the paged tier, and
+observability (``obs/``: metrics, spans, JSONL export, the online recall
+probe). See ROADMAP.md for what is still to come.
 """
 from .device import resolve_device  # noqa: F401

@@ -26,6 +26,7 @@ import hashlib
 import json
 import os
 import shutil
+import time
 import uuid
 import zipfile
 from typing import NamedTuple
@@ -46,8 +47,6 @@ SCHEMA_VERSION = 1
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
 _RT_PREFIX = "rt_grid."
-_UNPORTED_OBS = ("metrics registries are not ported to repro_torch yet "
-                 "(ROADMAP.md, queue 1, item 5: observability)")
 
 
 class ArtifactError(RuntimeError):
@@ -441,13 +440,21 @@ class ArtifactStore:
     def __init__(self, root: str, *, registry=None):
         """Open (creating if needed) the store rooted at ``root``.
 
-        ``registry`` (a metrics registry) is not ported yet: anything but
-        ``None`` raises ``NotImplementedError``.
+        ``registry`` (an ``obs.MetricsRegistry``, optional) receives the
+        ``juno_store_*`` series: ``juno_store_op_seconds`` and
+        ``juno_store_ops_total`` by ``op`` (put, load, verify).
         """
-        if registry is not None:
-            raise NotImplementedError(_UNPORTED_OBS)
         self.root = root
+        self.registry = registry
         os.makedirs(root, exist_ok=True)
+
+    def _observe(self, op: str, t0: float) -> None:
+        """Record one store operation begun at ``t0`` when a registry is
+        bound."""
+        if self.registry is not None:
+            self.registry.histogram("juno_store_op_seconds", op=op).add(
+                time.perf_counter() - t0)
+            self.registry.counter("juno_store_ops_total", op=op).inc()
 
     def path(self, name: str, version: int) -> str:
         """Directory of generation ``version`` (1-based) of ``name``."""
@@ -489,11 +496,13 @@ class ArtifactStore:
         ArtifactError
             When ``max_attempts`` generations were contended.
         """
+        t0 = time.perf_counter()
         final = _commit(self.root, name,
                         lambda tmp: save_index(tmp, data, config,
                                                rt_grid=rt_grid, extra=extra),
                         lambda: self.latest(name),
                         lambda v: self.path(name, v), max_attempts)
+        self._observe("put", t0)
         return int(os.path.basename(final)[1:])
 
     def _version(self, name: str, version: int | None) -> int:
@@ -508,10 +517,19 @@ class ArtifactStore:
             ) -> LoadedIndex:
         """Load one generation of ``name`` (default: the latest); ``kw``
         goes to :func:`load_index`."""
-        return load_index(self.path(name, self._version(name, version)),
-                          **kw)
+        path = self.path(name, self._version(name, version))
+        t0 = time.perf_counter()
+        loaded = load_index(path, **kw)
+        self._observe("load", t0)
+        return loaded
 
     def verify(self, name: str, version: int | None = None) -> dict:
         """:func:`verify_artifact` of one generation (default: the
-        latest); returns its manifest, raises ``ArtifactError``."""
-        return verify_artifact(self.path(name, self._version(name, version)))
+        latest); returns its manifest, raises ``ArtifactError``. The time
+        is recorded whether it passes or fails."""
+        path = self.path(name, self._version(name, version))
+        t0 = time.perf_counter()
+        try:
+            return verify_artifact(path)
+        finally:
+            self._observe("verify", t0)

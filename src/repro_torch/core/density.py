@@ -64,6 +64,63 @@ def build_density_grid(sub_points: torch.Tensor, grid_size: int = 100
     return grid, lo, hi
 
 
+def accumulate_density_counts(counts: torch.Tensor, sub_points: torch.Tensor,
+                              lo: torch.Tensor, hi: torch.Tensor,
+                              weights: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Add one chunk's binned counts to a running (S, G, G) histogram.
+
+    The streaming counterpart of :func:`build_density_grid`
+    (``repro/core/density.py:accumulate_density_counts``): the box is
+    fixed up front, and an out-of-box point clips to an edge cell, its
+    cell index computed step by step in f32 as :func:`_cells` does, so
+    chunks accumulate independently. Each row adds its weight (0 for a
+    pad row, ±1 for the spill patch) with one ``index_add_`` on a flat
+    (S·G·G) view. The counts are whole numbers in f32, so the order of
+    the adds does not change them while a cell stays below 2²⁴; past
+    that an f32 count no longer holds every whole number (the reference
+    has the same limit).
+
+    Parameters
+    ----------
+    counts : torch.Tensor
+        (S, G, G) f32 running counts (start from zeros); not modified.
+    sub_points : torch.Tensor
+        (S, B, M) f32 — one chunk's residual subspace projections.
+    lo, hi : torch.Tensor
+        (S, M) f32 — the fixed box per subspace.
+    weights : torch.Tensor, optional
+        (B,) f32 weight of each row (default all ones).
+
+    Returns
+    -------
+    torch.Tensor
+        (S, G, G) f32 updated counts.
+    """
+    s, b, _ = sub_points.shape
+    g = counts.shape[-1]
+    span = torch.clamp(hi - lo, min=1e-6)
+    ij = _cells(sub_points, lo[:, None], span[:, None], g)       # (S, B, 2)
+    flat = (ij[..., 0] * g + ij[..., 1]
+            + g * g * torch.arange(s, device=ij.device)[:, None])
+    w = (torch.ones((b,), dtype=torch.float32, device=counts.device)
+         if weights is None else weights.float())
+    out = counts.reshape(-1).clone()
+    out.index_add_(0, flat.reshape(-1), w.expand(s, b).reshape(-1))
+    return out.reshape(counts.shape)
+
+
+def density_grid_from_counts(counts: torch.Tensor, lo: torch.Tensor,
+                             hi: torch.Tensor) -> torch.Tensor:
+    """Streamed raw counts (S, G, G) -> the log1p density grid
+    ``log1p(count / cell_area)``, what :func:`build_density_grid` gives in
+    one shot (``repro/core/density.py:density_grid_from_counts``)."""
+    g = counts.shape[-1]
+    span = torch.clamp(hi - lo, min=1e-6)
+    cell_area = (span[:, 0] / g) * (span[:, 1] / g)
+    return torch.log1p(counts / torch.clamp(cell_area, min=1e-12)[:, None, None])
+
+
 def lookup_density(model: DensityModel, sub_queries: torch.Tensor
                    ) -> torch.Tensor:
     """sub_queries (..., S, M) -> densities (..., S)."""

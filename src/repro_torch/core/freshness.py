@@ -1,8 +1,7 @@
 """LSM-style freshness tiers of the mutable index.
 
 Port of ``repro/core/freshness.py`` (``MinorGeneration``,
-``combined_delta``, ``promote_l0``, ``MergeScheduler``), without the
-metrics registry:
+``combined_delta``, ``promote_l0``, ``MergeScheduler``):
 
 * **L0** — the side buffer: inserts land there when their owning
   cluster's padded slots are full.
@@ -22,11 +21,13 @@ metrics registry:
 and never its shape; delta points are scored (the rt verdict included)
 exactly as in-cluster points are. :class:`MergeScheduler` drives the
 merges: the engine calls :meth:`MergeScheduler.maybe_step` between ticks,
-``compact()`` calls :meth:`MergeScheduler.drain`.
+``compact()`` calls :meth:`MergeScheduler.drain`; with a registry it
+keeps the ``juno_merge_*`` series.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
@@ -176,7 +177,8 @@ class MergeScheduler:
     oldest minor generations into the base (``build.merge.fold_step``).
     """
 
-    def __init__(self, index, *, clusters_per_step: int = 32):
+    def __init__(self, index, *, clusters_per_step: int = 32,
+                 registry=None):
         """Attach a scheduler to a tier-enabled mutable index.
 
         Parameters
@@ -185,11 +187,17 @@ class MergeScheduler:
             The index to merge (``enable_tiers`` already called).
         clusters_per_step : int
             Fold budget: clusters merged per :meth:`step`.
+        registry : repro_torch.obs.MetricsRegistry, optional
+            Receives the ``juno_merge_*`` series: step and drain seconds,
+            step/fold/move/drain counters and the L0 fill, minor count and
+            delta rows as gauges, refreshed a step. ``None`` keeps only
+            ``stats``.
         """
         self.index = index
         self.clusters_per_step = int(clusters_per_step)
         self.stats = {"steps": 0, "promotions": 0, "folded": 0,
                       "compacted": 0, "drains": 0}
+        self.registry = registry
 
     @property
     def pending(self) -> int:
@@ -218,6 +226,7 @@ class MergeScheduler:
         """One bounded merge step; returns points moved between tiers."""
         from ..build.merge import fold_step
         idx = self.index
+        t0 = time.perf_counter()
         moved = idx.compact()
         self.stats["compacted"] += moved
         if idx.side_fill >= idx.side.capacity and self._can_promote():
@@ -227,12 +236,28 @@ class MergeScheduler:
         folded = fold_step(idx, max_clusters=self.clusters_per_step)
         self.stats["folded"] += folded
         self.stats["steps"] += 1
+        if self.registry is not None:
+            self._observe(time.perf_counter() - t0, moved, folded)
         return moved + folded
+
+    def _observe(self, dt: float, moved: int, folded: int) -> None:
+        """Refresh the ``juno_merge_*`` series after one step."""
+        reg = self.registry
+        reg.histogram("juno_merge_step_seconds").add(dt)
+        reg.counter("juno_merge_steps_total").inc()
+        reg.counter("juno_merge_folded_total").inc(folded)
+        reg.counter("juno_merge_moved_total").inc(moved)
+        idx = self.index
+        reg.gauge("juno_merge_l0_fill").set(
+            idx.side_fill / max(1, idx.side.capacity))
+        reg.gauge("juno_merge_minors").set(len(idx._minors))
+        reg.gauge("juno_merge_delta_rows").set(self.pending)
 
     def drain(self, max_rounds: int = 10_000) -> int:
         """Run merge steps until one moves nothing; then promote a stuck
         non-empty L0 when a minor slot is open, and go on. Returns the
         points moved between tiers."""
+        t0 = time.perf_counter()
         total = 0
         for _ in range(max_rounds):
             progress = self.step()
@@ -245,4 +270,8 @@ class MergeScheduler:
                 break
             total += progress
         self.stats["drains"] += 1
+        if self.registry is not None:
+            self.registry.histogram("juno_merge_drain_seconds").add(
+                time.perf_counter() - t0)
+            self.registry.counter("juno_merge_drains_total").inc()
         return total

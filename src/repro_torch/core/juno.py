@@ -328,12 +328,17 @@ def _calib_tau_needed(qsub, gt_codes, codebook, metric):
     return torch.sqrt(torch.clamp(t, min=0.0))
 
 
-def _calibrate_density(pts, residuals, codebook, codes, ivf, config, draws):
-    """Fit density → threshold from ground-truth top-k (paper §4.1)."""
+def _calib_queries(pts: torch.Tensor, draws: BuildDraws) -> torch.Tensor:
+    """The calibration queries: the drawn points plus noise of 0.01 of the
+    points' std, so they are not exact database points."""
     qidx = torch.from_numpy(np.array(draws.calib_idx, np.int64)).to(pts.device)
     noise = _as_tensor(draws.calib_noise).to(pts.device)
-    # perturb so calibration queries are not exact database points
-    queries = pts[qidx] + 0.01 * noise * torch.std(pts, correction=0)
+    return pts[qidx] + 0.01 * noise * torch.std(pts, correction=0)
+
+
+def _calibrate_density(pts, residuals, codebook, codes, ivf, config, draws):
+    """Fit density → threshold from ground-truth top-k (paper §4.1)."""
+    queries = _calib_queries(pts, draws)
     _, gt_ids = exact_topk(queries, pts, k=config.calib_topk,
                            metric=config.metric)
     qsub = _calib_query_subspaces(queries, ivf, config)

@@ -53,7 +53,8 @@ def _entry_sq(entries: torch.Tensor) -> torch.Tensor:
 
 
 def train_codebook(residuals: torch.Tensor, init_idx: torch.Tensor, *,
-                   m: int = 2, n_iters: int = 10) -> PQCodebook:
+                   m: int = 2, n_iters: int = 10,
+                   chunk: int = 16384) -> PQCodebook:
     """Train one k-means codebook per subspace.
 
     Parameters
@@ -66,6 +67,8 @@ def train_codebook(residuals: torch.Tensor, init_idx: torch.Tensor, *,
         Subspace dimension M.
     n_iters : int
         Lloyd iterations.
+    chunk : int
+        Assignment chunk (memory O(S·chunk·E); see ``kmeans.assign``).
 
     Returns
     -------
@@ -73,7 +76,7 @@ def train_codebook(residuals: torch.Tensor, init_idx: torch.Tensor, *,
         Entries (S, E, M) and their squared norms (S, E).
     """
     sub = split_subspaces(residuals, m).transpose(0, 1).contiguous()
-    st = kmeans(sub, init_idx, n_iters=n_iters)
+    st = kmeans(sub, init_idx, n_iters=n_iters, chunk=chunk)
     return PQCodebook(entries=st.centroids, entry_sq=_entry_sq(st.centroids))
 
 

@@ -34,12 +34,22 @@ the same signature ``(k, mode, nprobe)`` into one search call:
   search shape (the delta tiers ride along as one fixed-capacity side
   buffer); ``swap_index`` installs a rebuilt index; with ``max_minors``
   a ``MergeScheduler`` folds the freshness tiers back between ticks.
-
-Observability is a later slice (ROADMAP.md).
+* **Observability** (``obs=``) — an ``obs.Observability`` bundle: the
+  ``juno_engine_*`` series in its registry, an ``engine.tick`` span a
+  tick with ``engine.rt_probe``, ``engine.dispatch`` and ``engine.merge``
+  children and a retro-stamped ``engine.enqueue`` a request, and its
+  recall probe fed a sample of the served requests. It is host-side
+  bookkeeping only: no device synchronisation, no device tensor, no
+  kernel, and the same ids and scores as with it off. On the card a
+  search call returns once its kernels are queued, so an
+  ``engine.dispatch`` span times the host's enqueue, not the device;
+  the wait shows up in ``engine.merge``, at the device→host copy of the
+  tick's results.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -48,8 +58,9 @@ import numpy as np
 import torch
 
 from ..core.freshness import MergeScheduler
+from ..core.ivf import filter_clusters
 from ..core.juno import (JunoIndexData, MutableIndexBase, MutableJunoIndex,
-                         _search_batch, _search_batch_two_stage)
+                         _score_probed, _score_probed_two_stage)
 from ..rt import grid as rt_lib
 
 
@@ -58,7 +69,7 @@ class AnnRequest:
     """One queued search request (inputs + engine-filled results).
 
     The engine stamps ``t_submit`` (queued) → ``t_batch`` (picked into a
-    tick's batch) → ``t_compute`` (search returned, on the host) →
+    tick's batch) → ``t_compute`` (the tick's results on the host) →
     ``t_done`` (results sliced back onto the request).
     """
 
@@ -106,7 +117,8 @@ class AnnServeEngine:
                  fused: bool = False, fused3: bool | None = None,
                  prefilter: str = "scan", rt_scale: float = 1.0,
                  rt_grid: rt_lib.CentroidGrid | None = None,
-                 max_minors: int = 0, merge_clusters_per_step: int = 32):
+                 max_minors: int = 0, merge_clusters_per_step: int = 32,
+                 obs=None):
         """Wrap an index (mutable or not) in a serving engine.
 
         Parameters
@@ -150,6 +162,11 @@ class AnnServeEngine:
             ticks. 0 (default) keeps the single side buffer.
         merge_clusters_per_step : int
             Fold budget per between-ticks merge step (clusters).
+        obs : repro_torch.obs.Observability or bool, optional
+            Observability bundle (``True`` makes a fresh one; default off):
+            the ``juno_engine_*`` series, the engine spans and the recall
+            probe's samples (see the module docstring); the merge
+            scheduler's ``juno_merge_*`` series go to its registry too.
         """
         if prefilter not in ("scan", "rt"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
@@ -169,12 +186,19 @@ class AnnServeEngine:
         self._rt_state = None
         if prefilter == "rt":
             self.index.ensure_rt_grid(metric=metric)
+        if obs is True:
+            from ..obs import Observability
+            obs = Observability()
+        self.obs = obs or None
+        #: signatures dispatched so far (juno_engine_jit_retraces_total)
+        self._obs_sigs: set = set()
         #: between-ticks merge scheduler when the freshness tiers are on
         self.scheduler = None
         if max_minors:
             self.index.enable_tiers(max_minors)
             self.scheduler = MergeScheduler(
-                self.index, clusters_per_step=merge_clusters_per_step)
+                self.index, clusters_per_step=merge_clusters_per_step,
+                registry=self.obs.registry if self.obs else None)
         self.batch_buckets = tuple(batch_buckets or self.BATCH_BUCKETS)
         self.queue: collections.deque[AnnRequest] = collections.deque()
         self.completed: list[AnnRequest] = []
@@ -190,6 +214,12 @@ class AnnServeEngine:
     def rt_grid(self) -> rt_lib.CentroidGrid | None:
         """The centroid grid attached to the served index, if any."""
         return self.index.rt_grid
+
+    def _span(self, name: str, trace_id: str | None = None, **attrs):
+        """A tracer span when obs is on; a no-op context otherwise."""
+        if self.obs is None:
+            return contextlib.nullcontext()
+        return self.obs.tracer.span(name, trace_id=trace_id, **attrs)
 
     def submit(self, queries, *, k: int = 10, mode: str = "auto",
                nprobe: int = 0, recall_target: float = 0.9) -> AnnRequest:
@@ -254,10 +284,13 @@ class AnnServeEngine:
                         or self._rt_state[2] != muts):
                     self._rt_state = (grid, rt_lib.routing_state(
                         grid, self.index.data), muts)
-                req.rt_probes = int(rt_lib.probe_budget(
-                    grid, self.index.data, req.queries, metric=self.metric,
-                    scale=self.rt_scale, thres_scale=self.thres_scale,
-                    max_probes=nprobe, state=self._rt_state[1]).max())
+                with self._span("engine.rt_probe", trace_id=str(req.rid),
+                                rows=req.queries.shape[0]):
+                    req.rt_probes = int(rt_lib.probe_budget(
+                        grid, self.index.data, req.queries,
+                        metric=self.metric, scale=self.rt_scale,
+                        thres_scale=self.thres_scale, max_probes=nprobe,
+                        state=self._rt_state[1]).max())
                 req.rt_epoch = muts
             shrunk = next((b for b in self.RT_NPROBE_BUCKETS
                            if b >= max(req.rt_probes, 1)),
@@ -269,6 +302,15 @@ class AnnServeEngine:
         """Serve one signature group. Returns the number of query rows."""
         if not self.queue:
             return 0
+        if self.obs is not None:
+            # sampled at tick entry; "sum" adds replicas' backlogs
+            self.obs.registry.gauge("juno_engine_queue_rows",
+                                    agg="sum").set(self.queued_rows)
+        with self._span("engine.tick"):
+            return self._step_inner()
+
+    def _step_inner(self) -> int:
+        """One tick's pick → dispatch → merge (inside the tick span)."""
         sig = self.route(self.queue[0])
         max_rows = self.batch_buckets[-1]
         # one FIFO pass: take head-signature requests until the batch
@@ -300,49 +342,113 @@ class AnnServeEngine:
             bucket = next(b for b in self.batch_buckets if b >= n)
             if n < bucket:
                 chunk = np.pad(chunk, ((0, bucket - n), (0, 0)), mode="edge")
-            s, ids = self._dispatch(torch.from_numpy(chunk).to(dev), k, mode,
-                                    nprobe, side)
-            out_s.append(s[:n].cpu().numpy())
-            out_i.append(ids[:n].cpu().numpy())
+            if self.obs is not None:
+                self._observe_dispatch(k, mode, nprobe, bucket, n)
+            with self._span("engine.dispatch", mode=mode, k=k,
+                            nprobe=nprobe, bucket=bucket, rows=n):
+                s, ids = self._dispatch(torch.from_numpy(chunk).to(dev), k,
+                                        mode, nprobe, side)
+            out_s.append(s[:n])
+            out_i.append(ids[:n])
             self.stats["padded_rows"] += bucket - n
             self.stats["signatures"][(k, mode, nprobe, bucket)] += 1
-        t_compute = time.perf_counter()
-        s, ids = np.concatenate(out_s), np.concatenate(out_i)
 
-        off, now = 0, time.perf_counter()
-        for req in picked:
-            q = req.queries.shape[0]
-            req.scores = s[off:off + q, :req.k]
-            req.ids = ids[off:off + q, :req.k]
-            req.t_batch, req.t_compute = t_batch, t_compute
-            req.done, req.t_done = True, now
-            off += q
-            self.completed.append(req)
+        with self._span("engine.merge", requests=len(picked)):
+            # the device→host copy: on the card the tick's kernels end here
+            s = torch.cat(out_s).cpu().numpy()
+            ids = torch.cat(out_i).cpu().numpy()
+            t_compute = time.perf_counter()
+            off, now = 0, time.perf_counter()
+            for req in picked:
+                q = req.queries.shape[0]
+                req.scores = s[off:off + q, :req.k]
+                req.ids = ids[off:off + q, :req.k]
+                req.t_batch, req.t_compute = t_batch, t_compute
+                req.done, req.t_done = True, now
+                off += q
+                self.completed.append(req)
         self.stats["queries"] += rows
         self.stats["requests"] += len(picked)
         self.stats["ticks"] += 1
+        if self.obs is not None:
+            self._observe_served(picked, mode, rows)
         if self.scheduler is not None:
             # one bounded merge step between ticks
             self.scheduler.maybe_step()
         return rows
 
     def _dispatch(self, qb: torch.Tensor, k: int, mode: str, nprobe: int,
-                  side, *, k_search: int | None = None, gather=None):
-        """Run one padded batch through the search of its tier: ``k_search``
-        results (default ``k``; the fused rerank budget stays
-        ``FUSED_RERANK_MULT · k``), the scans reading ``gather(cids)``'s
-        scan view when ``gather`` is given (the paged engine's)."""
+                  side):
+        """Run one padded batch through the search of its tier: stage A,
+        then :meth:`_score`."""
+        q = qb.float()
+        base, cids = self._filter(q, nprobe)
+        return self._score(q, base, cids, k, mode, side)
+
+    def _filter(self, q: torch.Tensor, nprobe: int):
+        """Stage A of one batch over the served index's centroids:
+        ``(base, cids)`` (Q, nprobe), as ``core.ivf.filter_clusters``."""
+        return filter_clusters(q, self.index.data.ivf, nprobe=nprobe,
+                               metric=self.metric)
+
+    def _score(self, q: torch.Tensor, base: torch.Tensor, cids: torch.Tensor,
+               k: int, mode: str, side, *, k_search: int | None = None,
+               view=None):
+        """The scoring tail of one batch over stage A's ``base``/``cids``:
+        ``k_search`` results (default ``k``; the fused rerank budget stays
+        ``FUSED_RERANK_MULT · k``), the scans reading ``view`` when given
+        (the paged engine's page buffer)."""
         grid = (self.index.ensure_rt_grid(metric=self.metric)
                 if self.prefilter == "rt" else None)
-        kw = dict(nprobe=nprobe, k=k_search or k, metric=self.metric,
+        kw = dict(k=k_search or k, metric=self.metric,
                   thres_scale=self.thres_scale, side=side,
                   prefilter=self.prefilter, rt_grid=grid,
-                  rt_scale=self.rt_scale, gather=gather)
+                  rt_scale=self.rt_scale, view=view)
         if mode == "H2":
-            return _search_batch_two_stage(
-                self.index.data, qb, fused=self.fused, fused3=self.fused3,
+            return _score_probed_two_stage(
+                self.index.data, q, base, cids, fused=self.fused,
+                fused3=self.fused3,
                 rerank=self.FUSED_RERANK_MULT * k if self.fused else 0, **kw)
-        return _search_batch(self.index.data, qb, mode=mode, **kw)
+        return _score_probed(self.index.data, q, base, cids, mode=mode, **kw)
+
+    def _observe_dispatch(self, k: int, mode: str, nprobe: int, bucket: int,
+                          n: int) -> None:
+        """Per-dispatch series: the batch's fill and
+        ``juno_engine_jit_retraces_total``, which keeps the reference's
+        name (its jit compiles a program a signature) and here counts the
+        first dispatch of each ``(k, mode, nprobe, bucket)`` signature."""
+        reg = self.obs.registry
+        reg.histogram("juno_engine_batch_fill_ratio", lo=1e-3, hi=1.0,
+                      mode=mode).add(n / bucket)
+        sig = (k, mode, nprobe, bucket)
+        if sig not in self._obs_sigs:
+            self._obs_sigs.add(sig)
+            reg.counter("juno_engine_jit_retraces_total").inc()
+
+    def _observe_served(self, picked: list, mode: str, rows: int) -> None:
+        """Per-tick series and spans: the tick, query and per-tier request
+        counters, the request latency histograms (the registry form of
+        :meth:`latency_stats`) and their queue/compute/merge segments, one
+        retro-stamped ``engine.enqueue`` span a request (submit → batch),
+        and the recall probe's sample."""
+        reg, tracer = self.obs.registry, self.obs.tracer
+        reg.counter("juno_engine_ticks_total").inc()
+        reg.counter("juno_engine_queries_total").inc(rows)
+        reg.counter("juno_engine_requests_total", mode=mode).inc(len(picked))
+        lat = reg.histogram("juno_engine_request_seconds", mode=mode)
+        h_queue = reg.histogram("juno_engine_queue_seconds")
+        h_compute = reg.histogram("juno_engine_compute_seconds")
+        h_merge = reg.histogram("juno_engine_merge_seconds")
+        for req in picked:
+            lat.add(req.latency)
+            h_queue.add(req.t_batch - req.t_submit)
+            h_compute.add(req.t_compute - req.t_batch)
+            h_merge.add(req.t_done - req.t_compute)
+            tracer.record("engine.enqueue", req.t_submit, req.t_batch,
+                          trace_id=str(req.rid),
+                          rows=req.queries.shape[0], mode=mode)
+            if self.obs.recall is not None:
+                self.obs.recall.observe(req, mode)
 
     def run(self, max_ticks: int = 100_000) -> int:
         """Drain the queue; returns total query rows served."""
@@ -359,6 +465,9 @@ class AnnServeEngine:
         assigned global ids (see ``MutableIndexBase.insert``)."""
         ids = self.index.insert(points)
         self.stats["inserts"] += len(ids)
+        if self.obs is not None:
+            self.obs.registry.counter(
+                "juno_engine_inserts_total").inc(len(ids))
         return ids
 
     def delete(self, ids) -> int:
@@ -366,6 +475,8 @@ class AnnServeEngine:
         An unknown or duplicated id raises before any state is touched."""
         n = self.index.delete(ids)
         self.stats["deletes"] += n
+        if self.obs is not None:
+            self.obs.registry.counter("juno_engine_deletes_total").inc(n)
         return n
 
     def compact(self, *, rebuild: bool | str = "auto") -> int:
@@ -421,10 +532,14 @@ class AnnServeEngine:
         self._rt_state = None
         self.generation += 1
         self.stats["swaps"] += 1
+        if self.obs is not None:
+            self.obs.registry.counter("juno_engine_swaps_total").inc()
         return self.generation
 
     def latency_stats(self) -> dict:
-        """Latency percentiles over completed requests.
+        """Latency percentiles over completed requests (the registry's
+        ``juno_engine_request_seconds`` histograms, with obs on, hold the
+        same observations).
 
         Returns
         -------

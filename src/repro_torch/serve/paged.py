@@ -24,10 +24,20 @@ holds the same bytes at the same flat positions, so paged results equal
 resident results bit for bit. :class:`PagedJunoIndex` is the mutable
 wrapper (inserts go to the side buffer, deletes tombstone the resident
 validity) and :class:`PagedAnnServeEngine` the serving engine.
+
+Observability: :meth:`ClusterCache.bind` mirrors the cache's counters
+into the ``juno_cache_*`` series, :meth:`PagedIndexData.bind_obs` turns
+each cache miss into a ``paged.fault`` span and the ``juno_paged_*``
+counters (the first-touch digest's seconds into a histogram), and the
+paged engine splits each dispatch into ``paged.filter`` (stage A, queued
+on the device), ``paged.gather`` (the page buffer: the misses' host reads
+and host→device copies) and ``paged.score`` spans. All of it is
+host-side bookkeeping: the served ids and scores do not change.
 """
 from __future__ import annotations
 
 import collections
+import time
 
 import numpy as np
 import torch
@@ -39,9 +49,6 @@ from ..device import resolve_device
 from ..rt.grid import CentroidGrid, grid_from_arrays
 from .ann import AnnServeEngine
 
-_UNPORTED_OBS = ("observability bindings are not ported to repro_torch yet "
-                 "(ROADMAP.md, queue 1, item 5: observability)")
-
 
 class ClusterCache:
     """LRU cache of cluster code rows, bounded in bytes.
@@ -50,7 +57,8 @@ class ClusterCache:
     index's device in the paged tier, so ``capacity_bytes`` counts device
     bytes). Rows are evicted least recently used first until a new row
     fits; a row larger than the whole capacity is served but never cached.
-    ``hits``/``misses``/``evictions`` count as in the reference.
+    ``hits``/``misses``/``evictions`` count as in the reference, and
+    :meth:`bind` mirrors them into a registry.
     """
 
     def __init__(self, capacity_bytes: int):
@@ -61,20 +69,43 @@ class ClusterCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._m = None          # registry handles once bound
+        self._bound_to = None   # the registry they live in
 
     def bind(self, registry) -> None:
-        """Mirror the counters into a metrics registry: not ported yet,
-        raises ``NotImplementedError``."""
-        raise NotImplementedError(_UNPORTED_OBS)
+        """Mirror the counters into ``registry`` as the ``juno_cache_*``
+        series, seeded with the counts so far (binding after warm-up loses
+        nothing); binding again to the same registry does nothing (a
+        generation swap re-binds the adopted cache)."""
+        if self._bound_to is registry:
+            return
+        self._bound_to = registry
+        m = {"hits": registry.counter("juno_cache_hits_total"),
+             "misses": registry.counter("juno_cache_misses_total"),
+             "evictions": registry.counter("juno_cache_evictions_total"),
+             "evicted_bytes": registry.counter(
+                 "juno_cache_evicted_bytes_total"),
+             "bytes": registry.gauge("juno_cache_bytes", agg="sum"),
+             "rows": registry.gauge("juno_cache_rows", agg="sum")}
+        m["hits"].inc(self.hits)
+        m["misses"].inc(self.misses)
+        m["evictions"].inc(self.evictions)
+        m["bytes"].set(self.bytes)
+        m["rows"].set(len(self._rows))
+        self._m = m
 
     def get(self, cid: int):
         """The cached row of ``cid`` (made most recent), or ``None``."""
         row = self._rows.get(cid)
         if row is None:
             self.misses += 1
+            if self._m is not None:
+                self._m["misses"].inc()
             return None
         self._rows.move_to_end(cid)
         self.hits += 1
+        if self._m is not None:
+            self._m["hits"].inc()
         return row
 
     def put(self, cid: int, row) -> None:
@@ -86,8 +117,14 @@ class ClusterCache:
             _, old = self._rows.popitem(last=False)
             self.bytes -= old.nbytes
             self.evictions += 1
+            if self._m is not None:
+                self._m["evictions"].inc()
+                self._m["evicted_bytes"].inc(old.nbytes)
         self._rows[cid] = row
         self.bytes += nb
+        if self._m is not None:
+            self._m["bytes"].set(self.bytes)
+            self._m["rows"].set(len(self._rows))
 
     def clear(self) -> None:
         """Drop every row; capacity and counters are kept."""
@@ -183,15 +220,26 @@ class PagedIndexData:
             vectors = np.load(vectors, mmap_mode="r")
         self.vectors = vectors
         self.cache = ClusterCache(cache_bytes)
+        self._obs = None        # Observability bundle once bound
         #: the smallest id no committed point uses: the mutable wrapper's
         #: first new id
         self.first_new_id = int(
             data.ivf.point_ids[data.ivf.valid].max(initial=-1)) + 1
 
     def bind_obs(self, obs) -> None:
-        """Attach an observability bundle: not ported yet, raises
-        ``NotImplementedError``."""
-        raise NotImplementedError(_UNPORTED_OBS)
+        """Attach an ``obs.Observability`` bundle to the fetch plane: the
+        cache's counters go to ``obs.registry`` (:meth:`ClusterCache.bind`),
+        each miss becomes a ``paged.fault`` span and
+        ``juno_paged_faults_total`` / ``juno_paged_fault_bytes_total``
+        counts, and a row's first-touch digest time goes to the
+        ``juno_paged_verify_seconds`` histogram."""
+        self._obs = obs
+        reg = obs.registry
+        # handles looked up once: a pass faults in thousands of rows
+        self._obs_m = (reg.counter("juno_paged_faults_total"),
+                       reg.counter("juno_paged_fault_bytes_total"),
+                       reg.histogram("juno_paged_verify_seconds"))
+        self.cache.bind(reg)
 
     # ---- paged fetch plane ----------------------------------------------
     def fetch_cluster(self, cid: int) -> torch.Tensor:
@@ -203,16 +251,30 @@ class PagedIndexData:
         row = self.cache.get(cid)
         if row is not None:
             return row
+        if self._obs is not None:
+            with self._obs.tracer.span("paged.fault", cluster=cid):
+                row = self._fault_in(cid)
+            self._obs_m[0].inc()
+            self._obs_m[1].inc(row.nbytes)
+        else:
+            row = self._fault_in(cid)
+        self.cache.put(cid, row)
+        return row
+
+    def _fault_in(self, cid: int) -> torch.Tensor:
+        """The miss path of one row: the copy out of the memory map, the
+        first-touch digest check, the move to the device."""
         host = np.array(self._cluster_codes[cid], copy=True)
         if self._row_digests is not None and not self._verified[cid]:
+            t0 = time.perf_counter()
             if _array_digest(host) != self._row_digests[cid]:
                 raise ArtifactError(f"cluster_codes[{cid}]: checksum "
                                     f"mismatch on first touch ({self.path})")
             self._verified[cid] = True
             self.verified_rows += 1
-        row = torch.from_numpy(host).to(self.device)
-        self.cache.put(cid, row)
-        return row
+            if self._obs is not None:
+                self._obs_m[2].add(time.perf_counter() - t0)
+        return torch.from_numpy(host).to(self.device)
 
     def gather(self, cids: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -428,15 +490,26 @@ class PagedAnnServeEngine(AnnServeEngine):
         if minor_store is not None:
             index._minor_sink = (minor_store, minor_name)
         super().__init__(index, side_capacity=side_capacity, **kw)
+        if self.obs is not None:
+            index.paged.bind_obs(self.obs)
 
     def _dispatch(self, qb, k, mode, nprobe, side):
-        """One padded batch over the page buffer; with the exact rerank,
-        ``min(max(k, C), nprobe·P)`` candidates rescored to the top k."""
+        """One padded batch in three spans: stage A over the resident tier
+        (``paged.filter``), the page buffer of its probed clusters
+        (``paged.gather``) and the scoring tail over it (``paged.score``);
+        with the exact rerank, ``min(max(k, C), nprobe·P)`` candidates
+        rescored to the top k."""
         p = self.index.data.ivf.point_ids.shape[1]
         kq = (min(max(k, self.exact_rerank), nprobe * p)
               if self.exact_rerank else k)
-        s, ids = super()._dispatch(qb, k, mode, nprobe, side, k_search=kq,
-                                   gather=self.index.scan_view)
+        q = qb.float()
+        with self._span("paged.filter", nprobe=nprobe):
+            base, cids = self._filter(q, nprobe)
+        with self._span("paged.gather"):
+            view = self.index.scan_view(cids)
+        with self._span("paged.score", mode=mode):
+            s, ids = self._score(q, base, cids, k, mode, side, k_search=kq,
+                                 view=view)
         if self.exact_rerank:
             s, ids = self._rerank_exact(qb, ids, k)
         return s, ids
@@ -480,7 +553,12 @@ class PagedAnnServeEngine(AnnServeEngine):
             raise RuntimeError(
                 "paged serving cannot rebuild in-process; pass a "
                 "PagedIndexData over the next artifact generation")
-        return super().swap_index(new_data)
+        gen = super().swap_index(new_data)
+        if self.obs is not None:
+            # the adopted cache keeps its registry handles; the new
+            # generation's fetch plane needs its own binding
+            self.index.paged.bind_obs(self.obs)
+        return gen
 
     def cache_stats(self) -> dict:
         """The paged tier's counters (:meth:`PagedIndexData.stats`)."""

@@ -9,6 +9,7 @@ import numpy as np
 
 from repro.build.store import _flatten_index
 from repro.core.juno import JunoConfig as JaxConfig
+from repro_torch.build.pipeline import StreamDraws
 from repro_torch.build.store import index_from_arrays
 from repro_torch.core.juno import BuildDraws
 
@@ -50,6 +51,20 @@ def jax_build_draws(key, n: int, d: int, cfg: JaxConfig) -> BuildDraws:
         pq_train_idx=as_np(pq_train), pq_init_idx=pq_init,
         calib_idx=np.asarray(choice(k_choice, n, (nq,), replace=False)),
         calib_noise=np.asarray(jax.random.normal(k_noise, (nq, d))))
+
+
+def jax_stream_draws(key, n: int, d: int, cfg: JaxConfig) -> StreamDraws:
+    """The draws ``repro.build.build_streaming(source, cfg, key=key)``
+    makes over an N-row source, replayed with ``jax.random``
+    (build/pipeline.py:293-296,309-337): the reservoir's seed, then the
+    in-memory build's draws at ``n = fill``, whose training sets are the
+    whole sample."""
+    k_ivf = jax.random.split(key, 3)[0]
+    seed = int(np.asarray(jax.random.randint(jax.random.fold_in(k_ivf, 17),
+                                             (), 0, 2 ** 31 - 1)))
+    t_max = cfg.max_train_points if cfg.max_train_points > 0 else 200_000
+    return StreamDraws(reservoir_seed=seed,
+                       build=jax_build_draws(key, min(n, t_max), d, cfg))
 
 
 def assert_ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, *,

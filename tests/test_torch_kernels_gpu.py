@@ -922,6 +922,51 @@ def test_ivf_filter_topk_exact_ties_index_ascending(cuda, metric, nprobe):
     assert (got_i[:, 1:][tied] > got_i[:, :-1][tied]).all()
 
 
+@pytest.mark.parametrize("c,d", [(1024, 96), (10240, 96), (1024, 200)])
+def test_ivf_filter_top1_at_the_streaming_builds_shapes(cuda, c, d):
+    """One eval batch of the streaming build (8192 rows) at nprobe 1: the
+    1M and 10M DEEP-like builds' C and the TTI-like one's D."""
+    _check_topk(*_topk_inputs(cuda, 8192, c, d), 1, "l2")
+
+
+def test_streamed_eval_batch_on_the_card_equals_the_cpu(cuda):
+    """One padded eval batch of ``build_streaming`` on the card and on the
+    CPU: labels equal away from a tie of the two nearest centroids, the
+    density counts equal (pad rows weighted 0) but for the tied rows'
+    cells, codes and ‖p‖² as the CPU's up to rounding."""
+    from repro_torch.build import pipeline
+    from repro_torch.core.pq import PQCodebook
+    rng = np.random.default_rng(4)
+    n, n_valid, c, d, s, e, g = 8192, 8000, 1024, 96, 48, 256, 64
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    cent = rng.standard_normal((c, d)).astype(np.float32)
+    ent = (rng.standard_normal((s, e, 2)) * 0.5).astype(np.float32)
+    lo = np.full((s, 2), -2.0, np.float32)
+    hi = np.full((s, 2), 2.0, np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        cb = PQCodebook(entries=t(ent), entry_sq=t((ent * ent).sum(-1)))
+        ct = t(cent)
+        out[str(dev)] = [x.cpu() for x in pipeline._encode_batch(
+            t(pts), ct, (ct * ct).sum(-1), cb,
+            torch.zeros((s, g, g), device=dev), t(lo), t(hi), n_valid)]
+    (lc, cc, kc, pc), (lg, cg, kg, pg) = out["cpu"], out[str(cuda)]
+    plain = pivf.ivf_filter_plain(torch.from_numpy(pts), torch.from_numpy(
+        cent), torch.from_numpy((cent * cent).sum(-1)))
+    top2 = torch.sort(plain, 1).values[:, :2]
+    tied = (top2[:, 1] - top2[:, 0]) <= 4 * RTOL * (
+        torch.from_numpy(np.abs(pts)) @ torch.from_numpy(np.abs(cent)).T
+    ).max(1).values
+    differ = lc != lg
+    assert not (differ & ~tied).any()
+    assert float(kc.sum()) == s * n_valid
+    assert (kc - kg).abs().sum() <= 2 * s * int(differ[:n_valid].sum())
+    same = ~differ
+    assert (cc[same] == cg[same]).float().mean() >= 0.999
+    torch.testing.assert_close(pg, pc, rtol=RTOL, atol=ATOL)
+
+
 def test_ivf_filter_topk_counters_reset(cuda):
     """Launches that alternate 1000 and 8 queries (125 and 1 row tiles of
     one counter buffer) each merge once a row tile, so each is right."""

@@ -91,25 +91,36 @@ def test_fused_outside_h2_raises_value_error(indexed):
 
 
 def test_unported_options_raise(indexed, tmp_path):
-    """The metrics-registry bindings are not ported yet (ROADMAP queue 1,
-    item 5): ``ArtifactStore(registry=...)``, ``ClusterCache.bind`` and
-    ``PagedIndexData.bind_obs`` raise rather than drop the metrics. The
-    artifact-backed minors they once stood beside are ported
-    (test_torch_freshness.py, test_torch_paged.py)."""
+    """The options that raised while observability was unported now work:
+    ``ArtifactStore(registry=...)`` counts its operations,
+    ``ClusterCache.bind`` mirrors its counters (seeded with the counts so
+    far) and ``PagedIndexData.bind_obs`` turns a miss into a fault span and
+    counts (``test_torch_obs.py`` holds them to the reference); an object
+    that is not a bundle still raises. The artifact-backed minors they once
+    stood beside are ported (test_torch_freshness.py,
+    test_torch_paged.py)."""
     from repro_torch.build import ArtifactStore
     from repro_torch.core.juno import JunoConfig as PortConfig
+    from repro_torch.obs import MetricsRegistry, Observability
     from repro_torch.serve.paged import ClusterCache, PagedIndexData
 
     metric, q, _, port = indexed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ArtifactStore(str(tmp_path / "store"), registry=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClusterCache(1 << 20).bind(object())
-    store = ArtifactStore(str(tmp_path / "store"))
+    reg = MetricsRegistry()
+    store = ArtifactStore(str(tmp_path / "store"), registry=reg)
     store.put("main", port, PortConfig(n_clusters=port.ivf.n_clusters,
                                        metric=metric))
+    assert reg.snapshot()['juno_store_ops_total{op="put"}'] == 1
+    cache = ClusterCache(1 << 20)
+    assert cache.get(3) is None
+    cache.bind(reg)
+    assert reg.snapshot()["juno_cache_misses_total"] == 1
     paged = PagedIndexData(store.path("main", 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    obs = Observability()
+    paged.bind_obs(obs)
+    paged.fetch_cluster(0)
+    assert [s.name for s in obs.tracer.spans()] == ["paged.fault"]
+    assert obs.registry.snapshot()["juno_paged_faults_total"] == 1
+    with pytest.raises(AttributeError):
         paged.bind_obs(object())
     mut = MutableJunoIndex(port)
     mut.enable_tiers(2, minor_store=store)      # ported: no longer raises

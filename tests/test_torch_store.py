@@ -355,7 +355,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "walked = {n for n in sys.modules if n.startswith('repro_torch')}\n"
+        "assert {'repro_torch.obs', 'repro_torch.obs.recall',\n"
+        "        'repro_torch.build.pipeline'} <= walked, walked\n"
+        "print(len(walked))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
