@@ -157,14 +157,37 @@ Phases, each raising on failure:
    over the source, ``split_shards``/``merge_shards`` bit-equal, and an
    ``ArtifactStore`` round trip served bit-equal (the mutate phase's
    freshness engine also holds its ``MergeScheduler``'s series to its
-   stats);
+   stats); before ``pipeline.l2``, ``dist.l2``: the same index
+   cluster-sharded (``repro_torch.dist``, 4 shards of 256 clusters, all on
+   this card): a 1-shard ``DistributedMutableIndex`` under each of the
+   four engine configurations bit-equal to the unsharded engines, request
+   by request; 4 shards at full coverage (``local_nprobe`` 256, 128
+   queries) against ``search`` at nprobe 1024, tier H's scores bit-equal
+   and ids equal up to exact ties, M and L's counts equal; recall@10-in-100
+   of H, fused H2, M and L at ``ceil(nprobe / 4)`` a shard beside the
+   unsharded tiers', and (l2 only) a 4-shard engine's QPS in turns with
+   the unsharded one; rt and the three-stage scan at full-coverage radii
+   equal to scan across shards; 32 queries against the CPU (≥ 99% ids);
+   5 rounds of 1,000 inserts and 500 deletes through the sharded engine
+   (no deleted id served), a 200-point spill over the four shards,
+   ``rebuild_shard`` on each (scores bit-equal before and after), and a
+   lane-scheduled drain with the tiers on; then ``fleet.l2``: 2- and
+   1-replica ``AnnServeFleet`` bit-equal to one engine, request by
+   request; a 2 × 2 sharded fleet serving the stream, unchanged by a
+   ``fail_replica`` mid-stream, fanning 1,000 inserts out with identical
+   ids, and shedding with typed rejections under ``policy="shed"``
+   (``max_queue`` 256); 2 paged replicas over the paged phase's artifact
+   sharing one cluster cache, bit-equal to the resident engine; each
+   fleet's QPS, p50/p99 and shed/expired/rerouted counts;
 5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100),
-   then ``mutate.ip``, ``paged.ip`` and ``obs.ip``;
+   then ``mutate.ip``, ``paged.ip``, ``obs.ip``, ``dist.ip`` and
+   ``fleet.ip``;
 6. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes, the ``mutate`` rounds, the first
-   pass of each paged engine, the ``obs`` passes and the ``pipeline``
-   builds and 10M engine passes (an rt
+   pass of each paged engine, the ``obs`` passes, the ``dist`` and
+   ``fleet`` phases and the ``pipeline`` builds and 10M engine passes
+   (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
    ``hit_count`` call on the top-k route, which every engine takes, is two
@@ -187,6 +210,7 @@ import contextlib
 import gzip
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -207,15 +231,18 @@ from repro_torch.build import (ArtifactError, ArtifactStore,  # noqa: E402
                                BuildProbe, array_source, build_streaming,
                                load_index, merge_shards, rebuild_index,
                                split_shards)
-from repro_torch.core import (JunoConfig, build, exact_topk,  # noqa: E402
-                              index_to, recall_n_at_k, search)
+from repro_torch.core import (JunoConfig, MergeScheduler,  # noqa: E402
+                              build, exact_topk, index_to, promote_l0,
+                              recall_n_at_k, search)
 from repro_torch.core import density as density_lib  # noqa: E402
 from repro_torch.core import juno as juno_lib  # noqa: E402
 from repro_torch.core.ivf import cluster_capacity, filter_clusters  # noqa: E402
 from repro_torch.core.juno import (MutableJunoIndex, SideBuffer,  # noqa: E402
-                                   _label_encode, _rt_probe_mask)
+                                   _rt_probe_mask)
 from repro_torch.data import (DEEP_LIKE, TTI_LIKE, make_dataset,  # noqa: E402
                               point_chunks)
+from repro_torch.dist import (DistributedMutableIndex,  # noqa: E402
+                              make_distributed_search, shard_index)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
 from repro_torch.kernels import fused_two_stage as fts  # noqa: E402
@@ -231,6 +258,8 @@ from repro_torch.obs import (MetricsRegistry, Observability,  # noqa: E402
                              write_jsonl)
 from repro_torch.serve import ann as ann_lib  # noqa: E402
 from repro_torch.serve.ann import AnnServeEngine  # noqa: E402
+from repro_torch.serve.fleet import (AnnServeFleet,  # noqa: E402
+                                     _ShardedAnnServeEngine)
 from repro_torch.serve.paged import (PagedAnnServeEngine,  # noqa: E402
                                      PagedIndexData)
 
@@ -2088,14 +2117,15 @@ def fresh_points(pts: np.ndarray, n: int, rng, sigma: float,
 def spill_points(mut, c: int, n: int, rng, sigma: float) -> np.ndarray:
     """``n`` points whose owning cluster is ``c``: its centroid moved by
     N(0, (0.05·σ)²) noise, kept where ``_label_encode`` (the ``ivf_filter``
-    kernel) assigns them to ``c``."""
-    cent = mut.data.ivf.centroids[c].cpu().numpy()
+    kernel, through the index's own ``_labels_codes``) assigns them to
+    ``c``."""
+    cents = mut._rt_centroids()
+    cent = cents[c].cpu().numpy()
     out = np.empty((0, cent.shape[0]), np.float32)
     while len(out) < n:
         cand = (cent + np.float32(0.05 * sigma) * rng.standard_normal(
             (2 * n, cent.shape[0]), dtype=np.float32)).astype(np.float32)
-        lab, _ = _label_encode(torch.from_numpy(cand).to(
-            mut.data.ivf.centroids.device), mut.data.ivf, mut.data.codebook)
+        lab, _ = mut._labels_codes(torch.from_numpy(cand).to(cents.device))
         out = np.concatenate([out, cand[lab.cpu().numpy() == c]])
     return out[:n]
 
@@ -2561,188 +2591,183 @@ def flip_byte(path: str, cid: int) -> int:
 
 
 def phase_paged(name: str, metric: str, cfg, index, grid, pts: np.ndarray,
-                queries: np.ndarray, stream, seed: int) -> dict:
+                queries: np.ndarray, stream, seed: int, root: str) -> dict:
     """The paged tier at 1M points, on the index and stream of the serve
-    phase: the index and its grid committed to an ``ArtifactStore`` under
-    ``build/``, four paged engines with a cache of a quarter of the code
+    phase: the index and its grid committed to an ``ArtifactStore`` in
+    ``root`` (generation 1 of "main", which the fleet phase serves again),
+    four paged engines with a cache of a quarter of the code
     bytes, each bit-equal to the resident engine; the exact rerank; a
     flipped byte failing closed; inserts, deletes, a swap to generation 2
     and a minor committed to the store. Raises on the first failed
-    check; the directory is deleted at the end."""
+    check; the caller deletes ``root``."""
     dev = index.ivf.centroids.device
     n = index.codes.shape[0]
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix=f"paged_{name}_",
-                            dir=os.path.join(REPO, "build"))
+    store = ArtifactStore(os.path.join(root, "store"))
+    t0 = time.perf_counter()
+    v1 = store.put("main", index, cfg, rt_grid=grid)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.verify("main", v1)
+    verify_s = time.perf_counter() - t0
+    path = store.path("main", v1)
+    vec_path = os.path.join(root, "vectors.npy")
+    np.save(vec_path, pts)
+    cache_bytes = index.cluster_codes.numel() // 4
+    out = {"artifact_bytes": _dir_bytes(path), "put_s": put_s,
+           "verify_s": verify_s, "cache_bytes": cache_bytes,
+           "cluster_bytes": index.cluster_codes.numel(), "engines": {}}
+    resident = MutableJunoIndex(index, side_capacity=SIDE)
+    for label, fused, g in (("fused", True, None),
+                            ("unfused", False, None),
+                            ("rt_fused", True, grid),
+                            ("rt_unfused", False, grid)):
+        out["engines"][label] = paged_engine(
+            path, cache_bytes, resident, queries, stream, metric=metric,
+            fused=fused, grid=g, n_points=n)
+    out["launches"] = {k: sum(e["launches"][k]
+                              for e in out["engines"].values())
+                       for k in _build.LAUNCHES}
+    out["gather_breakdown"] = gather_breakdown(path, index, queries,
+                                               metric)
+
+    # the exact rerank of C = 40 candidates from the raw vectors
+    pvec = PagedIndexData(path, cache_bytes=cache_bytes, device=dev,
+                          vectors=vec_path)
+    q = queries[:256]
+    qt = torch.from_numpy(q).to(dev)
+    live = torch.from_numpy(pts).to(dev)
+    _, gt = exact_topk(qt, live, k=10, metric=metric)
+    recall = {}
+    for label, c in (("paged", 0), ("exact_rerank", 40)):
+        eng = PagedAnnServeEngine(pvec, metric=metric, exact_rerank=c)
+        req = eng.submit(q, k=10, mode="H2", nprobe=16)
+        eng.run()
+        ids = torch.from_numpy(req.ids).to(dev)
+        recall[label] = float(recall_n_at_k(ids, gt))
+    v = live[ids.long()]
+    exact = (((v - qt[:, None]) ** 2).sum(-1) if metric == "l2"
+             else torch.einsum("qcd,qd->qc", v, qt))
+    if not torch.allclose(torch.from_numpy(req.scores).to(dev), exact,
+                          rtol=RTOL, atol=1e-6):
+        raise AssertionError("exact rerank: scores are not the raw "
+                             "vectors' of the returned ids")
+    out["recall10_at_10"] = recall
+    del live, v, exact, pvec
+
+    # fail-closed: one flipped byte in a row the first query probes
+    _, cids = filter_clusters(qt[:1], index.ivf, nprobe=16, metric=metric)
+    cid = int(cids[0, 0])
+    flip_byte(path, cid)
     try:
-        store = ArtifactStore(os.path.join(root, "store"))
-        t0 = time.perf_counter()
-        v1 = store.put("main", index, cfg, rt_grid=grid)
-        put_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        store.verify("main", v1)
-        verify_s = time.perf_counter() - t0
-        path = store.path("main", v1)
-        vec_path = os.path.join(root, "vectors.npy")
-        np.save(vec_path, pts)
-        cache_bytes = index.cluster_codes.numel() // 4
-        out = {"artifact_bytes": _dir_bytes(path), "put_s": put_s,
-               "verify_s": verify_s, "cache_bytes": cache_bytes,
-               "cluster_bytes": index.cluster_codes.numel(), "engines": {}}
-        resident = MutableJunoIndex(index, side_capacity=SIDE)
-        for label, fused, g in (("fused", True, None),
-                                ("unfused", False, None),
-                                ("rt_fused", True, grid),
-                                ("rt_unfused", False, grid)):
-            out["engines"][label] = paged_engine(
-                path, cache_bytes, resident, queries, stream, metric=metric,
-                fused=fused, grid=g, n_points=n)
-        out["launches"] = {k: sum(e["launches"][k]
-                                  for e in out["engines"].values())
-                           for k in _build.LAUNCHES}
-        out["gather_breakdown"] = gather_breakdown(path, index, queries,
-                                                   metric)
-
-        # the exact rerank of C = 40 candidates from the raw vectors
-        pvec = PagedIndexData(path, cache_bytes=cache_bytes, device=dev,
-                              vectors=vec_path)
-        q = queries[:256]
-        qt = torch.from_numpy(q).to(dev)
-        live = torch.from_numpy(pts).to(dev)
-        _, gt = exact_topk(qt, live, k=10, metric=metric)
-        recall = {}
-        for label, c in (("paged", 0), ("exact_rerank", 40)):
-            eng = PagedAnnServeEngine(pvec, metric=metric, exact_rerank=c)
-            req = eng.submit(q, k=10, mode="H2", nprobe=16)
-            eng.run()
-            ids = torch.from_numpy(req.ids).to(dev)
-            recall[label] = float(recall_n_at_k(ids, gt))
-        v = live[ids.long()]
-        exact = (((v - qt[:, None]) ** 2).sum(-1) if metric == "l2"
-                 else torch.einsum("qcd,qd->qc", v, qt))
-        if not torch.allclose(torch.from_numpy(req.scores).to(dev), exact,
-                              rtol=RTOL, atol=1e-6):
-            raise AssertionError("exact rerank: scores are not the raw "
-                                 "vectors' of the returned ids")
-        out["recall10_at_10"] = recall
-        del live, v, exact, pvec
-
-        # fail-closed: one flipped byte in a row the first query probes
-        _, cids = filter_clusters(qt[:1], index.ivf, nprobe=16, metric=metric)
-        cid = int(cids[0, 0])
-        flip_byte(path, cid)
+        bad = PagedAnnServeEngine(PagedIndexData(
+            path, cache_bytes=cache_bytes, device=dev), metric=metric)
+        req = bad.submit(q[:1], k=10, mode="H", nprobe=16)
         try:
-            bad = PagedAnnServeEngine(PagedIndexData(
-                path, cache_bytes=cache_bytes, device=dev), metric=metric)
-            req = bad.submit(q[:1], k=10, mode="H", nprobe=16)
-            try:
-                bad.run()
-            except ArtifactError as e:
-                fail_closed = str(e)
-            else:
-                raise AssertionError("a flipped byte was served")
-            if req.done or req.ids is not None:
-                raise AssertionError("a request over a flipped byte returned")
-            try:
-                store.verify("main", v1)
-            except ArtifactError:
-                pass
-            else:
-                raise AssertionError("verify passed a flipped byte")
-        finally:
-            flip_byte(path, cid)                   # restore it
-        store.verify("main", v1)
-        out["fail_closed"] = {"cluster": cid, "error": fail_closed}
-
-        # mutation: the same inserts and deletes on a paged engine and a
-        # resident one; then generation 2 (the resident state rebuilt)
-        rng = np.random.default_rng(seed + 202)
-        sigma = float(pts[::16].std())
-        meng = PagedAnnServeEngine(PagedIndexData(
-            path, cache_bytes=cache_bytes, device=dev), metric=metric,
-            side_capacity=SIDE)
-        rmut = MutableJunoIndex(index, side_capacity=SIDE)
-        reng = AnnServeEngine(rmut, metric=metric)
-        new = fresh_points(pts, SPILL, rng, sigma, metric)
-        ids = meng.insert(new)
-        if ids != reng.insert(new) or meng.index.side_fill != SPILL:
-            raise AssertionError(f"paged inserts: ids or side fill "
-                                 f"{meng.index.side_fill}")
-        own = {}
-        for label, e in (("paged", meng), ("resident", reng)):
-            r = e.submit(new, k=10, mode="H", nprobe=16)
-            e.run()
-            own[label] = r
-        _ids_equal_up_to_ties(own["paged"].ids, own["resident"].ids,
-                              own["paged"].scores, own["resident"].scores,
-                              "paged inserts vs resident")
-        found = {k: float((r.ids == np.asarray(ids)[:, None]).any(1).mean())
-                 for k, r in own.items()}
-        if found["paged"] <= 0:
-            raise AssertionError("no inserted point found as itself")
-        cand = rng.choice(n, 2 * DELETE_BATCH, replace=False).tolist()
-        victims = [i for i in cand if i in meng.index._loc][:DELETE_BATCH]
-        victims += ids[:SPILL // 4]
-        if meng.delete(victims) != reng.delete(victims):
-            raise AssertionError("paged deletes")
-        dead = np.asarray(victims)
-        serve_pass(meng, queries, stream, dead, meng.index._next_id)
-        rebuilt = rebuild_index(rmut)
-        v2 = store.put("main", rebuilt, cfg)
-        before = meng.cache_stats()
-        meng.swap_index(PagedIndexData(store.path("main", v2),
-                                       cache_bytes=cache_bytes, device=dev))
-        after = meng.cache_stats()
-        if after["rows"] != 0 or any(after[k] != before[k] for k in
-                                     ("hits", "misses", "evictions")):
-            raise AssertionError(f"swap: cache {before} -> {after}")
-        got, _ = run_stream(meng, queries, stream)
-        want, _ = run_stream(AnnServeEngine(rebuilt, metric=metric),
-                             queries, stream)
-        same_requests(got, want, "paged generation 2")
-        serve_pass(meng, queries, stream, dead, meng.index._next_id)
-        out["mutate"] = {"inserted": SPILL, "side_fill": SPILL,
-                         "own_found": found, "deleted": len(victims),
-                         "generation_2": v2, "cache_after_swap": after}
-
-        # a full L0 commits a minor artifact, faulted in on first search
-        teng = PagedAnnServeEngine(PagedIndexData(
-            store.path("main", v2), cache_bytes=cache_bytes, device=dev),
-            metric=metric, side_capacity=SIDE, max_minors=2,
-            minor_store=store)
-        tres = AnnServeEngine(MutableJunoIndex(rebuilt, side_capacity=SIDE),
-                              metric=metric, max_minors=2)
-        new = fresh_points(pts, SIDE + 16, rng, sigma, metric)
-        for part in (new[:SIDE], new[SIDE:]):
-            tids = teng.insert(part)
-            if tids != tres.index.insert(part):
-                raise AssertionError("minor inserts: ids")
-        minors = teng.index._minors
-        if len(minors) != 1 or minors[0].codes is not None or \
-                store.latest("minors") != 1:
-            raise AssertionError("a full L0 did not commit a minor artifact")
-        mine = minors[0].ids[minors[0].valid]
-        got = teng.submit(new[:SIDE], k=10, mode="H", nprobe=16)
-        teng.run()
-        if minors[0].codes is None:
-            raise AssertionError("the minor was not faulted in")
-        want = teng.index.search(new[:SIDE], k=10, mode="H", nprobe=16,
-                                 metric=metric, batch=128)
-        ref = tres.index.search(new[:SIDE], k=10, mode="H", nprobe=16,
-                                metric=metric, batch=128)
-        _ids_equal_up_to_ties(want[1].cpu(), ref[1].cpu(), want[0].cpu(),
-                              ref[0].cpu(), "paged minors vs resident")
-        found_minor = float(np.isin(mine, got.ids).mean())
-        if found_minor <= 0:
-            raise AssertionError("no id of the minor was found")
-        out["minors"] = {"committed": store.latest("minors"),
-                         "path_is_artifact": os.path.exists(
-                             os.path.join(minors[0].path, "manifest.json")),
-                         "minor_ids_found": found_minor}
-        log(f"paged.{name}", **out)
-        return out
+            bad.run()
+        except ArtifactError as e:
+            fail_closed = str(e)
+        else:
+            raise AssertionError("a flipped byte was served")
+        if req.done or req.ids is not None:
+            raise AssertionError("a request over a flipped byte returned")
+        try:
+            store.verify("main", v1)
+        except ArtifactError:
+            pass
+        else:
+            raise AssertionError("verify passed a flipped byte")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        flip_byte(path, cid)                   # restore it
+    store.verify("main", v1)
+    out["fail_closed"] = {"cluster": cid, "error": fail_closed}
+
+    # mutation: the same inserts and deletes on a paged engine and a
+    # resident one; then generation 2 (the resident state rebuilt)
+    rng = np.random.default_rng(seed + 202)
+    sigma = float(pts[::16].std())
+    meng = PagedAnnServeEngine(PagedIndexData(
+        path, cache_bytes=cache_bytes, device=dev), metric=metric,
+        side_capacity=SIDE)
+    rmut = MutableJunoIndex(index, side_capacity=SIDE)
+    reng = AnnServeEngine(rmut, metric=metric)
+    new = fresh_points(pts, SPILL, rng, sigma, metric)
+    ids = meng.insert(new)
+    if ids != reng.insert(new) or meng.index.side_fill != SPILL:
+        raise AssertionError(f"paged inserts: ids or side fill "
+                             f"{meng.index.side_fill}")
+    own = {}
+    for label, e in (("paged", meng), ("resident", reng)):
+        r = e.submit(new, k=10, mode="H", nprobe=16)
+        e.run()
+        own[label] = r
+    _ids_equal_up_to_ties(own["paged"].ids, own["resident"].ids,
+                          own["paged"].scores, own["resident"].scores,
+                          "paged inserts vs resident")
+    found = {k: float((r.ids == np.asarray(ids)[:, None]).any(1).mean())
+             for k, r in own.items()}
+    if found["paged"] <= 0:
+        raise AssertionError("no inserted point found as itself")
+    cand = rng.choice(n, 2 * DELETE_BATCH, replace=False).tolist()
+    victims = [i for i in cand if i in meng.index._loc][:DELETE_BATCH]
+    victims += ids[:SPILL // 4]
+    if meng.delete(victims) != reng.delete(victims):
+        raise AssertionError("paged deletes")
+    dead = np.asarray(victims)
+    serve_pass(meng, queries, stream, dead, meng.index._next_id)
+    rebuilt = rebuild_index(rmut)
+    v2 = store.put("main", rebuilt, cfg)
+    before = meng.cache_stats()
+    meng.swap_index(PagedIndexData(store.path("main", v2),
+                                   cache_bytes=cache_bytes, device=dev))
+    after = meng.cache_stats()
+    if after["rows"] != 0 or any(after[k] != before[k] for k in
+                                 ("hits", "misses", "evictions")):
+        raise AssertionError(f"swap: cache {before} -> {after}")
+    got, _ = run_stream(meng, queries, stream)
+    want, _ = run_stream(AnnServeEngine(rebuilt, metric=metric),
+                         queries, stream)
+    same_requests(got, want, "paged generation 2")
+    serve_pass(meng, queries, stream, dead, meng.index._next_id)
+    out["mutate"] = {"inserted": SPILL, "side_fill": SPILL,
+                     "own_found": found, "deleted": len(victims),
+                     "generation_2": v2, "cache_after_swap": after}
+
+    # a full L0 commits a minor artifact, faulted in on first search
+    teng = PagedAnnServeEngine(PagedIndexData(
+        store.path("main", v2), cache_bytes=cache_bytes, device=dev),
+        metric=metric, side_capacity=SIDE, max_minors=2,
+        minor_store=store)
+    tres = AnnServeEngine(MutableJunoIndex(rebuilt, side_capacity=SIDE),
+                          metric=metric, max_minors=2)
+    new = fresh_points(pts, SIDE + 16, rng, sigma, metric)
+    for part in (new[:SIDE], new[SIDE:]):
+        tids = teng.insert(part)
+        if tids != tres.index.insert(part):
+            raise AssertionError("minor inserts: ids")
+    minors = teng.index._minors
+    if len(minors) != 1 or minors[0].codes is not None or \
+            store.latest("minors") != 1:
+        raise AssertionError("a full L0 did not commit a minor artifact")
+    mine = minors[0].ids[minors[0].valid]
+    got = teng.submit(new[:SIDE], k=10, mode="H", nprobe=16)
+    teng.run()
+    if minors[0].codes is None:
+        raise AssertionError("the minor was not faulted in")
+    want = teng.index.search(new[:SIDE], k=10, mode="H", nprobe=16,
+                             metric=metric, batch=128)
+    ref = tres.index.search(new[:SIDE], k=10, mode="H", nprobe=16,
+                            metric=metric, batch=128)
+    _ids_equal_up_to_ties(want[1].cpu(), ref[1].cpu(), want[0].cpu(),
+                          ref[0].cpu(), "paged minors vs resident")
+    found_minor = float(np.isin(mine, got.ids).mean())
+    if found_minor <= 0:
+        raise AssertionError("no id of the minor was found")
+    out["minors"] = {"committed": store.latest("minors"),
+                     "path_is_artifact": os.path.exists(
+                         os.path.join(minors[0].path, "manifest.json")),
+                     "minor_ids_found": found_minor}
+    log(f"paged.{name}", **out)
+    return out
 
 # ---------------------------------------------------------------------------
 # obs phase
@@ -2900,6 +2925,522 @@ def phase_obs(name: str, metric: str, cfg, index, grid, pts: np.ndarray,
                     "events": len(events), "bytes": os.path.getsize(path)}
     out["launches"] = {"obs": dict(_build.LAUNCHES)}
     log(f"obs.{name}", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dist and fleet phases
+# ---------------------------------------------------------------------------
+SHARDS = 4                     # dist phase: 4 shards of 256 clusters
+DIST_ROUNDS = 5                # dist phase: insert/delete rounds
+
+
+class ShardEngine(AnnServeEngine):
+    """This script's own engine (the port ships ``serve.fleet``'s
+    ``_ShardedAnnServeEngine``, which serves the composed scan path only):
+    its batches run through a ``DistributedMutableIndex``'s searcher in
+    each engine configuration (fused or not, scan or rt), with
+    ``ceil(nprobe / n_shards)`` probes a shard and the unsharded engine's
+    rerank, so that the searcher meets the unsharded engines bit for bit
+    in all four."""
+
+    def _dispatch(self, qb, k, mode, nprobe, side):
+        idx = self.index
+        fused = self.fused and mode == "H2"
+        fn = idx.searcher(math.ceil(nprobe / idx.n_shards), k, mode=mode,
+                          metric=self.metric, thres_scale=self.thres_scale,
+                          fused=fused, fused3=self.fused3,
+                          rerank=self.FUSED_RERANK_MULT * k if fused else 0,
+                          prefilter=self.prefilter, rt_scale=self.rt_scale)
+        grid = ((idx.ensure_rt_grid(metric=self.metric),)
+                if self.prefilter == "rt" else ())
+        return fn(idx.shards, qb, side, *grid)
+
+
+def _same_above_last(ids, ref_ids, scores, ref_scores, what: str) -> None:
+    """Counts bit-equal; each row's ids counted above its last count equal
+    as sets (equal counts may be ordered either way)."""
+    if not torch.equal(scores, ref_scores):
+        raise AssertionError(f"{what}: counts differ")
+    for i, r, s in zip(ids.cpu(), ref_ids.cpu(), ref_scores.cpu()):
+        inner = s != s[-1]
+        if set(i[inner].tolist()) != set(r[inner].tolist()):
+            raise AssertionError(f"{what}: ids above the last count differ")
+
+
+def _same_but_moved(before, after, moved: np.ndarray, what: str) -> int:
+    """Tier H results before and after delta points moved into cluster
+    slots: scores within ``RTOL`` and ids up to ties; the score of every id
+    that did not move bit-equal (a moved point's was the side gather's sum,
+    in torch's order, and is now the scan kernel's). Returns how many
+    moved points' scores changed."""
+    (s0, i0), (s1, i1) = ((s.cpu().numpy(), i.cpu().numpy())
+                          for s, i in (before, after))
+    _ids_equal_up_to_ties(i1, i0, s1, s0, what, rtol=RTOL)
+    changed = 0
+    for r0, v0, r1, v1 in zip(i0, s0, i1, s1):
+        old = dict(zip(r0.tolist(), v0.tolist()))
+        for pid, v in zip(r1.tolist(), v1.tolist()):
+            if pid in old and old[pid] != v:
+                if pid not in moved:
+                    raise AssertionError(f"{what}: id {pid} not moved, "
+                                         f"score {old[pid]} -> {v}")
+                changed += 1
+    return changed
+
+
+def _timed(dev, fn):
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _shard_spill(dmi, n_per: int, rng, sigma: float
+                 ) -> tuple[list, np.ndarray]:
+    """Insert into each shard's fullest cluster its free slots plus
+    ``n_per`` points, so ``n_per`` a shard spill into the side buffer.
+    Returns (clusters, the spilled points)."""
+    n_local = dmi.n_clusters // dmi.n_shards
+    clusters, spilled = [], []
+    for s in range(dmi.n_shards):
+        free = [dmi.free_slots(c) for c in range(s * n_local,
+                                                  (s + 1) * n_local)]
+        c = s * n_local + int(np.argmin(free))
+        pts_c = spill_points(dmi, c, min(free) + n_per, rng, sigma)
+        dmi.insert(pts_c)
+        clusters.append(c)
+        spilled.append(pts_c[-n_per:])
+    return clusters, np.concatenate(spilled)
+
+
+def _free_in(dmi, clusters: list, n_per: int) -> list[int]:
+    """Delete ``n_per`` live in-cluster points of each cluster."""
+    victims = []
+    n_local = dmi.n_clusters // dmi.n_shards
+    for c in clusters:
+        s, lc = divmod(c, n_local)
+        ivf = dmi.shards[s].ivf
+        victims += ivf.point_ids[lc][ivf.valid[lc]][:n_per].cpu().tolist()
+    dmi.delete(victims)
+    return victims
+
+
+def phase_dist(name: str, metric: str, index, grid, pts: np.ndarray,
+               queries: np.ndarray, stream, tiers: dict, seed: int) -> dict:
+    """The cluster-sharded index at 1M points on the serve phase's index
+    (C = 1024: 4 shards of 256 clusters, all on this card): one shard
+    against the unsharded engines in their four configurations, request
+    by request bit-equal; 4 shards at full coverage against the unsharded
+    search; recall at the engines' budgets and a sharded engine's QPS;
+    rt at full-coverage radii against scan; the card against the CPU;
+    mutations, ``rebuild_shard`` and a lane-scheduled drain. Raises on the
+    first failed check."""
+    dev = index.ivf.centroids.device
+    n = index.codes.shape[0]
+    devs = [dev] * SHARDS
+    out, secs = {}, {}
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+
+    mut = MutableJunoIndex(index, side_capacity=SIDE)
+    one = DistributedMutableIndex(index, [dev], side_capacity=SIDE)
+    for label, fused, g in (("fused", True, None), ("unfused", False, None),
+                            ("rt_fused", True, grid),
+                            ("rt_unfused", False, grid)):
+        kw = dict(metric=metric, fused=fused, rt_grid=g,
+                  prefilter="scan" if g is None else "rt")
+        want, _ = run_stream(AnnServeEngine(mut, **kw), queries, stream)
+        got, _ = run_stream(ShardEngine(one, **kw), queries, stream)
+        same_requests(got, want, f"dist.{name} one shard {label}")
+        if label == "unfused":
+            scan_want = want
+    out["one_shard_bit_equal"] = ["fused", "unfused", "rt_fused",
+                                  "rt_unfused"]
+    del mut, one
+
+    # the fleet's sharded engine itself at 1 shard: its H/M/L requests
+    # bit-equal to the unsharded scan engine's; its H2 requests (it
+    # reranks FUSED_RERANK_MULT·k, the unfused engine none) held against
+    # the unsharded search() at the request's signature, ids up to ties
+    ship = _ShardedAnnServeEngine(index, [dev], side_capacity=SIDE,
+                                  metric=metric)
+    got, _ = run_stream(ship, queries, stream)
+    n_h2 = 0
+    for a, b in zip(got, scan_want, strict=True):
+        kb, mode, nprobe = ship.route(a)
+        what = f"dist.{name} shipped engine, 1 shard, request {a.rid}"
+        if mode != "H2":
+            same_requests([a], [b], what)
+            continue
+        s_r, i_r = search(index, torch.from_numpy(a.queries).to(dev),
+                          nprobe=nprobe, k=kb, mode="H2", metric=metric,
+                          rerank=ship.FUSED_RERANK_MULT * kb)
+        _ids_equal_up_to_ties(a.ids, i_r[:, :a.k].cpu().numpy(), a.scores,
+                              s_r[:, :a.k].cpu().numpy(), what, rtol=RTOL)
+        n_h2 += 1
+    out["shipped_one_shard"] = {"requests": len(got),
+                                "bit_equal_to_scan_engine": len(got) - n_h2,
+                                "h2_against_search": n_h2}
+    del ship
+    secs["one_shard"] = time.perf_counter() - t_phase
+
+    four = shard_index(index, devs)
+    n_local = index.ivf.n_clusters // SHARDS
+    q128 = torch.from_numpy(queries[:128]).to(dev)
+    full = {}
+    for mode in ("H", "M", "L"):
+        fn = make_distributed_search(devs, n_local, 100, mode=mode,
+                                     metric=metric)
+        (s4, i4), t4 = _timed(dev, lambda: fn(four, q128))
+        (s1, i1), t1 = _timed(dev, lambda: search(
+            index, q128, nprobe=index.ivf.n_clusters, k=100, mode=mode,
+            metric=metric, batch=32))
+        what = f"dist.{name} full coverage {mode}"
+        if mode == "H":
+            if not torch.equal(s4, s1):
+                raise AssertionError(f"{what}: scores differ")
+            _ids_equal_up_to_ties(i4.cpu(), i1.cpu(), s4.cpu(), s1.cpu(),
+                                  what, rtol=0.0, atol=0.0)
+        else:
+            _same_above_last(i4, i1, s4, s1, what)
+        full[mode] = {"local_nprobe": n_local, "sharded_s": t4,
+                      "unsharded_s": t1,
+                      "ids_in_other_order": int((i4 != i1).sum())}
+    out["full_coverage"] = full
+    secs["full_coverage"] = time.perf_counter() - t_phase - sum(secs.values())
+
+    pts_dev = torch.from_numpy(pts).to(dev)
+    q256 = torch.from_numpy(queries[:256]).to(dev)
+    _, gt = exact_topk(q256, pts_dev, k=10, metric=metric)
+    del pts_dev
+    budget = {}
+    for tier in ("H", "H2_fused", "M", "L"):
+        kw = dict(TIERS[tier])
+        local_np = math.ceil(kw.pop("nprobe") / SHARDS)
+        fn = make_distributed_search(devs, local_np, 100, metric=metric, **kw)
+        s, ids = fn(four, q256)
+        check_results(ids.cpu(), s.cpu(), n, f"dist.{name} {tier}")
+        budget[tier] = {"local_nprobe": local_np,
+                        "recall10_at_100": recall_n_at_k(ids.long(), gt),
+                        "unsharded_recall10_at_100":
+                            tiers[tier]["recall10_at_100"],
+                        "unsharded_nprobe": TIERS[tier]["nprobe"]}
+    out["budgets"] = budget
+
+    # rt at rt_scale 1: each shard's probe mask, as the sharded search
+    # computes it (the probe entry's calls recorded), looked up at the
+    # shard's probes + lo and equal to the plain mask at those global ids
+    rt_off = {}
+    real_mask = ops.rt_probe_mask
+    for label, kw in (("H", dict(mode="H")),
+                      ("H2_fused3", dict(mode="H2", fused=True,
+                                         rerank=TIERS["H2_fused"]["rerank"]))):
+        calls = []
+
+        def rec(*a, **k):
+            res = real_mask(*a, **k)
+            calls.append((a, k, res))
+            return res
+        rtf = make_distributed_search(devs, 4, 100, metric=metric,
+                                      prefilter="rt", rt_scale=1.0, **kw)
+        ops.rt_probe_mask = rec
+        try:
+            s_r, i_r = rtf(four, q128, grid)
+        finally:
+            ops.rt_probe_mask = real_mask
+        check_results(i_r.cpu(), s_r.cpu(), n, f"dist.{name} rt {label}",
+                      rt=True)
+        if len(calls) != SHARDS:
+            raise AssertionError(f"dist.{name} rt {label}: {len(calls)} "
+                                 f"probe calls for {SHARDS} shards")
+        kept, moved = [], []
+        for sh, (a, k, res) in enumerate(calls):
+            what = f"dist.{name} rt {label} shard {sh}"
+            _, cids = filter_clusters(q128, four[sh].ivf, nprobe=4,
+                                      metric=metric)
+            if not torch.equal(a[3].long(), cids.long() + sh * n_local):
+                raise AssertionError(f"{what}: probes not at cids + lo")
+            host = [x.cpu() if torch.is_tensor(x) else x for x in a]
+            plain = real_mask(*host, **k)
+            if not all(torch.equal(g.cpu(), p) for g, p in zip(res, plain)):
+                raise AssertionError(f"{what}: mask != plain at global ids")
+            local = real_mask(*host[:3], host[3] - sh * n_local, *host[4:],
+                              **k)
+            moved.append(int((local[2] != plain[2]).sum()))
+            if sh and not moved[-1]:
+                raise AssertionError(f"{what}: local ids hit the same slots")
+            kept.append(float(res[0].float().mean()))
+        rt_off[label] = {"probes_kept": kept,
+                         "slots_moved_by_offset": moved}
+    out["rt_offset_masks"] = rt_off
+
+    # rt at full-coverage radii against scan: with every probe kept, the
+    # rt and three-stage branches of every shard equal its scan
+    rt_full = {}
+    for label, kw in (("H", dict(mode="H")),
+                      ("H2_fused3", dict(mode="H2", fused=True,
+                                         rerank=TIERS["H2_fused"]["rerank"]))):
+        scan = make_distributed_search(devs, 4, 100, metric=metric, **kw)
+        rtf = make_distributed_search(devs, 4, 100, metric=metric,
+                                      prefilter="rt", rt_scale=FULL, **kw)
+        s_s, i_s = scan(four, q128)
+        s_r, i_r = rtf(four, q128, grid)
+        if not (torch.equal(i_r, i_s) and torch.equal(s_r, s_s)):
+            raise AssertionError(f"dist.{name} rt {label} at full radii "
+                                 f"!= scan")
+        rt_full[label] = True
+    out["rt_full_radii_equals_scan"] = rt_full
+
+    # the card against the port's CPU path, 4 shards, tier H
+    fn_gpu = make_distributed_search(devs, 4, 100, mode="H", metric=metric)
+    fn_cpu = make_distributed_search(["cpu"] * SHARDS, 4, 100, mode="H",
+                                     metric=metric)
+    _, i_g = fn_gpu(four, q128[:32])
+    _, i_c = fn_cpu(shard_index(index_to(index, "cpu"), ["cpu"] * SHARDS),
+                    queries[:32])
+    same = shared_ids(i_g.cpu(), i_c)
+    if same < 0.99:
+        raise AssertionError(f"dist.{name} card vs CPU: {same:.4f} shared")
+    out["cpu_ids_shared"] = same
+    del four
+    secs["budgets_rt_cpu"] = time.perf_counter() - t_phase - sum(
+        secs.values())
+
+    # a 4-shard engine (it also serves the mutations below) beside the
+    # unsharded one, in turns; on l2 only, since the run passes 720 s
+    seng = _ShardedAnnServeEngine(index, devs, side_capacity=SIDE,
+                                  metric=metric)
+    got, _ = run_stream(seng, queries, stream)
+    for r in got:
+        check_results(r.ids, r.scores, n, f"dist.{name} sharded engine")
+    if name == "l2":
+        ueng = AnnServeEngine(index, side_capacity=SIDE, metric=metric)
+        run_stream(ueng, queries, stream)              # warm-up
+        t_s, t_u = [], []
+        for _ in range(3):
+            t_u.append(run_stream(ueng, queries, stream)[1])
+            t_s.append(run_stream(seng, queries, stream)[1])
+        rows = seng.stats["queries"] // 4
+        out["engine"] = {"shards": SHARDS, "rows": rows,
+                         "qps": rows / statistics.median(t_s),
+                         "qps_unsharded": rows / statistics.median(t_u),
+                         "qps_turns": [rows / t for t in t_s],
+                         "qps_unsharded_turns": [rows / t for t in t_u]}
+        del ueng
+    secs["engine_qps"] = time.perf_counter() - t_phase - sum(secs.values())
+
+    # mutations through the sharded engine, then rebuild_shard
+    dmi = seng.index
+    rng = np.random.default_rng(seed + 202)
+    sigma = float(pts[::16].std())
+    victims = rng.permutation(n)[:DIST_ROUNDS * DELETE_BATCH]
+    deleted: list[int] = []
+    ins_s = []
+    for r in range(DIST_ROUNDS):
+        new = fresh_points(pts, INSERT_BATCH, rng, sigma, metric)
+        _, t = _timed(dev, lambda: seng.insert(new))
+        ins_s.append(t)
+        batch = victims[r * DELETE_BATCH:(r + 1) * DELETE_BATCH].tolist()
+        seng.delete(batch)
+        deleted += batch
+        serve_pass(seng, queries, stream, np.asarray(deleted), dmi._next_id)
+    spill_cl, spilled = _shard_spill(dmi, SPILL // SHARDS, rng, sigma)
+    owners = set((dmi.side.cluster[dmi.side.valid].cpu().numpy()
+                  // n_local).tolist())
+    if dmi.side_fill < SPILL or owners != set(range(SHARDS)):
+        raise AssertionError(f"dist.{name}: {dmi.side_fill} side points "
+                             f"owned by shards {sorted(owners)}")
+    deleted += _free_in(dmi, spill_cl, SPILL // SHARDS + 10)
+    side_before = dmi.side_fill
+    moved_ids = set(dmi.side.ids[dmi.side.valid].cpu().tolist())
+    # 96 stream queries and 32 spilled points: every shard's side points
+    # are probed
+    q_mut = torch.cat([q128[:96], torch.from_numpy(
+        spilled[::len(spilled) // 32][:32]).to(dev)])
+    fn = dmi.searcher(4, 100, mode="H", metric=metric)
+    s0, i0 = fn(dmi.shards, q_mut, dmi.delta_view())
+    drained, t_rb = [], []
+    for s in range(SHARDS):
+        d, t = _timed(dev, lambda: dmi.rebuild_shard(s))
+        drained.append(d)
+        t_rb.append(t)
+    s1, i1 = fn(dmi.shards, q_mut, dmi.delta_view())
+    rb_changed = _same_but_moved((s0, i0), (s1, i1), moved_ids,
+                                 f"dist.{name} rebuild_shard")
+    serve_pass(seng, queries, stream, np.asarray(deleted), dmi._next_id)
+    out["mutate"] = {"rounds": DIST_ROUNDS, "insert_s": ins_s,
+                     "inserted": DIST_ROUNDS * INSERT_BATCH,
+                     "deleted": len(deleted), "side_before": side_before,
+                     "drained": drained, "side_after": dmi.side_fill,
+                     "rebuild_shard_s": t_rb,
+                     "ids_in_other_order": int((i1 != i0).sum()),
+                     "moved_scores_changed": rb_changed}
+
+    # the spills of the rounds whose clusters stayed full: rebuild()
+    # escalates them to rebuild_index + swap_data, growing the capacity
+    stuck, cap = dmi.side_fill, dmi.shards[0].cluster_codes.shape[1]
+    moved_ids = set(dmi.side.ids[dmi.side.valid].cpu().tolist())
+    before = fn(dmi.shards, q_mut, dmi.delta_view())
+    drained_all, t_full = _timed(dev, dmi.rebuild)
+    if dmi.delta_fill or drained_all != stuck:
+        raise AssertionError(f"dist.{name}: rebuild drained {drained_all} "
+                             f"of {stuck}, {dmi.delta_fill} left")
+    full_changed = _same_but_moved(
+        before, fn(dmi.shards, q_mut, dmi.delta_view()), moved_ids,
+        f"dist.{name} rebuild")
+    out["rebuild"] = {"stuck": stuck, "drained": drained_all,
+                      "capacity": [cap, dmi.shards[0].cluster_codes.shape[1]],
+                      "rebuild_s": t_full,
+                      "moved_scores_changed": full_changed}
+    serve_pass(seng, queries, stream, np.asarray(deleted), dmi._next_id)
+
+    # one lane-scheduled drain with the tiers on
+    dmi.enable_tiers(2)
+    sch = MergeScheduler(dmi, clusters_per_step=32)
+    if sch._lanes != dmi.merge_lanes() or len(sch._lanes) != SHARDS:
+        raise AssertionError(f"dist.{name}: lanes {sch._lanes}")
+    lane_cl, _ = _shard_spill(dmi, SIDE // SHARDS, rng, sigma)
+    promote_l0(dmi)
+    deleted += _free_in(dmi, lane_cl, SIDE // SHARDS + 10)
+    s0, i0 = fn(dmi.shards, q_mut, dmi.delta_view())
+    pending = dmi.delta_fill
+    moved_ids = set(dmi._minors[0].ids[dmi._minors[0].valid].tolist())
+    moved, t_drain = _timed(dev, sch.drain)
+    s1, i1 = fn(dmi.shards, q_mut, dmi.delta_view())
+    if dmi.delta_fill or moved < pending:
+        raise AssertionError(f"dist.{name}: drain moved {moved} of "
+                             f"{pending}, {dmi.delta_fill} left")
+    drain_changed = _same_but_moved((s0, i0), (s1, i1), moved_ids,
+                                    f"dist.{name} lane drain")
+    serve_pass(seng, queries, stream, np.asarray(deleted), dmi._next_id)
+    out["lane_drain"] = {"lanes": len(sch._lanes), "moved": moved,
+                         "steps": sch.stats["steps"], "drain_s": t_drain,
+                         "ids_in_other_order": int((i1 != i0).sum()),
+                         "moved_scores_changed": drain_changed}
+    secs["mutate"] = time.perf_counter() - t_phase - sum(secs.values())
+    out["seconds"] = secs
+    out["launches"] = {"dist": dict(_build.LAUNCHES)}
+    log(f"dist.{name}", **out)
+    return out
+
+
+def _fleet_pass(fleet, queries, stream, **kw) -> tuple[list, float]:
+    """Submit the stream to ``fleet`` and run it: (requests, seconds)."""
+    t0 = time.perf_counter()
+    reqs = [fleet.submit(queries[r["rows"][0]:r["rows"][1]], k=r["k"],
+                         recall_target=r["recall_target"], **kw)
+            for r in stream]
+    fleet.run()
+    return reqs, time.perf_counter() - t0
+
+
+def _fleet_summary(fleet, rows: int, secs: float) -> dict:
+    lat = fleet.latency_summary()
+    return {"qps": rows / secs, "p50_s": lat["p50"], "p99_s": lat["p99"],
+            **{k: lat[k] for k in ("served", "shed", "expired", "rerouted")}}
+
+
+def phase_fleet(name: str, metric: str, index, pts: np.ndarray,
+                queries: np.ndarray, stream, seed: int, store_root: str
+                ) -> dict:
+    """The replica fleet at 1M points on the serve phase's index and
+    stream: 2- and 1-replica fleets bit-equal to one engine, request by
+    request; a 2 × 2 sharded fleet (4 shards on this card) serving the
+    stream, shedding with typed rejections under ``policy="shed"``,
+    unchanged by a ``fail_replica`` mid-stream, and fanning inserts out
+    with identical ids; 2 paged replicas over the paged phase's artifact
+    sharing one cluster cache, bit-equal to the resident engine. Prints
+    QPS, p50/p99 and the admission counters. Raises on the first failed
+    check."""
+    dev = index.ivf.centroids.device
+    n = index.codes.shape[0]
+    rows = sum(r["rows"][1] - r["rows"][0] for r in stream)
+    out = {}
+    _build.reset_launches()
+
+    want, _ = run_stream(AnnServeEngine(index, side_capacity=SIDE,
+                                        metric=metric), queries, stream)
+    for n_rep in (2, 1):
+        fleet = AnnServeFleet(index, n_replicas=n_rep, side_capacity=SIDE,
+                              metric=metric)
+        _fleet_pass(fleet, queries, stream)             # warm-up
+        fleet.reset_metrics()
+        got, t = _fleet_pass(fleet, queries, stream)
+        same_requests([r.inner for r in got], want,
+                      f"fleet.{name} {n_rep} replicas")
+        out[f"replicas_{n_rep}"] = _fleet_summary(fleet, rows, t)
+    del fleet
+
+    # 2 replicas x 2 shards on this card
+    sharded = dict(n_replicas=2, shards_per_replica=2, devices=[dev] * 4,
+                   side_capacity=SIDE, metric=metric)
+    f22 = AnnServeFleet(index, **sharded)
+    _fleet_pass(f22, queries, stream)                   # warm-up
+    f22.reset_metrics()
+    base, t = _fleet_pass(f22, queries, stream)
+    for r in base:
+        check_results(r.ids, r.scores, n, f"fleet.{name} 2x2 {r.rid}")
+    out["sharded_2x2"] = _fleet_summary(f22, rows, t)
+
+    # a replica fails mid-stream: its queued requests move, results hold
+    f22.reset_metrics()
+    reqs = [f22.submit(queries[r["rows"][0]:r["rows"][1]], k=r["k"],
+                       recall_target=r["recall_target"]) for r in stream]
+    for _ in range(3):
+        f22.step()
+    moved = f22.fail_replica(0)
+    f22.run()
+    f22.restore_replica(0)
+    same_requests([r.inner for r in reqs], [r.inner for r in base],
+                  f"fleet.{name} 2x2 failover")
+    if moved <= 0 or not all(r.done for r in reqs):
+        raise AssertionError(f"fleet.{name}: failover moved {moved}")
+    out["failover"] = {"rerouted": f22.stats["rerouted"],
+                       "served": f22.stats["served"]}
+
+    # fan-out inserts: identical ids on every replica (checked inside)
+    new = fresh_points(pts, INSERT_BATCH, np.random.default_rng(seed + 303),
+                       float(pts[::16].std()), metric)
+    ids = f22.insert(new)
+    if not (len(ids) == INSERT_BATCH and len({e.index._next_id
+                                              for e in f22.engines}) == 1):
+        raise AssertionError(f"fleet.{name}: fan-out insert")
+    out["fan_out_inserts"] = len(ids)
+    del f22
+
+    # policy="shed": typed rejections, no exception
+    fshed = AnnServeFleet(index, policy="shed", max_queue=256, **sharded)
+    reqs, t = _fleet_pass(fshed, queries, stream)
+    shed = [r for r in reqs if r.status == "shed"]
+    if not shed or any(r.rejection.reason != "queue_full" for r in shed) \
+            or len(shed) + fshed.stats["served"] != len(stream):
+        raise AssertionError(f"fleet.{name}: shed {len(shed)}")
+    same_requests([r.inner for r in reqs if r.done],
+                  [b.inner for r, b in zip(reqs, base) if r.done],
+                  f"fleet.{name} shed fleet")
+    served_rows = sum(r.queries.shape[0] for r in reqs if r.done)
+    out["shed_policy"] = {"max_queue": 256,
+                          **_fleet_summary(fshed, served_rows, t)}
+    del fshed
+
+    # paged replicas over the paged phase's artifact: one shared cache
+    path = ArtifactStore(os.path.join(store_root, "store")).path("main", 1)
+    pdata = PagedIndexData(path, cache_bytes=index.cluster_codes.numel() // 4,
+                           device=dev)
+    fpaged = AnnServeFleet(pdata, n_replicas=2, side_capacity=SIDE,
+                           metric=metric)
+    if not all(e.index.paged.cache is pdata.cache for e in fpaged.engines):
+        raise AssertionError(f"fleet.{name}: paged replicas' caches differ")
+    got, t = _fleet_pass(fpaged, queries, stream)
+    same_requests([r.inner for r in got], want, f"fleet.{name} paged")
+    st = pdata.stats()
+    out["paged_2"] = {**_fleet_summary(fpaged, rows, t),
+                      **{k: st[k] for k in ("hits", "misses", "evictions")}}
+    del fpaged, pdata
+    out["launches"] = {"fleet": dict(_build.LAUNCHES)}
+    log(f"fleet.{name}", **out)
     return out
 
 
@@ -3270,12 +3811,25 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     mutate = phase_mutate(name, spec.metric, mut, grid, pts, queries, stream,
                           seed)
     lap("mutate")
-    paged = phase_paged(name, spec.metric, cfg, index, grid, pts, queries,
-                        stream, seed)
-    lap("paged")
-    obs = phase_obs(name, spec.metric, cfg, index, grid, pts, queries,
-                    stream, tiers, out_dir)
-    lap("obs")
+    # the paged phase's artifact, served again by the fleet's paged replicas
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    store_root = tempfile.mkdtemp(prefix=f"paged_{name}_",
+                                  dir=os.path.join(REPO, "build"))
+    try:
+        paged = phase_paged(name, spec.metric, cfg, index, grid, pts,
+                            queries, stream, seed, store_root)
+        lap("paged")
+        obs = phase_obs(name, spec.metric, cfg, index, grid, pts, queries,
+                        stream, tiers, out_dir)
+        lap("obs")
+        dist = phase_dist(name, spec.metric, index, grid, pts, queries,
+                          stream, tiers, seed)
+        lap("dist")
+        fleet = phase_fleet(name, spec.metric, index, pts, queries, stream,
+                            seed, store_root)
+        lap("fleet")
+    finally:
+        shutil.rmtree(store_root, ignore_errors=True)
     pipeline = (phase_pipeline(cfg, index, pts, queries, stream, seed)
                 if name == "l2" else None)
     lap("pipeline")
@@ -3286,7 +3840,8 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
            "hit_count_pass": hit_rows, "pq_scan_pass": pq_rows,
            "engines": engines, "tiers": tiers,
            "tiers_rt": rt_tiers, "mutate": mutate, "paged": paged,
-           "obs": obs, "pipeline": pipeline, "phase_s": phase_s,
+           "obs": obs, "dist": dist, "fleet": fleet, "pipeline": pipeline,
+           "phase_s": phase_s,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": card}
     del index, mut, grid
@@ -3303,7 +3858,8 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
                            for e in s["engines"].values())
                   + sum(s["mutate"]["launches"][key]
                         + s["paged"]["launches"][key] for s in serves)
-                  + sum(ls[key] for s in serves for ph in ("obs", "pipeline")
+                  + sum(ls[key] for s in serves
+                        for ph in ("obs", "dist", "fleet", "pipeline")
                         if s[ph] for ls in s[ph]["launches"].values())
                   for key in ENTRIES.get(name, (name,))}
         line.append({

@@ -17,8 +17,11 @@ routing); the mutable index (side buffer, insert/delete/compact, the LSM
 freshness tiers, the online rebuild and hot swap); the offline build and
 the streaming (out-of-core) build (``build/pipeline.py``), the artifact
 store, the serving engine in both its configurations (``fused=False``
-and ``fused=True``) with its mutation plane, the paged tier, and
+and ``fused=True``) with its mutation plane, the paged tier,
 observability (``obs/``: metrics, spans, JSONL export, the online recall
-probe). See ROADMAP.md for what is still to come.
+probe), the cluster-sharded index (``dist/``: one ``torch.device`` a
+shard, searched in one process and merged exactly) and the replica fleet
+(``serve/fleet.py``: routing, admission, failover, fan-out writes,
+sharded and paged replicas). See ROADMAP.md for what is still to come.
 """
 from .device import resolve_device  # noqa: F401

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.juno import JunoIndexData, MutableJunoIndex
+from ..core.juno import JunoIndexData, MutableIndexBase
 from ..core.pq import PQCodebook, decode
 
 
@@ -30,8 +30,9 @@ def _reconstructed_sq(centroids: np.ndarray, codebook: PQCodebook,
     return np.sum(pts * pts, axis=-1).astype(np.float32)
 
 
-def live_points(mid: MutableJunoIndex, point_ids: np.ndarray,
-                valid: np.ndarray, cluster_codes: np.ndarray
+def live_points(mid: MutableIndexBase, point_ids: np.ndarray,
+                valid: np.ndarray, cluster_codes: np.ndarray,
+                clusters: range | None = None
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Every live point of a mutable index, in repack order.
 
@@ -43,28 +44,38 @@ def live_points(mid: MutableJunoIndex, point_ids: np.ndarray,
 
     Parameters
     ----------
-    mid : MutableJunoIndex
+    mid : MutableIndexBase
         The live index (supplies the delta tiers).
     point_ids, valid, cluster_codes : np.ndarray
-        Host snapshots of the padded storage ((C, P), (C, P), (C, P, S)).
+        Host snapshots of the padded storage ((C, P), (C, P), (C, P, S)),
+        of every cluster, or with ``clusters`` of those clusters' rows
+        only (row r is cluster ``clusters.start + r``).
+    clusters : range, optional
+        Only the points of these clusters: a per-shard rebuild repacks its
+        own range from its own rows. Default every cluster.
 
     Returns
     -------
     tuple of np.ndarray
         ``(clusters (L,) int64, ids (L,) int32, codes (L, S) uint8)``,
-        grouped by cluster in repack order.
+        grouped by cluster in repack order; clusters are global ids.
     """
     cs, ss = np.nonzero(valid)
     d_valid, d_cluster, d_ids, d_codes = mid.delta_snapshot()
     pos = np.flatnonzero(d_valid)
-    clusters = np.concatenate([cs, d_cluster[pos].astype(np.int64)])
+    first = 0
+    if clusters is not None:
+        first = clusters.start
+        dc = d_cluster[pos]
+        pos = pos[(dc >= clusters.start) & (dc < clusters.stop)]
+    out_cl = np.concatenate([cs + first, d_cluster[pos].astype(np.int64)])
     ids = np.concatenate([point_ids[cs, ss], d_ids[pos]]).astype(np.int32)
     codes = np.concatenate([cluster_codes[cs, ss], d_codes[pos]])
-    order = np.argsort(clusters, kind="stable")
-    return clusters[order], ids[order], codes[order]
+    order = np.argsort(out_cl, kind="stable")
+    return out_cl[order], ids[order], codes[order]
 
 
-def rebuild_index(mid: MutableJunoIndex) -> JunoIndexData:
+def rebuild_index(mid: MutableIndexBase) -> JunoIndexData:
     """Re-pack a mutable index's live state into a fresh immutable index.
 
     Centroids, codebooks and the density model carry over (inserts were
@@ -79,8 +90,9 @@ def rebuild_index(mid: MutableJunoIndex) -> JunoIndexData:
 
     Parameters
     ----------
-    mid : MutableJunoIndex
-        A :class:`~repro_torch.core.juno.MutableJunoIndex`.
+    mid : MutableIndexBase
+        A :class:`~repro_torch.core.juno.MutableJunoIndex`, or the
+        distributed index (``dist/``), whose ``data`` is its global view.
 
     Returns
     -------

@@ -175,6 +175,9 @@ class MergeScheduler:
     slots (``compact()``), promote a full L0 into a minor generation when
     one is open, and fold up to ``clusters_per_step`` clusters of the
     oldest minor generations into the base (``build.merge.fold_step``).
+    An index with a ``merge_lanes()`` hook (the distributed index: one
+    cluster range a shard) has its folds scheduled one lane a step,
+    round-robin, so each fold writes one shard.
     """
 
     def __init__(self, index, *, clusters_per_step: int = 32,
@@ -195,6 +198,10 @@ class MergeScheduler:
         """
         self.index = index
         self.clusters_per_step = int(clusters_per_step)
+        lanes = getattr(index, "merge_lanes", None)
+        #: the fold lanes, ``(lo, hi)`` cluster ranges (``None``: all)
+        self._lanes: list = list(lanes()) if callable(lanes) else [None]
+        self._lane_i = 0
         self.stats = {"steps": 0, "promotions": 0, "folded": 0,
                       "compacted": 0, "drains": 0}
         self.registry = registry
@@ -233,7 +240,10 @@ class MergeScheduler:
             moved += idx.side_fill
             promote_l0(idx)
             self.stats["promotions"] += 1
-        folded = fold_step(idx, max_clusters=self.clusters_per_step)
+        lane = self._lanes[self._lane_i]
+        self._lane_i = (self._lane_i + 1) % len(self._lanes)
+        folded = fold_step(idx, max_clusters=self.clusters_per_step,
+                           lane=lane)
         self.stats["folded"] += folded
         self.stats["steps"] += 1
         if self.registry is not None:
@@ -254,13 +264,13 @@ class MergeScheduler:
         reg.gauge("juno_merge_delta_rows").set(self.pending)
 
     def drain(self, max_rounds: int = 10_000) -> int:
-        """Run merge steps until one moves nothing; then promote a stuck
-        non-empty L0 when a minor slot is open, and go on. Returns the
-        points moved between tiers."""
+        """Run rounds of one merge step a lane until a round moves nothing;
+        then promote a stuck non-empty L0 when a minor slot is open, and go
+        on. Returns the points moved between tiers."""
         t0 = time.perf_counter()
         total = 0
         for _ in range(max_rounds):
-            progress = self.step()
+            progress = sum(self.step() for _ in self._lanes)
             if progress == 0:
                 if self.index.side_fill and self._can_promote():
                     total += self.index.side_fill

@@ -376,14 +376,18 @@ def _stage_b(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
 
 
 def _rt_probe(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
-              tau: torch.Tensor, cids: torch.Tensor, rt_scale: float):
+              tau: torch.Tensor, cids: torch.Tensor, rt_scale: float,
+              rt_offset: int | None = None):
     """Stage-1 spatial pruning: the projection GEMM, then one
     ``ops.rt_probe_mask`` call: two kernels on the card.
 
     The radius comes from the probe-0 row of the thresholds ``tau``
     (Q, np, S) the search already computed; each probed cluster is tested
     at its grid slot. Probe 0 is always kept, so a query whose disc misses
-    everything degrades to an nprobe-1 search. Returns ``(qp (Q, 2),
+    everything degrades to an nprobe-1 search. On a shard of a
+    cluster-sharded index (``dist/``) ``cids`` are the shard's local ids
+    and the grid is global: it is looked up at ``cids + rt_offset`` (the
+    shard's first global cluster id). Returns ``(qp (Q, 2),
     probe_ok (Q, np) bool, radius (Q,), slot (Q, np) int32)``: the
     three-stage scan reads the projection, the radius and the probed slots.
     """
@@ -392,8 +396,9 @@ def _rt_probe(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
     # GEMM and a reduce kernel (on the H100, Q 8 to 4096, D 96 and 200)
     nq = q.shape[0]
     qp = torch.bmm(q[:, None, :], rt_grid.proj.expand(nq, -1, -1))[:, 0]
+    gcids = cids if rt_offset is None else cids + rt_offset
     probe_ok, radius, slot = ops.rt_probe_mask(
-        qp[:, 0], qp[:, 1], tau[:, 0], cids, rt_grid.slot_of,
+        qp[:, 0], qp[:, 1], tau[:, 0], gcids, rt_grid.slot_of,
         rt_grid.cell_c0, rt_grid.cell_c1, rt_grid.slot_reach,
         rt_grid.radius_scale, rt_grid.radius_bias, scale=rt_scale)
     return qp, probe_ok, radius, slot
@@ -401,10 +406,11 @@ def _rt_probe(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
 
 def _rt_probe_mask(rt_grid: rt_lib.CentroidGrid, q: torch.Tensor,
                    tau: torch.Tensor, cids: torch.Tensor,
-                   rt_scale: float) -> torch.Tensor:
+                   rt_scale: float, rt_offset: int | None = None
+                   ) -> torch.Tensor:
     """Which probed clusters survive the RT test (:func:`_rt_probe`):
     (Q, np) bool, probe 0 always True."""
-    return _rt_probe(rt_grid, q, tau, cids, rt_scale)[1]
+    return _rt_probe(rt_grid, q, tau, cids, rt_scale, rt_offset)[1]
 
 
 def _top_k(scores: torch.Tensor, k: int, higher_better: bool
@@ -422,7 +428,8 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
                   thres_scale: float, side: SideBuffer | None = None,
                   prefilter: str = "scan",
                   rt_grid: rt_lib.CentroidGrid | None = None,
-                  rt_scale: float = 1.0, view=None
+                  rt_scale: float = 1.0, view=None,
+                  rt_offset: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Modes "H", "M" and "L": τ, stage B and a scan of every probed point.
 
@@ -442,7 +449,7 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
     mlut, table, probe_base, tau = _stage_b(index, q, base, cids,
                                             metric=metric,
                                             thres_scale=thres_scale)
-    probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
+    probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale, rt_offset)
                 if prefilter == "rt" else None)
     codes, valid, scan_cids = _scan_view(index, cids, view)
     p = codes.shape[1]
@@ -483,10 +490,13 @@ def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
                   thres_scale: float, side: SideBuffer | None = None,
                   prefilter: str = "scan",
                   rt_grid: rt_lib.CentroidGrid | None = None,
-                  rt_scale: float = 1.0, gather=None):
+                  rt_scale: float = 1.0, gather=None,
+                  rt_offset: int | None = None):
     """One query batch of mode "H", "M" or "L": stage A, then
     :func:`_score_probed` (over ``gather(cids)``'s scan view when
-    ``gather`` is given). Returns (scores (Q, k) f32, ids (Q, k) int32).
+    ``gather`` is given; on a shard, the rt grid looked up at
+    ``cids + rt_offset``, :func:`_rt_probe`). Returns (scores (Q, k) f32,
+    ids (Q, k) int32).
     """
     q = queries.float()
     base, cids = filter_clusters(q, index.ivf, nprobe=nprobe, metric=metric)
@@ -494,7 +504,8 @@ def _search_batch(index: JunoIndexData, queries: torch.Tensor, *,
                          thres_scale=thres_scale, side=side,
                          prefilter=prefilter, rt_grid=rt_grid,
                          rt_scale=rt_scale,
-                         view=None if gather is None else gather(cids))
+                         view=None if gather is None else gather(cids),
+                         rt_offset=rt_offset)
 
 
 def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
@@ -504,7 +515,8 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                             side: SideBuffer | None = None,
                             prefilter: str = "scan",
                             rt_grid: rt_lib.CentroidGrid | None = None,
-                            rt_scale: float = 1.0, view=None
+                            rt_scale: float = 1.0, view=None,
+                            rt_offset: int | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mode "H2": τ, stage B, hit-count prefilter → top-C → masked ADC.
 
@@ -535,7 +547,7 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                                             metric=metric,
                                             thres_scale=thres_scale)
     use_fused3 = fused and prefilter == "rt" and fused3 is not False
-    probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale)
+    probe_ok = (_rt_probe_mask(rt_grid, q, tau, cids, rt_scale, rt_offset)
                 if prefilter == "rt" and not use_fused3 else None)
     codes, valid, scan_cids = _scan_view(index, cids, view)
     p = codes.shape[1]
@@ -543,7 +555,7 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
     if fused:
         if use_fused3:
             qp2, _, radius, slot = _rt_probe(rt_grid, q, tau, cids,
-                                             rt_scale)
+                                             rt_scale, rt_offset)
             _, _, cand, exact, probe_ok = ops.fused_three_stage_scan(
                 mlut, table, codes, valid, scan_cids, qp2[:, 0], qp2[:, 1],
                 radius, rt_grid.cell_c0, rt_grid.cell_c1, rt_grid.slot_reach,
@@ -595,9 +607,11 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
                             side: SideBuffer | None = None,
                             prefilter: str = "scan",
                             rt_grid: rt_lib.CentroidGrid | None = None,
-                            rt_scale: float = 1.0, gather=None):
+                            rt_scale: float = 1.0, gather=None,
+                            rt_offset: int | None = None):
     """One query batch of mode "H2": stage A, then the two-stage tail (over
-    ``gather(cids)``'s scan view when ``gather`` is given).
+    ``gather(cids)``'s scan view when ``gather`` is given; on a shard, the
+    rt grid looked up at ``cids + rt_offset``, :func:`_rt_probe`).
 
     Returns (scores (Q, k) f32, ids (Q, k) int32).
     """
@@ -607,7 +621,7 @@ def _search_batch_two_stage(index: JunoIndexData, queries: torch.Tensor, *,
         index, q, base, cids, k=k, metric=metric, thres_scale=thres_scale,
         rerank=rerank, fused=fused, fused3=fused3, side=side,
         prefilter=prefilter, rt_grid=rt_grid, rt_scale=rt_scale,
-        view=None if gather is None else gather(cids))
+        view=None if gather is None else gather(cids), rt_offset=rt_offset)
 
 
 def search(index: JunoIndexData, queries, *, nprobe: int = 16, k: int = 100,
@@ -874,6 +888,18 @@ class MutableIndexBase:
             self._minor_sink = (minor_store, minor_name)
         self._delta_cache = None
         self._delta_epoch += 1
+
+    @property
+    def n_clusters(self) -> int:
+        """Clusters of the served index (``data``'s, unless a subclass
+        knows them without building it)."""
+        return int(self.data.ivf.centroids.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        """Where a search's queries go (``data``'s device, unless a
+        subclass says otherwise)."""
+        return self.data.ivf.centroids.device
 
     @property
     def delta_fill(self) -> int:

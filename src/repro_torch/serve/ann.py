@@ -286,8 +286,11 @@ class AnnServeEngine:
                         grid, self.index.data), muts)
                 with self._span("engine.rt_probe", trace_id=str(req.rid),
                                 rows=req.queries.shape[0]):
+                    # the routing state holds all that the budget reads
+                    # of the index: ``data`` is read once an epoch (a
+                    # sharded index builds it on the host at each read)
                     req.rt_probes = int(rt_lib.probe_budget(
-                        grid, self.index.data, req.queries,
+                        grid, None, req.queries,
                         metric=self.metric, scale=self.rt_scale,
                         thres_scale=self.thres_scale, max_probes=nprobe,
                         state=self._rt_state[1]).max())
@@ -296,7 +299,7 @@ class AnnServeEngine:
                            if b >= max(req.rt_probes, 1)),
                           self.RT_NPROBE_BUCKETS[-1])
             nprobe = min(nprobe, shrunk)
-        return k, mode, min(nprobe, self.index.data.ivf.centroids.shape[0])
+        return k, mode, min(nprobe, self.index.n_clusters)
 
     def step(self) -> int:
         """Serve one signature group. Returns the number of query rows."""
@@ -331,7 +334,7 @@ class AnnServeEngine:
 
         k, mode, nprobe = sig
         batch = np.concatenate([r.queries for r in picked], axis=0)
-        dev = self.index.data.ivf.centroids.device
+        dev = self.index.device
         # an empty delta tier is left out of the search; with the tiers on
         # this is the fixed-capacity L0 ⊕ minors view
         side = self.index.delta_view()

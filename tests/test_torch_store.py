@@ -357,7 +357,9 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "walked = {n for n in sys.modules if n.startswith('repro_torch')}\n"
         "assert {'repro_torch.obs', 'repro_torch.obs.recall',\n"
-        "        'repro_torch.build.pipeline'} <= walked, walked\n"
+        "        'repro_torch.build.pipeline',\n"
+        "        'repro_torch.dist.distributed_index',\n"
+        "        'repro_torch.serve.fleet'} <= walked, walked\n"
         "print(len(walked))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
