@@ -8,6 +8,7 @@
     python3 bench_stage_a.py --hit-count --calls FILE [--src DIR] [--label NAME]
     python3 bench_stage_a.py --pq-scan [--calls FILE] [--src DIR] [--label NAME]
     python3 bench_stage_a.py --sphere [--src DIR] [--label NAME]
+    python3 bench_stage_a.py --build [--src DIR] [--label NAME]
     python3 bench_stage_a.py --kernels
     python3 bench_stage_a.py --phases
     python3 bench_stage_a.py --traces TRACE.json.gz ...
@@ -38,6 +39,11 @@ not a library call); then ``ops.build_selective_lut`` as
 ``core/juno.py:_stage_b`` calls it (Q = 128, nprobe 8 and 16; l2 residuals
 at D = 96, ip's ``qsub`` expanded over the probes at D = 200), with
 ``device_ms``, ``host_ms`` and ``kernels``.
+
+With ``--build`` it times the tree's kernel build instead: each source of
+``_build.SOURCES`` compiled alone, one ``nvcc`` at a time (the flags of
+``_build.NVCC_FLAGS``, into a temporary directory, so nothing cached is
+reused), with its seconds.
 
 With ``--stage-c`` it times stage C's fused scans instead, for the tree
 of ``--src`` (two trees in turns as above): ``ops.fused_two_stage_scan``
@@ -997,6 +1003,23 @@ def b_to_scan(events: list[dict]) -> dict:
             "kernels_max": max(counts, default=None), "ms": total}
 
 
+def build_seconds(card: str, label: str) -> None:
+    """Each kernel source of the tree compiled alone, one at a time: the
+    seconds of its ``nvcc``."""
+    import tempfile
+    from repro_torch.kernels import _build
+    for name in _build.SOURCES:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                            os.path.join(tmp, f"lib{name}.so"),
+                            str(_build.CSRC / f"{name}.cu")],
+                           check=True, capture_output=True, timeout=600)
+            secs = time.perf_counter() - t0
+        print(json.dumps({"label": label, "what": "nvcc", "source": name,
+                          "seconds": secs, "card": card}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(
@@ -1015,6 +1038,9 @@ def main() -> int:
                          "instead")
     ap.add_argument("--sphere", action="store_true",
                     help="time the rt search's probe mask of this tree "
+                         "instead")
+    ap.add_argument("--build", action="store_true",
+                    help="time each kernel source's nvcc build of this tree "
                          "instead")
     ap.add_argument("--calls", metavar="FILE",
                     help="with --hit-count or --pq-scan: replay the engine "
@@ -1038,10 +1064,13 @@ def main() -> int:
     from repro_torch.core.juno import _label_encode
     from repro_torch.core.pq import PQCodebook
     from repro_torch.kernels import _build
-    _build.build_all()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
+    if args.build:
+        build_seconds(card, args.label)
+        return 0
+    _build.build_all()
     if args.stage_b:
         stage_b(card, args.label, args.reps)
         return 0

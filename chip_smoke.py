@@ -66,7 +66,13 @@ Phases, each raising on failure:
    radius gathered at the slots), at np 16 and 8, S 48 and 100, Q 128, 32
    and 8, scale 1, 0 and 1e6, each with the launch floor (an empty kernel
    on its grid, timed the same way) and one kernel a call by capture;
-   then its dense entry at caps 64 and 32;
+   then its dense entry at caps 64 and 32; then ``autotune.lattice``: the
+   six launch shapes of the two-stage core (``kernels/autotune.py``) for
+   both fused scans at l2 S 48 and ip S 100, Q 128, 32 and 8 (np 16, P
+   3912, C 320), each bit-equal to the default launch, its median ms, its
+   ratio to the default's and the winner; ``autotune.cache``:
+   ``ensure_tuned`` on the card writes its cache, installs it again
+   without measuring and refuses it once the kernels' tag changes;
 4. l2 serving — a 1M-point DEEP-like index (D=96, S=48, E=256, C=1024)
    and its RT centroid grid built on the card (then ``sphere_hits``'s probe
    entry on that grid at Q 128, np 16 and 8, as the search calls it: equal
@@ -92,6 +98,11 @@ Phases, each raising on failure:
    ``pq_scan`` row (every call bit-equal to the route before the top-k
    kernels and close to plain; device ms, select- and merge-kernel ms,
    ``scan_sort_ms`` and the bound, summed over the pass); then
+   ``autotune.l2``: every fused scan call of a fused and an rt fused pass
+   replayed at the other five launch shapes, bit-equal, and the four
+   engines with the tuned configs installed, and with the lattice's last
+   shape, bit-equal to the untuned engines request by request with the
+   same signatures and exactly their kernels launched; then
    per tier (H, fused H2, composed H2, M, L; under rt fused H2 is the
    three-stage kernel)
    recall@10-in-100 against ``exact_topk`` and QPS, composed H2 against
@@ -180,13 +191,25 @@ Phases, each raising on failure:
    sharing one cluster cache, bit-equal to the resident engine; each
    fleet's QPS, p50/p99 and shed/expired/rerouted counts;
 5. ip serving — the same with a 1M-point TTI-like index (D=200, S=100),
-   then ``mutate.ip``, ``paged.ip``, ``obs.ip``, ``dist.ip`` and
-   ``fleet.ip``;
-6. the kernel line, then the card line, then the result line. A
+   then ``autotune.ip``, ``mutate.ip``, ``paged.ip``, ``obs.ip``,
+   ``dist.ip`` and ``fleet.ip``;
+6. ``attn.phi4_mini`` — JUNO-attention (``repro_torch.models``, plain
+   PyTorch: the reference reaches no kernel there) at phi4-mini-3.8b's
+   full attention shape at decode_32k (B 4, S 32,768, 24 query heads on 8
+   KV heads of 128 dims) over synthetic bf16 caches: the index's build
+   seconds, ``encode_step``'s ms, a decode step's ms at top_c 256, 512
+   and 1024 beside exact attention and ``scaled_dot_product_attention``,
+   rel_err and cosine against exact attention in f32, top_c = S equal to
+   exact attention, a 2-KV-head slice redone on the CPU (the k-means from
+   the card's init draws: codebooks within 1e-2, every differing code a
+   near-tie; the top-C positions equal up to score ties and the output
+   within 4 bf16 ulps), and ``traffic_model``'s bytes;
+7. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes, the ``mutate`` rounds, the first
    pass of each paged engine, the ``obs`` passes, the ``dist`` and
-   ``fleet`` phases and the ``pipeline`` builds and 10M engine passes
+   ``fleet`` phases, the ``autotune`` engines' configured passes and the
+   ``pipeline`` builds and 10M engine passes
    (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
@@ -244,6 +267,7 @@ from repro_torch.data import (DEEP_LIKE, TTI_LIKE, make_dataset,  # noqa: E402
 from repro_torch.dist import (DistributedMutableIndex,  # noqa: E402
                               make_distributed_search, shard_index)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels import fused_three_stage as f3s  # noqa: E402
 from repro_torch.kernels import fused_two_stage as fts  # noqa: E402
 from repro_torch.kernels import hit_count as hc  # noqa: E402
@@ -253,6 +277,11 @@ from repro_torch.kernels import pq_scan as pqs  # noqa: E402
 from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
 from repro_torch.kernels.ref import NEG  # noqa: E402
+from repro_torch.models import (build_kv_index, draw_kv_init,  # noqa: E402
+                                encode_step, juno_decode_attention,
+                                kv_index_from_arrays, traffic_model)
+from repro_torch.models.juno_attention import (_approx_scores,  # noqa: E402
+                                               _top_positions)
 from repro_torch.obs import (MetricsRegistry, Observability,  # noqa: E402
                              RecallProbe, Tracer, to_events, validate_events,
                              write_jsonl)
@@ -3445,6 +3474,430 @@ def phase_fleet(name: str, metric: str, index, pts: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# autotune and JUNO-attention phases
+# ---------------------------------------------------------------------------
+TUNE_Q = (128, 32, 8)          # the engine's batch buckets
+TUNE_SHAPES = (("l2", 48), ("ip", 100))   # the two indexes' S
+TUNE_REPEATS = 20
+
+
+def phase_autotune(seed: int) -> dict:
+    """``autotune.lattice`` rows: the two fused scans' launch lattice at
+    the indexes' shapes (np 16, P 3912, E 256, C 320, 1024 clusters with
+    their valid slots at the front: ``autotune.synthetic_problem``), l2 S 48
+    and ip S 100, Q 128, 32 and 8: each shape's outputs bit-equal to the
+    default launch's, its median ms (``autotune.measure``: CUDA events, the
+    stream asleep before each call, a warm-up and 20 calls), its ratio to
+    the default's and the winner. Then ``autotune.cache``: ``ensure_tuned``
+    on the card on its own problem (the engines' shape at P 1024) writes
+    the cache, a second call installs it without measuring, and the cache
+    with its kernels' tag changed is refused, then retuned and rewritten.
+    Returns the rows and the tuned configs, which the engines' check
+    installs."""
+    dev = torch.device("cuda")
+    backend = autotune.backend_name(dev)
+    shapes = autotune.candidates(backend)
+    rows = []
+    for kernel in autotune.KERNELS:
+        for metric, s in TUNE_SHAPES:
+            for q in TUNE_Q:
+                prob = autotune.synthetic_problem(
+                    kernel, q=q, p=3912, s=s, signed=metric == "ip",
+                    device=dev, seed=seed)
+                what = f"autotune {kernel} {metric} S={s} Q={q}"
+                base = autotune.run_fn(kernel, shapes[0], prob,
+                                       metric=metric)()
+                for cfg in shapes[1:]:
+                    got = autotune.run_fn(kernel, cfg, prob, metric=metric)()
+                    if not all(torch.equal(a, b) for a, b in zip(got, base)):
+                        raise AssertionError(f"{what}: {cfg.launch()} "
+                                             f"differs from the default")
+                timed = autotune.measure(kernel, repeats=TUNE_REPEATS,
+                                         problem=prob, metric=metric)
+                win = autotune.winner(timed)
+                default_ms = timed[0][1]
+                row = {"kernel": kernel, "metric": metric, "S": s, "Q": q,
+                       "np": 16, "P": 3912, "E": 256, "C": 320,
+                       "bit_equal_shapes": len(shapes) - 1,
+                       "default_ms": default_ms, "winner": win.launch(),
+                       "winner_ms": dict(timed)[win],
+                       "winner_over_default": dict(timed)[win] / default_ms,
+                       "candidates": [dict(**cfg.launch(), ms=ms,
+                                           ratio=ms / default_ms)
+                                      for cfg, ms in timed]}
+                log("autotune.lattice", **row)
+                rows.append(row)
+                del prob, base
+    torch.cuda.empty_cache()
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="autotune_", dir=os.path.join(REPO, "build"))
+    real_tune = autotune.tune
+    try:
+        path = os.path.join(tmp, "autotune.json")
+        autotune.reset()
+        t0 = time.perf_counter()
+        tuned = autotune.ensure_tuned(path, repeats=TUNE_REPEATS, device=dev)
+        tune_s = time.perf_counter() - t0
+        if autotune.load_cache(path, backend=backend) != tuned:
+            raise AssertionError("autotune: the cache does not read back")
+
+        def no_tune(*a, **kw):
+            raise AssertionError("ensure_tuned measured despite a valid cache")
+        autotune.tune = no_tune
+        t0 = time.perf_counter()
+        again = autotune.ensure_tuned(path, device=dev)
+        hit_s = time.perf_counter() - t0
+        autotune.tune = real_tune
+        if again != tuned:
+            raise AssertionError("autotune: the cache hit installed another "
+                                 "config")
+        with open(path) as fh:
+            doc = json.load(fh)
+        doc["kernels"] += "-changed"
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+        if autotune.load_cache(path, backend=backend) is not None:
+            raise AssertionError("autotune: a cache of another build loaded")
+        retuned = autotune.ensure_tuned(path, repeats=TUNE_REPEATS,
+                                        device=dev)
+        if autotune.load_cache(path, backend=backend) != retuned:
+            raise AssertionError("autotune: the retuned cache does not read "
+                                 "back")
+    finally:
+        autotune.tune = real_tune
+        autotune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cache = {"backend": backend, "kernels_tag": autotune.kernels_tag(),
+             "tuned": {k: v.launch() for k, v in tuned.items()},
+             "ensure_tuned_s": tune_s, "cache_hit_s": hit_s,
+             "changed_tag_refused": True,
+             "retuned": {k: v.launch() for k, v in retuned.items()}}
+    log("autotune.cache", **cache)
+    return {"rows": rows, "cache": cache, "tuned": tuned}
+
+
+class LatticeReplay:
+    """Within ``with``: every ``ops.<kernel>_scan`` call the searches make
+    runs again at each other launch shape of the lattice (installed with
+    ``autotune.set_config``, so through ``ops``' own dispatch), each held
+    bit-equal to the default launch's outputs (counts, dist, cand,
+    cand_dist, and ``probe_ok`` for the three-stage scan)."""
+
+    def __init__(self, kernel: str, shapes: list):
+        self.kernel, self.shapes, self.calls = kernel, shapes, 0
+        self._name = f"{kernel}_scan"
+
+    def __enter__(self):
+        self._fn = getattr(ops, self._name)
+
+        def replayed(*args, **kw):
+            want = self._fn(*args, **kw)
+            for cfg in self.shapes[1:]:
+                autotune.set_config(self.kernel, cfg)
+                try:
+                    got = self._fn(*args, **kw)
+                finally:
+                    autotune.reset()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{self._name}: {cfg.launch()} "
+                                         f"differs from the default launch")
+            self.calls += 1
+            return want
+        setattr(ops, self._name, replayed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(ops, self._name, self._fn)
+
+
+def autotune_engines(name: str, metric: str, mut, grid, queries, stream,
+                     tuned: dict) -> dict:
+    """``autotune.<index>``: (1) one pass of the fused and of the rt fused
+    engine on the 1M index with every fused scan call replayed at each
+    other launch shape (``LatticeReplay``: bit-equal to the default's);
+    (2) the four engines (fused or not, scan or rt) served untuned, with
+    the tuned configs installed, and with the lattice's last shape
+    installed for both kernels (so a non-default launch runs even where
+    the default won): each configured pass's ids and scores bit-equal to
+    the untuned pass's, request by request, its signatures equal, and its
+    launches (counts set to 0 just before it) exactly its configuration's
+    kernels."""
+    dev = torch.device("cuda")
+    shapes = autotune.candidates(autotune.backend_name(dev))
+    installs = {"tuned": tuned,
+                "last_shape": {k: shapes[-1] for k in autotune.KERNELS}}
+    out = {"replayed_calls": {}, "engines": {}, "launches": {},
+           "installs": {k: {kk: c.launch() for kk, c in v.items()}
+                        for k, v in installs.items()}}
+    for label, g, kernel in (("fused", None, "fused_two_stage"),
+                             ("rt_fused", grid, "fused_three_stage")):
+        eng = AnnServeEngine(mut, metric=metric, fused=True,
+                             prefilter="scan" if g is None else "rt",
+                             rt_grid=g)
+        with LatticeReplay(kernel, shapes) as rep:
+            run_stream(eng, queries, stream)
+        if rep.calls == 0:
+            raise AssertionError(f"autotune.{name} {label}: no {kernel} call")
+        out["replayed_calls"][label] = rep.calls
+    for label, fused, g in (("fused", True, None), ("unfused", False, None),
+                            ("rt_fused", True, grid),
+                            ("rt_unfused", False, grid)):
+        pf = "scan" if g is None else "rt"
+        kw = dict(metric=metric, fused=fused, prefilter=pf, rt_grid=g)
+        autotune.reset()
+        base_eng = AnnServeEngine(mut, **kw)
+        want, t_base = run_stream(base_eng, queries, stream)
+        row = {"untuned_s": t_base}
+        for install, configs in installs.items():
+            for kernel, cfg in configs.items():
+                autotune.set_config(kernel, cfg)
+            try:
+                eng = AnnServeEngine(mut, **kw)
+                _build.reset_launches()
+                got, t = run_stream(eng, queries, stream)
+                launches = dict(_build.LAUNCHES)
+            finally:
+                autotune.reset()
+            what = f"autotune.{name} {label} {install}"
+            same_requests(got, want, what)
+            if eng.stats["signatures"] != base_eng.stats["signatures"]:
+                raise AssertionError(f"{what}: signatures "
+                                     f"{dict(eng.stats['signatures'])} vs "
+                                     f"{dict(base_eng.stats['signatures'])}")
+            must = ENGINE_KERNELS[(pf, fused)]
+            if any(launches[n] <= 0 for n in must) or \
+                    any(launches[n] != 0 for n in set(launches) - must):
+                raise AssertionError(f"{what}: launches {launches}, expected "
+                                     f"exactly {sorted(must)}")
+            row[f"{install}_s"] = t
+            out["launches"][f"{label}.{install}"] = launches
+        row["signatures"] = len(base_eng.stats["signatures"])
+        out["engines"][label] = row
+    log(f"autotune.{name}", **out)
+    return out
+
+
+# phi4-mini-3.8b FULL's attention (configs/phi4_mini_3_8b.py: 24 query heads
+# on 8 KV heads, head_dim 3072 / 24) at decode_32k (launch/shapes.py), B 4
+ATTN = dict(batch=4, seq=32_768, heads=24, kv_heads=8, head_dim=128,
+            entries=16)
+ATTN_TOP_C = (256, 512, 1024)
+ATTN_Q_SCALE = 4.0      # q ~ N(0, 16): a peaked softmax over 32k positions
+ATTN_TOL = 2.0 ** -6    # 4 bf16 ulps at 1: two bf16 paths' outputs
+# the 2-KV-head slice's k-means on the CPU against the card's, from the same
+# init draws: f32 sums in another order (index_add_'s atomics on the card)
+# move a codebook entry by ~1e-6 an iteration, and a key that changes sides
+# at a near-tie moves two entries by |x - c| / n, up to ~1e-3 in an outer
+# cluster of a few thousand keys (2.8e-4 measured on an H100); an init,
+# subspace or head mix-up moves entries by 1e-1 and more
+ATTN_KMEANS_TOL = 1e-2
+ATTN_TIE_RTOL = 1e-5    # approximate scores this close count as a tie
+
+
+def exact_attention(q, k, v, pos, dtype=None):
+    """One decode step of plain softmax attention over every valid
+    position (0..pos[b]), GQA, in the caches' layout: q (B, 1, H, hd),
+    k/v (B, S, KVH, hd). In the caches' dtype with the q·k product cast to
+    f32, as JUNO-attention computes it; with ``dtype`` every input is cast
+    to it first (float32: the truth both bf16 paths are held to)."""
+    if dtype is not None:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    b, _, hq, hd = q.shape
+    s, h = k.shape[1], k.shape[2]
+    qg = q[:, 0].reshape(b, h, hq // h, hd)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k).float() / (hd ** 0.5)
+    valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~valid[:, None, None], -1e30)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhgs,bshd->bhgd", w, v).reshape(b, 1, hq, hd)
+
+
+def sdpa_attention(q, k, v, pos):
+    """The library yardstick: one ``scaled_dot_product_attention`` call
+    (GQA, a boolean mask of the valid positions) on the same inputs."""
+    s = k.shape[1]
+    valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=valid[:, None, None, :], enable_gqa=True)
+    return o.transpose(1, 2)
+
+
+def _rel_err(a: torch.Tensor, truth: torch.Tensor) -> tuple[float, float]:
+    """(||a - t|| / ||t||, cosine(a, t)) in f32."""
+    a, t = a.float().reshape(-1), truth.float().reshape(-1)
+    return (float(torch.linalg.norm(a - t) / torch.linalg.norm(t)),
+            float(a @ t / (torch.linalg.norm(a) * torch.linalg.norm(t))))
+
+
+def _attention_cpu_slice(q, index, k, v, pos, init, k_slice, k_new, got,
+                         hs: int) -> dict:
+    """The first ``hs`` KV heads of ``attn.phi4_mini`` redone on the CPU.
+
+    The build: the CPU's k-means from the card's init draws over the same
+    keys (``k_slice``, taken before the step's key was written), then
+    ``encode_step`` of the same key. Its codebooks must lie within
+    ``ATTN_KMEANS_TOL`` of the card's, and where a code differs the card's
+    entry must be a near-tie under the CPU's codebooks: no farther from the
+    key than the CPU's pick plus twice the largest entry shift (the
+    triangle inequality's room) and 1e-5. The decode: stage 1 and the
+    top-C on the CPU from the card's index carried across, at top_c
+    ``ATTN_TOP_C[0]``: the positions equal the card's up to score ties,
+    and the output equals the card's ``got`` within ``ATTN_TOL``."""
+    t0 = time.perf_counter()
+    mine = build_kv_index(k_slice, n_entries=index.entries.shape[2],
+                          init_idx=init.cpu())
+    encode_step(mine, k_new.cpu(), pos.cpu())
+    out = {"heads": hs, "build_s": time.perf_counter() - t0}
+    card_entries = index.entries[:hs].cpu()
+    card_codes = index.codes[:, :hs].cpu()
+    shift = float((mine.entries - card_entries).abs().max())
+    out["entries_max_abs_diff"] = shift
+    if shift > ATTN_KMEANS_TOL:
+        raise AssertionError(f"attn: the CPU's k-means codebooks differ from "
+                             f"the card's by {shift}")
+    diff = card_codes != mine.codes                       # (B, H, S, S_sub)
+    out["codes_differing"] = int(diff.sum())
+    out["codes"] = diff.numel()
+    out["codes_max_excess"] = 0.0
+    if out["codes_differing"]:
+        bi, hi, si, ui = diff.nonzero(as_tuple=True)
+        key = k_slice.clone()
+        key[torch.arange(key.shape[0]), pos.cpu()] = k_new[:, 0].cpu()
+        x = key.float()[bi, si, hi].reshape(bi.numel(), -1, 2)[
+            torch.arange(bi.numel()), ui]                 # (n, 2)
+
+        def dist(codes):
+            c = mine.entries[hi, ui, codes[bi, hi, si, ui].long()]
+            return torch.linalg.norm(x - c, dim=-1)
+        room = 2.0 * shift * 2 ** 0.5 + 1e-5
+        out["codes_max_excess"] = float(
+            (dist(card_codes) - dist(mine.codes)).max())
+        if out["codes_max_excess"] > room:
+            raise AssertionError(f"attn: a card code is "
+                                 f"{out['codes_max_excess']} farther than "
+                                 f"the CPU's (room {room})")
+    b, _, hq, hd = q.shape
+    qg = q[:, 0].reshape(b, hs, hq // hs, hd)
+    carried = kv_index_from_arrays(card_entries.numpy(), card_codes.numpy(),
+                                   "cpu")
+    t0 = time.perf_counter()
+    approx, _ = _approx_scores(qg.cpu(), carried, pos.cpu())
+    want = _top_positions(approx, ATTN_TOP_C[0])
+    cpu = juno_decode_attention(q.cpu(), carried, k[:, :, :hs].cpu(),
+                                v[:, :, :hs].cpu(), pos.cpu(),
+                                top_c=ATTN_TOP_C[0])
+    out["decode_s"] = time.perf_counter() - t0
+    card_approx, _ = _approx_scores(
+        qg, type(index)(entries=index.entries[:hs],
+                        codes=index.codes[:, :hs]), pos)
+    top = _top_positions(card_approx, ATTN_TOP_C[0]).cpu()
+    moved = top != want
+    out["top_positions_moved"] = int(moved.sum())
+    if out["top_positions_moved"]:
+        a = torch.take_along_dim(approx, top, -1)[moved]
+        w = torch.take_along_dim(approx, want, -1)[moved]
+        if bool(((a - w).abs() > ATTN_TIE_RTOL
+                 * w.abs().clamp(min=1.0)).any()):
+            raise AssertionError("attn: the card's top-C positions differ "
+                                 "from the CPU's beyond score ties")
+    out["max_abs_err"] = float((cpu.float() - got.cpu().float()).abs().max())
+    if out["max_abs_err"] > ATTN_TOL:
+        raise AssertionError(f"attn: the CPU's {hs}-head slice differs by "
+                             f"{out['max_abs_err']}")
+    return out
+
+
+def phase_attention(seed: int, card: str) -> dict:
+    """``attn.phi4_mini``: JUNO-attention (``repro_torch.models``) at the
+    attention shape of phi4-mini-3.8b FULL at decode_32k (B 4, S 32,768,
+    24 query heads on 8 KV heads of 128 dims, 16 entries a subspace) over
+    SYNTHETIC bf16 caches (K, V ~ N(0, 1), q ~ N(0, 16), from a seeded
+    generator; no model is ported, so no model's caches): the index's
+    build seconds, ``encode_step``'s ms (the step's key written at pos),
+    the ms of a decode step at top_c 256, 512 and 1024 beside exact plain
+    attention over all S positions and ``scaled_dot_product_attention``,
+    each step's least time for the traffic model's bytes (``bound_ms``;
+    exact attention's ``exact_bound_ms``),
+    each output's rel_err and cosine against exact attention in f32, the
+    output at top_c = S equal to exact attention within 4 bf16 ulps, a
+    2-KV-head slice checked on the CPU (see :func:`_attention_cpu_slice`),
+    and ``traffic_model``'s bytes a (head, step)."""
+    dev = torch.device("cuda")
+    b, s, hq, h, hd, e = (ATTN[k] for k in ("batch", "seq", "heads",
+                                            "kv_heads", "head_dim",
+                                            "entries"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    k = torch.randn((b, s, h, hd), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, s, h, hd), generator=gen, device=dev).to(bf)
+    q = (torch.randn((b, 1, hq, hd), generator=gen, device=dev)
+         * ATTN_Q_SCALE).to(bf)
+    k_new = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(bf)
+    pos = torch.tensor([s - 1, s - 2, 3 * s // 4, s // 2], device=dev)[:b]
+    init = draw_kv_init(h, hd // 2, b * s, e, seed=seed, device=dev)
+    hs = 2                                # the KV heads checked on the CPU
+    k_slice = k[:, :, :hs].cpu()          # before the step's key is written
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_kv_index(k, n_entries=e, init_idx=init)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k[torch.arange(b, device=dev), pos] = k_new[:, 0]
+    encode_step(index, k_new, pos)
+    out = {"shape": dict(ATTN), "pos": pos.tolist(), "card": card,
+           "data": "synthetic: K, V ~ N(0, 1), q ~ N(0, 16), bf16, seeded",
+           "cache_bytes": {"k": k.numel() * 2, "v": v.numel() * 2,
+                           "codes": index.codes.numel()},
+           "build_s": build_s,
+           "encode_step_ms": time_ms(lambda: encode_step(index, k_new, pos))}
+    truth = exact_attention(q, k, v, pos, torch.float32)
+    exact = exact_attention(q, k, v, pos)
+    lib = sdpa_attention(q, k, v, pos)
+    out["exact_ms"] = time_ms(lambda: exact_attention(q, k, v, pos))
+    out["library_ms"] = time_ms(lambda: sdpa_attention(q, k, v, pos))
+    # the least time for exact attention's bytes: every K and V byte once
+    out["exact_bound_ms"] = (b * h * traffic_model(s, hd, 0)["exact_bytes"]
+                             / HBM_BYTES_PER_S * 1e3)
+    out["exact_rel_err"], out["exact_cosine"] = _rel_err(exact, truth)
+    out["library_rel_err"], out["library_cosine"] = _rel_err(lib, truth)
+    rows, first = [], None
+    for top_c in ATTN_TOP_C:
+        got = juno_decode_attention(q, index, k, v, pos, top_c=top_c)
+        if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"attn top_c={top_c}: shape {got.shape} or "
+                                 f"non-finite values")
+        first = got if first is None else first
+        err, cos = _rel_err(got, truth)
+        traffic = traffic_model(s, hd, top_c)
+        rows.append({"top_c": top_c, "ms": time_ms(
+            lambda c=top_c: juno_decode_attention(q, index, k, v, pos,
+                                                  top_c=c)),
+            "rel_err": err, "cosine": cos,
+            "traffic_per_head_step": traffic,
+            # the traffic model's bytes (codes, then the top-C keys and
+            # values) for every (batch row, KV head), once
+            "bound_ms": b * h * traffic["juno_bytes"] / HBM_BYTES_PER_S
+            * 1e3})
+    out["decode"] = rows
+    full = juno_decode_attention(q, index, k, v, pos, top_c=s)
+    bound = ATTN_TOL * max(1.0, float(exact.float().abs().max()))
+    out["full_top_c_max_abs_err"] = float((full.float() - exact.float())
+                                          .abs().max())
+    if out["full_top_c_max_abs_err"] > bound:
+        raise AssertionError(f"attn top_c=S: {out['full_top_c_max_abs_err']}"
+                             f" from exact attention (limit {bound})")
+    out["cpu_slice"] = _attention_cpu_slice(
+        q[:, :, :hs * (hq // h)], index, k, v, pos, init[:hs], k_slice,
+        k_new[:, :, :hs], first[:, :, :hs * (hq // h)], hs)
+    log("attn.phi4_mini", **out)
+    del k, v, index, truth, exact, lib, full
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # pipeline phase
 # ---------------------------------------------------------------------------
 N_STREAM = 10_000_000          # the DEEP10M subset's size
@@ -3723,7 +4176,8 @@ def phase_pipeline(cfg, index, pts: np.ndarray, queries: np.ndarray,
 
 
 def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
-                out_dir: str, hit_calls_dir: str | None = None) -> dict:
+                out_dir: str, tuned: dict,
+                hit_calls_dir: str | None = None) -> dict:
     t0 = time.perf_counter()
     pts, queries = make_dataset(spec, n_points, 4096, seed=seed)
     t_data = time.perf_counter() - t0
@@ -3792,6 +4246,9 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     del replay
     torch.cuda.empty_cache()
     lap("grid_and_engines")
+    tuned_engines = autotune_engines(name, spec.metric, mut, grid, queries,
+                                     stream, tuned)
+    lap("autotune")
 
     cpu_index = index_to(index, "cpu")
     tiers = tier_table(index, cpu_index, queries, pts, spec.metric)
@@ -3841,7 +4298,7 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
            "engines": engines, "tiers": tiers,
            "tiers_rt": rt_tiers, "mutate": mutate, "paged": paged,
            "obs": obs, "dist": dist, "fleet": fleet, "pipeline": pipeline,
-           "phase_s": phase_s,
+           "autotune": tuned_engines, "phase_s": phase_s,
            "max_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": card}
     del index, mut, grid
@@ -3859,7 +4316,8 @@ def kernel_line(kernels: dict, serves: list[dict]) -> dict:
                   + sum(s["mutate"]["launches"][key]
                         + s["paged"]["launches"][key] for s in serves)
                   + sum(ls[key] for s in serves
-                        for ph in ("obs", "dist", "fleet", "pipeline")
+                        for ph in ("obs", "dist", "fleet", "pipeline",
+                                   "autotune")
                         if s[ph] for ls in s[ph]["launches"].values())
                   for key in ENTRIES.get(name, (name,))}
         line.append({
@@ -3902,9 +4360,11 @@ def main() -> int:
     device = phase_device()
     phase_build(args.out)
     kernels = phase_kernels(args.seed)
+    tune = phase_autotune(args.seed)
     serves = [phase_serve(name, spec, args.seed, N_POINTS, device["nvidia_smi"],
-                          args.out, args.hit_calls)
+                          args.out, tune["tuned"], args.hit_calls)
               for name, spec in (("l2", DEEP_LIKE), ("ip", TTI_LIKE))]
+    attn = phase_attention(args.seed, device["nvidia_smi"])
     # the probe entry on each index's own grid leads its rows (the l2 np 16
     # row heads the line): that is the main path's shape (cap is the
     # fullest cell's, known after the build); the dense entry on each grid
@@ -3918,7 +4378,8 @@ def main() -> int:
                                       for r in s["pq_scan_pass"]]
     line = kernel_line(kernels["kernels"], serves)
     report = {"device": device, **kernels, "serve": serves,
-              "seconds": time.perf_counter() - t_start}
+              "autotune": {k: tune[k] for k in ("rows", "cache")},
+              "attention": attn, "seconds": time.perf_counter() - t_start}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     print(json.dumps(line), flush=True)

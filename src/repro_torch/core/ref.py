@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from .metrics import recall_n_at_k  # noqa: F401  (re-exported for its callers)
+
 
 def exact_topk(queries: torch.Tensor, points: torch.Tensor, *, k: int,
                metric: str = "l2", chunk: int = 65536
@@ -37,12 +39,3 @@ def exact_topk(queries: torch.Tensor, points: torch.Tensor, *, k: int,
         best_s, best_i = top_s[:, :k], torch.gather(cat_i, 1, sel[:, :k])
     sign = -1.0 if metric == "l2" else 1.0
     return sign * best_s, best_i
-
-
-def recall_n_at_k(retrieved: torch.Tensor, gt_topn: torch.Tensor) -> float:
-    """R{N}@{K}: mean fraction of the true top-N among the K retrieved.
-
-    retrieved (Q, K), gt_topn (Q, N) integer ids.
-    """
-    hits = (retrieved[:, None, :] == gt_topn[:, :, None]).any(dim=2)
-    return float(hits.float().mean())

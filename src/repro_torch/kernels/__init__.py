@@ -4,4 +4,5 @@ and the wrappers that dispatch between them (``ops``): ``selective_lut``
 ``hit_count`` (tiers M/L, composed H2), ``sphere_hits`` (the RT
 prefilter: the search's probe mask, and the dense table),
 ``fused_three_stage`` (fused H2 under the RT prefilter) and
-``ivf_filter`` (stage A, and the owning cluster of each inserted point)."""
+``ivf_filter`` (stage A, and the owning cluster of each inserted point);
+``autotune`` picks the two fused scans' launch shapes by measurement."""

@@ -31,7 +31,7 @@
 // projection, read in place); radius: (Q,) f32; c0, c1, reach:
 // (n_cells*cap,) f32 grid slot planes (reach -inf at pads); slot_idx:
 // (Q, np) int32 grid slot of each probed cluster; probe_ok: (Q, np) bool,
-// written.
+// written; the launch shape as in fused_two_stage_launch.
 extern "C" int fused_three_stage_launch(const void* lut, const void* table,
                                         const void* codes, const void* valid,
                                         const void* cids, const void* q0,
@@ -42,7 +42,9 @@ extern "C" int fused_three_stage_launch(const void* lut, const void* table,
                                         void* cand, void* cand_dist, void* hist,
                                         long long q0_stride, long long q1_stride,
                                         int Q, int n_probe, int P, int S, int E,
-                                        int C, float bad, void* stream) {
+                                        int C, float bad, int count_threads,
+                                        int count_per_thread, int select_threads,
+                                        void* stream) {
   const two_stage::SphereTest sph{(const float*)q0,     (const float*)q1,
                                   q0_stride,            q1_stride,
                                   (const float*)radius, (const float*)c0,
@@ -50,5 +52,6 @@ extern "C" int fused_three_stage_launch(const void* lut, const void* table,
                                   (const int32_t*)slot_idx};
   return two_stage::launch<true>(lut, table, codes, valid, cids, sph, probe_ok,
                                  counts, dist, cand, cand_dist, hist, Q, n_probe,
-                                 P, S, E, C, bad, stream);
+                                 P, S, E, C, bad, count_threads, count_per_thread,
+                                 select_threads, stream);
 }

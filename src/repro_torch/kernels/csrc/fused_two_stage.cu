@@ -19,17 +19,24 @@
 // (Q, np) bool or null. counts (Q, np, P) int32, dist (Q, np, P) f32, cand
 // (Q, C) int32 and cand_dist (Q, C) f32 are written; hist (Q, np, 2S+2)
 // int32 is scratch that the count kernel writes whole, so it needs no
-// zeroing and a call is the two launches.
+// zeroing and a call is the two launches. count_threads, count_per_thread
+// and select_threads pick the launch shape (two_stage::with_launch_shape:
+// (256, 16, 256) is the default; a shape off its lattice returns
+// cudaErrorInvalidValue and launches nothing); every shape gives the same
+// bits.
 extern "C" int fused_two_stage_launch(const void* lut, const void* table,
                                       const void* codes, const void* valid,
                                       const void* cids, const void* probe_ok,
                                       void* counts, void* dist, void* cand,
                                       void* cand_dist, void* hist, int Q,
                                       int n_probe, int P, int S, int E, int C,
-                                      float bad, void* stream) {
+                                      float bad, int count_threads,
+                                      int count_per_thread, int select_threads,
+                                      void* stream) {
   const two_stage::SphereTest none{};
   return two_stage::launch<false>(lut, table, codes, valid, cids, none,
                                   const_cast<void*>(probe_ok), counts, dist, cand,
                                   cand_dist, hist, Q, n_probe, P, S, E, C, bad,
+                                  count_threads, count_per_thread, select_threads,
                                   stream);
 }

@@ -44,7 +44,8 @@
 //      (+1 entries, -1 entries; 64 bytes a subspace, 3 KB at S=48 against
 //      12 KB of bytes), so a warp's 32 lookups into one subspace touch 16
 //      words in 16 distinct banks and never conflict. Each thread holds the
-//      valid flags of 16 points of a 4096-point chunk as a mask and counts
+//      valid flags of 16 points (8 at the other launch shape) of a
+//      4096-point chunk as a mask and counts
 //      its valid points one a step, so a warp's lanes stay busy where the
 //      valid slots are packed at the front of the cluster, as a built index
 //      has them (scattered at random, a warp takes about twice the steps).
@@ -84,10 +85,17 @@
 namespace two_stage {
 
 using scan::kNeg;
+// The count kernel's default launch shape (hit_count.cu's count kernel runs
+// it). The fused scans take theirs at run time from a small lattice
+// (with_launch_shape): the count kernel's threads and the points a thread
+// holds the flags of, whose product is always kChunk, and the select
+// kernel's threads. Every shape gives the same bits: a point's count is an
+// exact integer sum, each candidate's ADC sum is one thread's, in subspace
+// order, and the ranks come from scans whose results do not depend on the
+// block's width.
 constexpr int kCountThreads = 256;
 constexpr int kPerThread = 16;    // points of a chunk a count thread holds the flags of
 constexpr int kChunk = kCountThreads * kPerThread;   // points a count block walks at once
-constexpr int kSelectThreads = 256;
 constexpr int kSpan = 4096;       // counts a select block stages in shared memory at once
 constexpr int kTakeList = 2048;   // candidates a select block lists before summing them
 constexpr int kPlaneBytes = 64;   // one subspace's planes: 256 entries x 2 bits
@@ -131,22 +139,23 @@ __device__ __forceinline__ void sign_bits(const uint4& v, uint32_t& plus, uint32
 // then brings entry c's + bit to bit 0 and its - bit to bit 16 (plane_word).
 // Entries from min(E, 256) on are never looked up by a uint8 code below E:
 // they stage as 0. The caller synchronises the block afterwards.
+template <int kThreads = kCountThreads>
 __device__ __forceinline__ void stage_planes(uint32_t* planes, const int8_t* __restrict__ tab,
                                              int S, int E) {
   constexpr int kBatch = 4;   // 16-byte loads a thread issues before using one
   const bool vec = (E & 15) == 0 && (reinterpret_cast<uintptr_t>(tab) & 15) == 0;
-  for (int i0 = 0; i0 < S * 16; i0 += kBatch * kCountThreads) {
+  for (int i0 = 0; i0 < S * 16; i0 += kBatch * kThreads) {
     uint4 v[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const int i = i0 + b * kCountThreads + threadIdx.x;
+      const int i = i0 + b * kThreads + threadIdx.x;
       v[b] = make_uint4(0, 0, 0, 0);
       if (vec && i < S * 16 && 16 * (i & 15) < E)
         v[b] = __ldg(reinterpret_cast<const uint4*>(tab + (int64_t)(i >> 4) * E + 16 * (i & 15)));
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const int i = i0 + b * kCountThreads + threadIdx.x;
+      const int i = i0 + b * kThreads + threadIdx.x;
       if (i >= S * 16) break;
       const int k = i & 15;
       uint32_t plus = 0, minus = 0;
@@ -272,8 +281,10 @@ inline size_t count_smem(int S) {
 }
 
 // The count kernel's body, which hit_count.cu's kernel shares: kDist writes
-// a pruned probe's dist (the fused scans'; hit_count has none).
-template <bool kSphere, int kS, bool kDist>
+// a pruned probe's dist (the fused scans'; hit_count has none); kThreads
+// threads a block, each holding the valid flags of kPer points of a chunk.
+template <bool kSphere, int kS, bool kDist, int kThreads = kCountThreads,
+          int kPer = kPerThread>
 __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
                                            const uint8_t* __restrict__ codes,
                                            const uint8_t* __restrict__ valid,
@@ -283,6 +294,8 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
                                            int32_t* __restrict__ hist,
                                            float* __restrict__ dist, int n_probe, int P,
                                            int S, int E, float bad) {
+  static_assert(kThreads * kPer == kChunk && kPer <= 32 && kThreads % 32 == 0,
+                "a chunk is kChunk points, its flags one 32-bit mask a thread");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_keep;
   if constexpr (kS > 0) S = kS;
@@ -307,34 +320,34 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
     }
     s_keep = keep;
   }
-  for (int i = threadIdx.x; i < nbins; i += kCountThreads) h[i] = 0;
+  for (int i = threadIdx.x; i < nbins; i += kThreads) h[i] = 0;
   __syncthreads();
   int32_t* out = counts + qp * P;
   if (!s_keep) {   // pruned: every point invalid, no table or code read
-    for (int p = threadIdx.x; p < P; p += kCountThreads) {
+    for (int p = threadIdx.x; p < P; p += kThreads) {
       out[p] = kNeg;
       if constexpr (kDist) dist[qp * P + p] = bad;
     }
-    for (int i = threadIdx.x; i < nbins; i += kCountThreads)
+    for (int i = threadIdx.x; i < nbins; i += kThreads)
       hist[qp * nbins + i] = i == 0 ? P : 0;
     return;
   }
   const uint8_t* crow = codes + cid * (int64_t)P * S;
   const uint8_t* vrow = valid + cid * (int64_t)P;
-  // a chunk's valid flags as a mask, point k * kCountThreads + threadIdx.x
+  // a chunk's valid flags as a mask, point k * kThreads + threadIdx.x
   // of the chunk at bit k; every load issued and in range. The first
   // chunk's are in flight while the table is staged.
   auto load_flags = [&](int c0, int n) {
     uint32_t m = 0;
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = k * kCountThreads + threadIdx.x;
+    for (int k = 0; k < kPer; ++k) {
+      const int i = k * kThreads + threadIdx.x;
       m |= (uint32_t)(vrow[c0 + min(i, n - 1)] != 0 && i < n) << k;
     }
     return m;
   };
   uint32_t m = load_flags(0, min(kChunk, P));
-  stage_planes(planes, table + qp * (int64_t)S * E, S, E);
+  stage_planes<kThreads>(planes, table + qp * (int64_t)S * E, S, E);
   __syncthreads();   // the planes and h are ready
 
   for (int c0 = 0; c0 < P; c0 += kChunk) {
@@ -342,8 +355,8 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
     if (c0 > 0) m = load_flags(c0, n);
     int n_invalid = 0;
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = k * kCountThreads + threadIdx.x;
+    for (int k = 0; k < kPer; ++k) {
+      const int i = k * kThreads + threadIdx.x;
       if (i < n && !((m >> k) & 1u)) {
         out[c0 + i] = kNeg;
         ++n_invalid;
@@ -359,7 +372,7 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
     while (__any_sync(0xffffffffu, m != 0)) {
       int bin = -1;
       if (m) {
-        const int i = (__ffs(m) - 1) * kCountThreads + threadIdx.x;
+        const int i = (__ffs(m) - 1) * kThreads + threadIdx.x;
         m &= m - 1;
         const int cnt = plane_count<kS>(smem, crow + (int64_t)(c0 + i) * S, S);
         out[c0 + i] = cnt;
@@ -370,11 +383,12 @@ __device__ __forceinline__ void count_body(const int8_t* __restrict__ table,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nbins; i += kCountThreads) hist[qp * nbins + i] = h[i];
+  for (int i = threadIdx.x; i < nbins; i += kThreads) hist[qp * nbins + i] = h[i];
 }
 
-template <bool kSphere, int kS>
-__global__ void __launch_bounds__(kCountThreads, 4)
+// At most 64 registers a thread at every width: 1024 threads an SM.
+template <bool kSphere, int kS, int kThreads, int kPer>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
              const uint8_t* __restrict__ codes,   // (n_cl, P, S)
              const uint8_t* __restrict__ valid,   // (n_cl, P)
@@ -385,8 +399,8 @@ count_kernel(const int8_t* __restrict__ table,    // (Q*np, S, E)
              int32_t* __restrict__ hist,          // (Q*np, 2S+2)
              float* __restrict__ dist,            // (Q*np, P): pruned probes only
              int n_probe, int P, int S, int E, float bad) {
-  count_body<kSphere, kS, true>(table, codes, valid, cids, sph, probe_ok, counts, hist, dist,
-                                n_probe, P, S, E, bad);
+  count_body<kSphere, kS, true, kThreads, kPer>(table, codes, valid, cids, sph, probe_ok,
+                                                counts, hist, dist, n_probe, P, S, E, bad);
 }
 
 // Per bin b, from the query's np stored histograms hq (np, nbins): tot[b]
@@ -473,9 +487,10 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // Start copying counts[p0, p0 + min(kSpan, P - p0)) of one probe into s_cnt.
+template <int kThreads>
 __device__ __forceinline__ void copy_span(int* s_cnt, const int32_t* crow, int p0, int P) {
   const int n = min(kSpan, P - p0);
-  for (int i = threadIdx.x; i < n; i += kSelectThreads) copy_async(s_cnt + i, crow + p0 + i);
+  for (int i = threadIdx.x; i < n; i += kThreads) copy_async(s_cnt + i, crow + p0 + i);
 }
 
 // The ties the pruned probes of query q take when theta is the invalid
@@ -505,8 +520,8 @@ __device__ __noinline__ void pruned_ties(int32_t* cq, float* dq, const int* inva
   }
 }
 
-template <int kS>
-__global__ void __launch_bounds__(kSelectThreads, 4)
+template <int kS, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
               const int32_t* __restrict__ hist,    // (Q*np, 2S+2)
               const float* __restrict__ lut,       // (Q*np, S, E)
@@ -518,7 +533,9 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
               float* __restrict__ cand_dist,       // (Q, C)
               int n_probe, int P, int S, int E, int C, float bad) {
   constexpr int kPer = 4;     // consecutive counts a thread ranks a window
-  constexpr int kWindow = kPer * kSelectThreads;
+  constexpr int kWindow = kPer * kThreads;
+  static_assert(kWindow <= kTakeList && kThreads % 32 == 0 && kThreads <= 1024,
+                "a window's candidates fit the list; one warp scans the warps' totals");
   extern __shared__ __align__(16) int sh[];
   __shared__ unsigned s_warp[2][32];
   __shared__ int s_theta, s_take, s_ties, s_base;
@@ -542,12 +559,12 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
   // shared memory while the histograms are read.
   const bool kept = scan::probe_kept(probe_ok, qp);
   if (!kept && probe != 0) return;
-  if (kept) copy_span(s_cnt, crow, 0, P);
+  if (kept) copy_span<kThreads>(s_cnt, crow, 0, P);
   if (probe == 0 && probe_ok != nullptr)
-    for (int i = threadIdx.x; i < n_probe; i += kSelectThreads)
+    for (int i = threadIdx.x; i < n_probe; i += kThreads)
       pruned[i] = !probe_ok[(int64_t)q * n_probe + i];
 
-  sum_hists<true>(hist + (int64_t)q * n_probe * nbins, n_probe, probe, nbins, kSelectThreads,
+  sum_hists<true>(hist + (int64_t)q * n_probe * nbins, n_probe, probe, nbins, kThreads,
                   tot, pre, mine, invalid_of);
   __syncthreads();
   if (warp == 0) {
@@ -582,7 +599,7 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
                 n_probe, P, C, bad);
   if (!kept) return;
   if (n_take == 0) {
-    for (int p = threadIdx.x; p < P; p += kSelectThreads) drow[p] = bad;
+    for (int p = threadIdx.x; p < P; p += kThreads) drow[p] = bad;
     copy_wait();   // no copy may land after the block is gone
     return;
   }
@@ -595,7 +612,7 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
   // thread calls it (it synchronises the block)
   auto flush = [&]() {
     __syncthreads();
-    for (int j = threadIdx.x; j < listed - summed; j += kSelectThreads) {
+    for (int j = threadIdx.x; j < listed - summed; j += kThreads) {
       // an invalid point (its count the sentinel, flagged in the list's
       // top bit) scores bad without a load
       const int p = list[j] & 0x7fffffff;
@@ -609,7 +626,7 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
   };
   for (int p0 = 0; p0 < P && listed < n_take; p0 += kSpan) {
     const int n = min(kSpan, P - p0);
-    if (p0 > 0) copy_span(s_cnt, crow, p0, P);
+    if (p0 > 0) copy_span<kThreads>(s_cnt, crow, p0, P);
     copy_wait();
     __syncthreads();
     for (int w0 = 0; w0 < n && listed < n_take; w0 += kWindow) {   // block-uniform
@@ -635,7 +652,7 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
       }
       if (lane == 31) s_warp[buf][warp] = incl;
       __syncthreads();
-      const unsigned own = lane < kSelectThreads / 32 ? s_warp[buf][lane] : 0u;
+      const unsigned own = lane < kThreads / 32 ? s_warp[buf][lane] : 0u;
       unsigned wincl = own;
       for (int o = 1; o < 32; o <<= 1) {
         const unsigned y = __shfl_up_sync(0xffffffffu, wincl, o);
@@ -665,11 +682,11 @@ select_kernel(const int32_t* __restrict__ counts,  // (Q*np, P)
   }
   copy_wait();
   // every candidate is listed: the points not walked take nothing
-  for (int p = walked + threadIdx.x; p < P; p += kSelectThreads) drow[p] = bad;
+  for (int p = walked + threadIdx.x; p < P; p += kThreads) drow[p] = bad;
   flush();
 }
 
-template <bool kSphere, int kS>
+template <bool kSphere, int kS, int kCount, int kPer, int kSelect>
 inline int launch_s(const void* lut, const void* table, const void* codes,
                     const void* valid, const void* cids, const SphereTest& sph,
                     void* probe_ok, void* counts, void* dist, void* cand,
@@ -677,18 +694,18 @@ inline int launch_s(const void* lut, const void* table, const void* codes,
                     int E, int C, float bad, cudaStream_t st) {
   const unsigned blocks = (unsigned)(Q * n_probe);
   const size_t csmem = count_smem(S);
-  int err = scan::allow_smem(count_kernel<kSphere, kS>, csmem);
+  int err = scan::allow_smem(count_kernel<kSphere, kS, kCount, kPer>, csmem);
   if (err) return err;
-  count_kernel<kSphere, kS><<<blocks, kCountThreads, csmem, st>>>(
+  count_kernel<kSphere, kS, kCount, kPer><<<blocks, kCount, csmem, st>>>(
       (const int8_t*)table, (const uint8_t*)codes, (const uint8_t*)valid,
       (const int64_t*)cids, sph, (uint8_t*)probe_ok, (int32_t*)counts,
       (int32_t*)hist, (float*)dist, n_probe, P, S, E, bad);
   err = (int)cudaGetLastError();
   if (err) return err;
   const size_t ssmem = select_smem(S, n_probe);
-  err = scan::allow_smem(select_kernel<kS>, ssmem);
+  err = scan::allow_smem(select_kernel<kS, kSelect>, ssmem);
   if (err) return err;
-  select_kernel<kS><<<blocks, kSelectThreads, ssmem, st>>>(
+  select_kernel<kS, kSelect><<<blocks, kSelect, ssmem, st>>>(
       (const int32_t*)counts, (const int32_t*)hist, (const float*)lut,
       (const uint8_t*)codes, (const int64_t*)cids,
       (const uint8_t*)probe_ok, (float*)dist, (int32_t*)cand, (float*)cand_dist,
@@ -707,21 +724,46 @@ inline int with_compiled_s(int S, F&& f) {
   return f(std::integral_constant<int, 0>{});
 }
 
+// The fused scans' launch lattice: f(count threads, points a count thread,
+// select threads) as integral constants, for the count shapes (256, 16) (the
+// default) and (512, 8) and the select widths 256 (the default), 128 and
+// 512; any other value returns cudaErrorInvalidValue and launches nothing.
+// kernels/autotune.py picks among them by measurement.
+template <int kValue>
+using Int = std::integral_constant<int, kValue>;
+
+template <class F>
+inline int with_launch_shape(int count_threads, int per_thread, int select_threads, F&& f) {
+  auto select = [&](auto ct, auto cp) {
+    if (select_threads == 256) return f(ct, cp, Int<256>{});
+    if (select_threads == 128) return f(ct, cp, Int<128>{});
+    if (select_threads == 512) return f(ct, cp, Int<512>{});
+    return (int)cudaErrorInvalidValue;
+  };
+  if (count_threads == 256 && per_thread == 16) return select(Int<256>{}, Int<16>{});
+  if (count_threads == 512 && per_thread == 8) return select(Int<512>{}, Int<8>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 // Both kernels on one stream, compiled for the S given when it is one the
-// engines use. hist is (Q*np, 2S+2) int32 scratch that the count kernel
-// writes whole (no zeroing); the other outputs are written. Returns the
-// CUDA error code.
+// engines use, at a launch shape of the lattice above. hist is
+// (Q*np, 2S+2) int32 scratch that the count kernel writes whole (no
+// zeroing); the other outputs are written. Returns the CUDA error code.
 template <bool kSphere>
 inline int launch(const void* lut, const void* table, const void* codes,
                   const void* valid, const void* cids, const SphereTest& sph,
                   void* probe_ok, void* counts, void* dist, void* cand,
                   void* cand_dist, void* hist, int Q, int n_probe, int P, int S,
-                  int E, int C, float bad, void* stream) {
+                  int E, int C, float bad, int count_threads, int per_thread,
+                  int select_threads, void* stream) {
   return with_compiled_s(S, [&](auto ks) {
-    return launch_s<kSphere, decltype(ks)::value>(lut, table, codes, valid, cids, sph,
-                                                  probe_ok, counts, dist, cand, cand_dist,
-                                                  hist, Q, n_probe, P, S, E, C, bad,
-                                                  (cudaStream_t)stream);
+    return with_launch_shape(count_threads, per_thread, select_threads,
+                             [&](auto ct, auto cp, auto st) {
+      return launch_s<kSphere, decltype(ks)::value, decltype(ct)::value,
+                      decltype(cp)::value, decltype(st)::value>(
+          lut, table, codes, valid, cids, sph, probe_ok, counts, dist, cand, cand_dist,
+          hist, Q, n_probe, P, S, E, C, bad, (cudaStream_t)stream);
+    });
   });
 }
 

@@ -55,7 +55,8 @@ def fused_three_stage(lut: torch.Tensor, table: torch.Tensor,
                       radius: torch.Tensor, cell_c0: torch.Tensor,
                       cell_c1: torch.Tensor, slot_reach: torch.Tensor,
                       slot_idx: torch.Tensor, *, cap_c: int,
-                      metric: str = "l2"):
+                      metric: str = "l2", count_threads: int = 256,
+                      count_per_thread: int = 16, select_threads: int = 256):
     """Launch the CUDA kernel (CUDA tensors only).
 
     lut, table, cluster_codes, cluster_valid and cids as for
@@ -65,7 +66,8 @@ def fused_three_stage(lut: torch.Tensor, table: torch.Tensor,
     kernel reads them in place. Returns what
     :func:`fused_three_stage_plain` returns for
     ``codes = cluster_codes[cids]``, ``valid = cluster_valid[cids]``. The
-    call is two kernels on the card (count with the sphere test, select).
+    call is two kernels on the card (count with the sphere test, select),
+    at the launch shape given as for ``fused_two_stage.fused_two_stage``.
     Counts one launch in ``_build.LAUNCHES["fused_three_stage"]``.
     """
     bad = bad_score(metric)
@@ -104,7 +106,8 @@ def fused_three_stage(lut: torch.Tensor, table: torch.Tensor,
                      probe_ok.data_ptr(), counts.data_ptr(), dist.data_ptr(),
                      cand.data_ptr(), cand_dist.data_ptr(), hist.data_ptr(),
                      q0.stride(0), q1.stride(0), q, n_probe, p, s, e, cap_c,
-                     bad, _build.stream_ptr(dev))
+                     bad, count_threads, count_per_thread, select_threads,
+                     _build.stream_ptr(dev))
     _build.check(rc, "fused_three_stage")
     _build.LAUNCHES["fused_three_stage"] += 1
     return counts, dist, cand, cand_dist, probe_ok
@@ -115,6 +118,6 @@ def _launcher():
     fn = _build.library("fused_three_stage").fused_three_stage_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp] * 18 + [ctypes.c_longlong] * 2 + [ci] * 6 + \
-        [ctypes.c_float, vp]
+        [ctypes.c_float] + [ci] * 3 + [vp]
     fn.restype = ci
     return fn

@@ -16,6 +16,10 @@ index's per-cluster codes and the probed cluster ids and indexes them
 itself; the plain version takes codes already gathered per probe, as the
 reference does. The kernel reads a hit-table entry by its sign, which is
 the entry itself for the {-1, 0, +1} tables stage B writes.
+
+The kernel takes the autotuner's result-invariant launch shape
+(``kernels/autotune.py``): ``count_threads``, ``count_per_thread`` and
+``select_threads``.
 """
 from __future__ import annotations
 
@@ -82,7 +86,9 @@ def fused_two_stage_plain(lut: torch.Tensor, table: torch.Tensor,
 def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
                     cluster_codes: torch.Tensor, cluster_valid: torch.Tensor,
                     cids: torch.Tensor, *, cap_c: int, metric: str = "l2",
-                    probe_ok: torch.Tensor | None = None):
+                    probe_ok: torch.Tensor | None = None,
+                    count_threads: int = 256, count_per_thread: int = 16,
+                    select_threads: int = 256):
     """Launch the CUDA kernel (CUDA tensors only).
 
     lut (Q, np, S, E) f32, table (Q, np, S, E) int8 with entries in
@@ -94,8 +100,12 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
     ``valid = cluster_valid[cids] & probe_ok[..., None]``: ``counts`` and
     ``cand`` equal, ``cand_dist`` and ``dist`` summed in subspace order.
     The call is two kernels on the card (count, select) and nothing else:
-    the histogram scratch the count kernel writes needs no zeroing. Counts
-    one launch in ``_build.LAUNCHES["fused_two_stage"]``.
+    the histogram scratch the count kernel writes needs no zeroing.
+    ``count_threads``/``count_per_thread``/``select_threads`` pick the
+    launch shape from ``two_stage.cuh``'s lattice (``autotune``'s
+    ``COUNT_SHAPES`` and ``SELECT_THREADS``); every shape gives the same
+    bits, and one off the lattice raises without launching. Counts one
+    launch in ``_build.LAUNCHES["fused_two_stage"]``.
     """
     bad = bad_score(metric)
     dev = lut.device
@@ -122,6 +132,7 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
     rc = _launcher()(*[a.data_ptr() for a in args], pok, counts.data_ptr(),
                      dist.data_ptr(), cand.data_ptr(), cand_dist.data_ptr(),
                      hist.data_ptr(), q, n_probe, p, s, e, cap_c, bad,
+                     count_threads, count_per_thread, select_threads,
                      _build.stream_ptr(dev))
     _build.check(rc, "fused_two_stage")
     _build.LAUNCHES["fused_two_stage"] += 1
@@ -132,6 +143,6 @@ def fused_two_stage(lut: torch.Tensor, table: torch.Tensor,
 def _launcher():
     fn = _build.library("fused_two_stage").fused_two_stage_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_float, vp]
+    fn.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_float] + [ci] * 3 + [vp]
     fn.restype = ci
     return fn

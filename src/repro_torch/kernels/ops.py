@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from . import autotune
 from .fused_three_stage import fused_three_stage, fused_three_stage_plain
 from .fused_two_stage import fused_two_stage, fused_two_stage_plain
 from .hit_count import (hit_count, hit_count_plain, hit_count_topk,
@@ -200,13 +201,18 @@ def fused_two_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
         set in index-ascending order over the flat np·P axis and
         ``cand_dist`` its masked-LUT totals (``fused_two_stage_host``'s
         contract). On the card a call is two kernels (count, select).
+
+    On the card the launch shape comes from the active
+    ``autotune.KernelConfig`` for ``"fused_two_stage"``, read on every
+    call; it is result-invariant. The CPU's plain version has no knob.
     """
     if _on_cuda(mlut, table, codes, valid, cids, probe_ok):
+        cfg = autotune.active_config("fused_two_stage")
         return fused_two_stage(mlut.contiguous(), table.contiguous(),
                                codes.contiguous(), valid.contiguous(),
                                cids.contiguous(), cap_c=cap_c, metric=metric,
                                probe_ok=None if probe_ok is None
-                               else probe_ok.contiguous())
+                               else probe_ok.contiguous(), **cfg.launch())
     return fused_two_stage_plain(mlut, table, codes[cids],
                                  _probed_valid(valid, cids, probe_ok),
                                  cap_c=cap_c, metric=metric)
@@ -232,15 +238,19 @@ def fused_three_stage_scan(mlut: torch.Tensor, table: torch.Tensor,
     reaches, which the TPU kernel's cell walk reads, are not needed: the
     test runs once per probe, at its slot. On the card a call is two
     kernels: nothing is copied (``q0``/``q1`` are read through their
-    strides) and no scratch is zeroed.
+    strides) and no scratch is zeroed. The launch shape comes from the
+    active ``autotune`` config for ``"fused_three_stage"``, as for
+    :func:`fused_two_stage_scan`.
     """
     args = (q0, q1, radius, cell_c0, cell_c1, slot_reach, slot_idx)
     if _on_cuda(mlut, table, codes, valid, cids, *args):
+        cfg = autotune.active_config("fused_three_stage")
         return fused_three_stage(
             mlut.contiguous(), table.contiguous(), codes.contiguous(),
             valid.contiguous(), cids.contiguous(), q0, q1,
             *(a.contiguous() for a in args[2:-1]),
-            slot_idx.to(torch.int32).contiguous(), cap_c=cap_c, metric=metric)
+            slot_idx.to(torch.int32).contiguous(), cap_c=cap_c, metric=metric,
+            **cfg.launch())
     return fused_three_stage_plain(mlut, table, codes[cids], valid[cids],
                                    *args, cap_c=cap_c, metric=metric)
 

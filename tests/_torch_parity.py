@@ -67,6 +67,20 @@ def jax_stream_draws(key, n: int, d: int, cfg: JaxConfig) -> StreamDraws:
                        build=jax_build_draws(key, min(n, t_max), d, cfg))
 
 
+def jax_kv_draws(key, n_heads: int, n_sub: int, n_points: int,
+                 n_entries: int) -> np.ndarray:
+    """The k-means init draws ``repro.models.juno_attention.build_kv_index``
+    makes with ``key``, replayed with ``jax.random`` along its key-split
+    structure (one key a head, split into one a subspace, each a
+    ``core/kmeans.py:102`` choice): (H, S_sub, E) point indices."""
+    choice = jax.random.choice
+    return np.stack([
+        np.stack([np.asarray(choice(k2, n_points, (n_entries,),
+                                    replace=n_points < n_entries))
+                  for k2 in jax.random.split(kk, n_sub)])
+        for kk in jax.random.split(key, n_heads)])
+
+
 def assert_ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, *,
                                 rtol=1e-5, atol=1e-6):
     """Scores within tolerance; ids equal except inside runs of tied scores.

@@ -17,7 +17,10 @@ and ``dist`` agree within rtol 1e-5 (f32 sums over S in another order),
 plus atol 1e-6: these LUTs hold N(0, 1) entries, so a sum of S <= 8 of them
 can cancel to near 0, where a few ulps of the terms exceed rtol. The
 ``pq_scan`` sums run to S = 100, so they are held within 1e-5 of the sum of
-their terms' magnitudes instead, with the ±inf placement equal.
+their terms' magnitudes instead, with the ±inf placement equal. The two
+fused scans at every launch shape the autotuner may pick must equal the
+default launch bit for bit (every output), and a shape off the lattice is
+refused.
 """
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import torch
 from _torch_lut_views import FORMS, contiguous_planes, qsub_view
 from _torch_rt_grids import probe_inputs, synth_grid
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import autotune as pat
 from repro_torch.kernels import fused_three_stage as pf3
 from repro_torch.kernels import fused_two_stage as pfused
 from repro_torch.kernels import hit_count as phit
@@ -783,6 +787,142 @@ def test_fused_scans_launch_two_kernels(cuda):
                                       cap_c=40)
     for a, b in zip(calls["three"](), want):
         assert torch.equal(a, b)
+
+
+# the autotuner's launch lattice (kernels/autotune.py): every shape gives the
+# default's bits from both fused kernels. P past the count kernel's
+# 4096-point chunk and the select kernel's widest window where the batch is
+# small (Q·np <= 128), 700 otherwise.
+def _lattice_case(seed, q, s, n_probe, layout, tables):
+    """Index-form inputs: valid slots scattered (a quarter) or packed at
+    the front of each cluster, and a dense {-1, 0, +1} table or a sparse
+    one whose counts tie in bulk, so θ-ties straddle probes."""
+    p = 4500 if q * n_probe <= 128 else 700
+    e = 32 if s == 7 else 256
+    lut, table, codes, valid, cids = _index_form(
+        seed, 0.25, s=s, e=e, p=p, n_clusters=24, q=q, n_probe=n_probe,
+        signed=seed % 2 == 1)
+    if layout == "packed":
+        fill = torch.linspace(0, p, 24, device=valid.device).long()
+        valid = torch.arange(p, device=valid.device)[None, :] < fill[:, None]
+    if tables == "sparse":
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        table *= (torch.rand(table.shape, generator=g, device=table.device)
+                  < 0.03).to(torch.int8)
+    return lut, table, codes, valid, cids
+
+
+@pytest.mark.parametrize("n_probe", [1, 16])
+@pytest.mark.parametrize("s", [7, 48, 100])
+@pytest.mark.parametrize("q", [1, 8, 32, 128])
+def test_launch_lattice_bit_equal_to_default(cuda, q, s, n_probe):
+    """Every launch shape the autotuner may pick (the count kernel's
+    (threads, points a thread), the select kernel's threads) returns the
+    default launch's counts, dist, cand, cand_dist and probe_ok bit for
+    bit: at S 7 (the generic path) and the two compiled S, np 1 and 16, C
+    from 1 to np·P, probe masks none, half and probe 0 only (the sphere
+    test's mixed and none verdicts for the three-stage kernel), scattered
+    and packed valid slots, and sparse tables whose θ-ties straddle
+    probes."""
+    shapes = pat.candidates(pat.backend_name(cuda))
+    assert len(shapes) == 6 and shapes[0] == pat.KernelConfig()
+    for layout, tables in (("scattered", "dense"), ("packed", "sparse"),
+                           ("scattered", "sparse")):
+        lut, table, codes, valid, cids = _lattice_case(
+            q + s + n_probe, q, s, n_probe, layout, tables)
+        p = valid.shape[1]
+        half = torch.rand((q, n_probe), device=cuda) < 0.5
+        probe0 = torch.zeros((q, n_probe), dtype=torch.bool, device=cuda)
+        probe0[:, 0] = True
+        grids = [[torch.from_numpy(a).to(cuda)
+                  for a in synth_grid(s + q, 4, 16, q, n_probe, radii=r)]
+                 for r in ("mixed", "none")]
+        for cap_c in sorted({1, 33, n_probe * p // 2 + 1, n_probe * p}):
+            kw = dict(cap_c=cap_c, metric="ip" if s == 100 else "l2")
+            calls = [lambda cfg, pok=pok: pfused.fused_two_stage(
+                lut, table, codes, valid, cids, probe_ok=pok, **kw,
+                **cfg.launch()) for pok in (None, half, probe0)]
+            calls += [lambda cfg, g=g: pf3.fused_three_stage(
+                lut, table, codes, valid, cids, *g[:3], *g[5:8],
+                g[8], **kw, **cfg.launch()) for g in grids]
+            for call in calls:
+                base = call(shapes[0])
+                for cfg in shapes[1:]:
+                    got = call(cfg)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, base):
+                        assert torch.equal(a, b), (layout, tables, cap_c,
+                                                   cfg)
+
+
+def test_launch_lattice_two_kernels_a_call(cuda):
+    """At every launch shape, an ``ops`` call of either fused scan with
+    that config installed is its count and select kernels and nothing
+    else (by capture)."""
+    lut, table, codes, valid, cids = _index_form(99, 0.5, s=48, q=8,
+                                                 n_probe=6)
+    grid = [torch.from_numpy(a).to(cuda) for a in synth_grid(99, 4, 16, 8, 6)]
+    sph = (*grid[:3], *grid[5:9])
+    try:
+        for cfg in pat.candidates(pat.backend_name(cuda)):
+            for kernel in pat.KERNELS:
+                pat.set_config(kernel, cfg)
+            for call in (lambda: ops.fused_two_stage_scan(
+                    lut, table, codes, valid, cids, cap_c=40),
+                    lambda: ops.fused_three_stage_scan(
+                        lut, table, codes, valid, cids, *sph, cap_c=40)):
+                call()
+                torch.cuda.synchronize()
+                nodes = _captured_nodes(call)
+                assert len(nodes) == 2, (cfg, nodes)
+                assert "count_kernel" in nodes[0], (cfg, nodes)
+                assert "select_kernel" in nodes[1], (cfg, nodes)
+    finally:
+        pat.reset()
+
+
+@pytest.mark.parametrize("knobs", [dict(count_threads=64),
+                                   dict(count_threads=128),
+                                   dict(count_threads=128,
+                                        count_per_thread=32),
+                                   dict(count_per_thread=8),
+                                   dict(select_threads=1024),
+                                   dict(select_threads=0)])
+def test_launch_lattice_refuses_unknown_knobs(cuda, knobs):
+    """A launch shape off the lattice is refused by the C entry point
+    before anything launches: the wrappers raise and count no launch."""
+    lut, table, codes, valid, cids = _index_form(98, 0.5, s=48)
+    grid = [torch.from_numpy(a).to(cuda) for a in synth_grid(98, 4, 16, 3, 4)]
+    launch = dict(pat.KernelConfig().launch(), **knobs)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="at launch"):
+        pfused.fused_two_stage(lut, table, codes, valid, cids, cap_c=10,
+                               **launch)
+    with pytest.raises(RuntimeError, match="at launch"):
+        pf3.fused_three_stage(lut, table, codes, valid, cids, *grid[:3],
+                              *grid[5:9], cap_c=10, **launch)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_two_stage"] == 0
+    assert _build.LAUNCHES["fused_three_stage"] == 0
+
+
+def test_autotune_measures_and_caches_on_the_card(cuda, tmp_path):
+    """``tune`` on the card times every launch shape (the engines' problem
+    shape) and picks one of them; ``ensure_tuned`` writes a cache that
+    reads back for this card and build only."""
+    timed = pat.measure("fused_two_stage", repeats=3, device=cuda)
+    assert [c for c, _ in timed] == pat.candidates(pat.backend_name(cuda))
+    assert all(ms > 0 for _, ms in timed)
+    path = tmp_path / "autotune.json"
+    try:
+        got = pat.ensure_tuned(path, repeats=3, device=cuda)
+        assert pat.load_cache(path, backend=pat.backend_name(cuda)) == got
+        assert pat.load_cache(path, backend=pat.backend_name(cuda),
+                              kernels="another build") is None
+        assert pat.load_cache(path, backend="cpu") is None
+    finally:
+        pat.reset()
+
 
 def test_scans_with_probe_mask(cuda):
     """pq_scan, hit_count and fused_two_stage with a probe_ok mask equal
