@@ -204,12 +204,27 @@ Phases, each raising on failure:
    the card's init draws: codebooks within 1e-2, every differing code a
    near-tie; the top-C positions equal up to score ties and the output
    within 4 bf16 ulps), and ``traffic_model``'s bytes;
-7. the kernel line, then the card line, then the result line. A
+7. ``lm.phi4_mini`` — the dense LM serving path (``repro_torch.models``,
+   ``serve/engine.py``; plain PyTorch: the reference's LM path reaches no
+   kernel) on phi4-mini-3.8b FULL in bf16 from a seeded random init: the
+   init's parameters, bytes and seconds; a ``ServeEngine`` of 8 slots of
+   4096 positions serving 16 requests (prompts 32-1024 tokens, 16-64 new)
+   to the end: ticks, ms a tick (median, p99), tokens/s, the tick's byte
+   bound beside a CUDA-event time of one plain decode and of the engine's
+   CUDA graph of it and of the K cache's f32 upcast, every request's
+   output equal to a replay of the same ticks through plain ``decode``;
+   prefill (B 4, T 4096: the flash path) and one decode against
+   ``forward`` in f32 at 4 layers (within 2e-2) and in bf16 at 32
+   (recorded); a 2-layer slice on the CPU (logits within 2^-5 of the
+   largest); JUNO-attention on layer 0's keys of that prefill at top_c
+   256, 512 and 1024 (rel_err, cosine, ms beside exact attention; top_c =
+   S within 4 bf16 ulps); no kernel of the port launched;
+8. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes, the ``mutate`` rounds, the first
    pass of each paged engine, the ``obs`` passes, the ``dist`` and
-   ``fleet`` phases, the ``autotune`` engines' configured passes and the
-   ``pipeline`` builds and 10M engine passes
+   ``fleet`` phases, the ``autotune`` engines' configured passes, the
+   ``pipeline`` builds and 10M engine passes and ``lm.phi4_mini`` (none)
    (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
@@ -230,6 +245,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gzip
 import hashlib
 import json
@@ -249,7 +265,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-from repro_torch import rt  # noqa: E402
+from repro_torch import resolve_device, rt  # noqa: E402
 from repro_torch.build import (ArtifactError, ArtifactStore,  # noqa: E402
                                BuildProbe, array_source, build_streaming,
                                load_index, merge_shards, rebuild_index,
@@ -277,9 +293,14 @@ from repro_torch.kernels import pq_scan as pqs  # noqa: E402
 from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
 from repro_torch.kernels.ref import NEG  # noqa: E402
+from repro_torch.configs import get_config as get_lm_config  # noqa: E402
 from repro_torch.models import (build_kv_index, draw_kv_init,  # noqa: E402
                                 encode_step, juno_decode_attention,
                                 kv_index_from_arrays, traffic_model)
+from repro_torch.models import get_model, init_params  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import params as lm_params  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.juno_attention import (_approx_scores,  # noqa: E402
                                                _top_positions)
 from repro_torch.obs import (MetricsRegistry, Observability,  # noqa: E402
@@ -287,6 +308,7 @@ from repro_torch.obs import (MetricsRegistry, Observability,  # noqa: E402
                              write_jsonl)
 from repro_torch.serve import ann as ann_lib  # noqa: E402
 from repro_torch.serve.ann import AnnServeEngine  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.fleet import (AnnServeFleet,  # noqa: E402
                                      _ShardedAnnServeEngine)
 from repro_torch.serve.paged import (PagedAnnServeEngine,  # noqa: E402
@@ -3898,6 +3920,330 @@ def phase_attention(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# LM phase
+# ---------------------------------------------------------------------------
+# phi4-mini-3.8b FULL (configs/phi4_mini_3_8b.py: 32 layers, d 3072, 24 query
+# heads on 8 KV heads, d_ff 8192, vocab 200,064), bf16, random init
+LM = dict(arch="phi4_mini_3_8b", n_slots=8, max_seq=4096, n_requests=16,
+          prompt=(32, 1024), max_new=(16, 64), check_layers=4, batch=4,
+          seq=4096, slice_layers=2, slice_batch=2, slice_tokens=64,
+          entries=16, q_scale=0.5)
+LM_TOP_C = (256, 512, 1024)
+LM_CONSISTENCY_TOL = 2e-2      # tests/test_arch_smoke.py:114, rtol = atol
+# the card's 2-layer bf16 logits against the CPU's on the same weights and
+# tokens: within 2^-5 of the largest magnitude, four bf16 ulps at the top
+# (another accumulation order in every bf16 product; the tolerance the CPU
+# tests hold the port to the reference with), written before the first run
+LM_SLICE_TOL = 2.0 ** -5
+
+
+class TickLogEngine(ServeEngine):
+    """A :class:`ServeEngine` that records each tick's tokens, positions
+    and the request id in each slot (-1 for a free one) as it hands them
+    to its decode (a CUDA graph from the second tick on)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.ticks = []
+
+    def _tick(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        self.ticks.append((tokens[:, 0].copy(), pos.copy(),
+                           [-1 if r is None else r.rid
+                            for r in self.slot_req]))
+        return super()._tick(tokens, pos)
+
+
+def lm_requests(rng, vocab: int) -> list:
+    lens = rng.integers(LM["prompt"][0], LM["prompt"][1] + 1,
+                        LM["n_requests"])
+    new = rng.integers(LM["max_new"][0], LM["max_new"][1] + 1,
+                       LM["n_requests"])
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)).tolist(),
+                    max_new=int(m)) for i, (n, m) in enumerate(zip(lens, new))]
+
+
+def replay_ticks(model, params, ticks: list, reqs: list, n_slots: int,
+                 max_seq: int, dev) -> dict:
+    """The engine's tick schedule (:class:`TickLogEngine`'s) replayed through
+    ``model.decode`` (plain PyTorch, no graph) on a fresh cache: every logit
+    finite, each tick's fed tokens the prompt's or the replay's last pick,
+    each request's ``out`` equal to the replay's picks (the same device and
+    batch: bit-equal), no position past ``max_seq``."""
+    cache = init_params(model.cache_schema(n_slots, max_seq), device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    picks = []
+    for token, pos, _ in ticks:
+        logits, cache = model.decode(
+            params, cache, torch.from_numpy(token[:, None]).to(dev),
+            torch.from_numpy(pos).to(dev))
+        finite &= torch.isfinite(logits).all()
+        picks.append(torch.argmax(logits, dim=-1))
+    if not bool(finite):
+        raise AssertionError("lm: a non-finite logit in the replay")
+    picks = torch.stack(picks).cpu().numpy()
+    by_rid = {r.rid: r for r in reqs}
+    want = {r.rid: [] for r in reqs}
+    for t, (tokens, positions, rids) in enumerate(ticks):
+        for s, rid in enumerate(rids):
+            if rid < 0:
+                continue
+            prompt, p = by_rid[rid].prompt, int(positions[s])
+            fed = prompt[p] if p < len(prompt) else want[rid][-1]
+            if tokens[s] != fed:
+                raise AssertionError(f"lm: tick {t} slot {s} fed "
+                                     f"{tokens[s]}, not {fed}")
+            if p >= len(prompt) - 1:
+                want[rid].append(int(picks[t, s]))
+    for r in reqs:
+        if r.out != want[r.rid]:
+            raise AssertionError(f"lm: request {r.rid}'s output differs from "
+                                 f"the replay through decode")
+    max_pos = max(int(p.max()) for _, p, _ in ticks)
+    if max_pos >= max_seq:
+        raise AssertionError(f"lm: position {max_pos} past max_seq {max_seq}")
+    live = [sum(int(p[s]) + 1 for s, rid in enumerate(rids) if rid >= 0)
+            for _, p, rids in ticks]
+    return {"ticks": len(ticks), "max_pos": max_pos,
+            "outputs_equal": len(reqs),
+            "live_cache_share": statistics.mean(live) / (n_slots * max_seq)}
+
+
+def lm_consistency(cfg, params, tokens: torch.Tensor, dev) -> dict:
+    """``prefill`` of tokens[:, :-1] and one ``decode`` of the last token
+    against ``forward`` at the same two positions: (the forward logits at
+    T-2 and T-1, prefill's, decode's), (B, V) f32 each."""
+    model = get_model(cfg)
+    b, t = tokens.shape
+    x = lm_transformer.forward(cfg, params, tokens)
+    full = lm_transformer.lm_logits(cfg, params, x[:, -2:])
+    del x
+    cache = init_params(model.cache_schema(b, t), device=dev)
+    pre, cache = model.prefill(params, {"tokens": tokens[:, :-1]}, cache)
+    dec, cache = model.decode(params, cache, tokens[:, -1:], t - 1)
+    return {"forward": full, "prefill": pre, "decode": dec, "cache": cache}
+
+
+def _logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    return {"max_abs_diff": float((got - want).abs().max()),
+            "max_abs": float(want.abs().max()),
+            "top1_agree": float((got.argmax(-1) == want.argmax(-1))
+                                .float().mean())}
+
+
+def _first_layers(params: dict, n: int, fn=lambda x: x) -> dict:
+    return {"embed": fn(params["embed"]), "final_norm":
+            fn(params["final_norm"]), "lm_head": fn(params["lm_head"]),
+            "blocks": lm_params.tree_map(lambda x: fn(x[:n]),
+                                         params["blocks"])}
+
+
+def phase_lm(seed: int, card: str) -> dict:
+    """``lm.phi4_mini``: the dense LM serving path (``repro_torch.models``,
+    ``serve/engine.py``; plain PyTorch, no kernel of the port) on
+    phi4-mini-3.8b FULL in bf16 from a seeded random init.
+
+    1. init: parameter count, bytes, seconds;
+    2. serve: :class:`ServeEngine` with 8 slots of 4096 positions, 16
+       requests (prompts 32-1024 tokens, ``max_new`` 16-64, from the seed)
+       to the end; ms a tick (median, p99), tokens/s, the tick's byte
+       bound, a CUDA-event time of one decode at the same batch and of the
+       f32 upcast of the K cache it makes; every output equal to a replay
+       of the same ticks through ``api.decode`` (:func:`replay_ticks`);
+    3. consistency: prefill (B 4, T 4096, the flash path) and one decode
+       against ``forward`` in f32 at 4 layers, within
+       ``LM_CONSISTENCY_TOL``; then in bf16 at 32 layers, recorded;
+    4. a CPU slice: the embedding, blocks 0-1, final norm and head copied
+       to the CPU, 64 tokens a row through the CPU path, the logits within
+       ``LM_SLICE_TOL`` of the card's 2-layer run;
+    5. JUNO-attention on the model's keys (``examples/juno_attention_lm.py``
+       on the port): layer 0's K cache from step 3's bf16 prefill indexed,
+       ``juno_decode_attention`` at top_c 256/512/1024 against the port's
+       exact ``layers.attention`` (rel_err, cosine, ms), top_c = S within
+       ``ATTN_TOL`` of exact.
+    """
+    dev = resolve_device()
+    cfg = get_lm_config(LM["arch"])
+    out: dict = {"config": cfg.name, "dtype": cfg.dtype, "card": card,
+                 "shape": dict(LM)}
+    secs: dict = {}
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    # 1. init
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(model.schema, gen, device=dev, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    leaves = lm_params.tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    if n_params != cfg.n_params() + cfg.d_model:     # + the final norm
+        raise AssertionError(f"lm: {n_params} parameters for "
+                             f"{cfg.n_params()} + {cfg.d_model}")
+    out["init"] = {"n_params": n_params, "bytes": sum(
+        x.numel() * x.element_size() for x in leaves),
+        "seconds": time.perf_counter() - t0}
+    secs["init"] = time.perf_counter() - t_phase
+
+    # 2. serve
+    rng = np.random.default_rng(seed)
+    reqs = lm_requests(rng, cfg.vocab_size)
+    eng = TickLogEngine(model, params, n_slots=LM["n_slots"],
+                  max_seq=LM["max_seq"], device=dev)
+    for r in reqs:
+        eng.submit(r)
+    tick_s = []
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        t1 = time.perf_counter()
+        eng.step()
+        tick_s.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    fed = sum(len(r.prompt) for r in reqs) + sum(len(r.out) for r in reqs)
+    generated = sum(len(r.out) for r in reqs)
+    ms = sorted(s * 1e3 for s in tick_s)
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in lm_params.tree_leaves(eng.cache))
+    weight_bytes = out["init"]["bytes"] - params["embed"].numel() * 2
+    # a tick reads every weight but the embedding table (B rows of it) and
+    # the whole cache (the grouped decode masks it by position, unsliced)
+    tick_bytes = (weight_bytes + cache_bytes
+                  + LM["n_slots"] * cfg.d_model * 2)
+    ticks = eng.ticks
+    tok = torch.from_numpy(ticks[-1][0][:, None]).to(dev)
+    pos = torch.from_numpy(ticks[-1][1]).to(dev)
+    k0 = eng.cache["blocks"]["k"][0]
+    serve = {
+        "requests": len(reqs), "ticks": len(tick_s), "seconds": wall,
+        "tick_ms_first": tick_s[0] * 1e3,
+        "tick_ms_median": statistics.median(ms),
+        "tick_ms_p99": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+        "tokens_fed": fed, "tokens_generated": generated,
+        "tokens_per_s": fed / wall, "generated_per_s": generated / wall,
+        "cache_bytes": cache_bytes, "tick_bytes": tick_bytes,
+        "tick_bound_ms": tick_bytes / HBM_BYTES_PER_S * 1e3,
+        # one decode at the same batch: plain (the host's launches in it)
+        # and the engine's CUDA graph of it (the device's time)
+        "decode_ms": time_ms(lambda: model.decode(params, eng.cache, tok,
+                                                  pos), reps=10),
+        "graph_ms": time_ms(eng._graph[0].replay, reps=10),
+        # the grouped path's f32 copy of one layer's K cache, times layers
+        "k_upcast_ms_per_tick": cfg.n_layers * time_ms(
+            lambda: k0.transpose(1, 2).to(
+                torch.float32, memory_format=torch.contiguous_format))}
+    del eng
+    torch.cuda.empty_cache()
+    serve.update(replay_ticks(model, params, ticks, reqs, LM["n_slots"],
+                              LM["max_seq"], dev))
+    out["serve"] = serve
+    secs["serve"] = time.perf_counter() - t_phase - sum(secs.values())
+    del ticks
+    torch.cuda.empty_cache()
+
+    # 3. consistency: f32 at 4 layers (gated), bf16 at 32 (recorded)
+    gen_t = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM["batch"], LM["seq"] + 1),
+                           generator=gen_t, device=dev, dtype=torch.int32)
+    cfg4 = dataclasses.replace(cfg, n_layers=LM["check_layers"],
+                               dtype="float32")
+    c4 = lm_consistency(cfg4, _first_layers(params, LM["check_layers"],
+                                            lambda x: x.float()), tokens, dev)
+    cons = {}
+    for name, got, want in (("prefill", c4["prefill"], c4["forward"][:, 0]),
+                            ("decode", c4["decode"], c4["forward"][:, 1])):
+        cons[f"f32_{name}"] = _logit_diff(got, want)
+        bad = (got - want).abs() > LM_CONSISTENCY_TOL * (1 + want.abs())
+        if bool(bad.any()):
+            raise AssertionError(f"lm f32 {LM['check_layers']} layers: "
+                                 f"{name} differs from forward by "
+                                 f"{cons[f'f32_{name}']['max_abs_diff']}")
+    del c4
+    torch.cuda.empty_cache()
+    c32 = lm_consistency(cfg, params, tokens, dev)
+    for name, got, want in (("prefill", c32["prefill"], c32["forward"][:, 0]),
+                            ("decode", c32["decode"], c32["forward"][:, 1])):
+        if got.shape != (LM["batch"], cfg.vocab_size) or not bool(
+                torch.isfinite(got).all() & torch.isfinite(want).all()):
+            raise AssertionError(f"lm bf16: {name} logits {tuple(got.shape)}"
+                                 f" or non-finite")
+        cons[f"bf16_{name}"] = _logit_diff(got, want)
+    out["consistency"] = cons
+    secs["consistency"] = time.perf_counter() - t_phase - sum(secs.values())
+
+    # 4. the CPU slice: 2 layers, 64 tokens a row
+    cfg2 = dataclasses.replace(cfg, n_layers=LM["slice_layers"])
+    toks = tokens[:LM["slice_batch"], :LM["slice_tokens"]]
+    p2 = _first_layers(params, LM["slice_layers"])
+    card_logits = lm_transformer.lm_logits(
+        cfg2, p2, lm_transformer.forward(cfg2, p2, toks)).cpu()
+    p2_cpu = _first_layers(params, LM["slice_layers"], lambda x: x.cpu())
+    t0 = time.perf_counter()
+    cpu_logits = lm_transformer.lm_logits(
+        cfg2, p2_cpu, lm_transformer.forward(cfg2, p2_cpu, toks.cpu()))
+    sl = {"seconds_cpu": time.perf_counter() - t0,
+          **_logit_diff(cpu_logits, card_logits), "tol": LM_SLICE_TOL}
+    if sl["max_abs_diff"] > LM_SLICE_TOL * sl["max_abs"]:
+        raise AssertionError(f"lm: the CPU's 2-layer logits differ from the "
+                             f"card's by {sl['max_abs_diff']}")
+    out["cpu_slice"] = sl
+    del p2_cpu, cpu_logits, card_logits
+    secs["cpu_slice"] = time.perf_counter() - t_phase - sum(secs.values())
+
+    # 5. JUNO-attention on layer 0's keys of the bf16 prefill
+    s = LM["seq"]
+    k = c32["cache"]["blocks"]["k"][0][:, :s]            # the prompt's keys
+    v = c32["cache"]["blocks"]["v"][0][:, :s]
+    del c32
+    b = LM["batch"]
+    q = (torch.randn((b, 1, cfg.n_heads, cfg.head_dim), generator=gen_t,
+                     device=dev) * LM["q_scale"]).to(k.dtype)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_kv_index(k, n_entries=LM["entries"], seed=seed)
+    torch.cuda.synchronize()
+
+    def exact_fn():
+        return lm_layers.attention(q, k, v, causal=True, q_offset=pos,
+                                   kv_len=pos + 1, chunk=cfg.attn_chunk)
+    exact = exact_fn()
+    juno = {"build_s": time.perf_counter() - t0, "exact_ms": time_ms(exact_fn),
+            "data": f"layer 0's K/V of the bf16 prefill (B {b}, S {s}); "
+                    f"q ~ N(0, 1) * {LM['q_scale']}", "decode": []}
+    for top_c in LM_TOP_C:
+        got = juno_decode_attention(q, index, k, v, pos, top_c=top_c)
+        if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"lm juno top_c={top_c}: shape or finite")
+        err, cos = _rel_err(got, exact)
+        juno["decode"].append({"top_c": top_c, "rel_err": err, "cosine": cos,
+                               "ms": time_ms(lambda c=top_c:
+                                             juno_decode_attention(
+                                                 q, index, k, v, pos,
+                                                 top_c=c))})
+    full = juno_decode_attention(q, index, k, v, pos, top_c=s)
+    bound = ATTN_TOL * max(1.0, float(exact.float().abs().max()))
+    juno["full_top_c_max_abs_err"] = float((full.float() - exact.float())
+                                           .abs().max())
+    if juno["full_top_c_max_abs_err"] > bound:
+        raise AssertionError(f"lm juno top_c=S: "
+                             f"{juno['full_top_c_max_abs_err']} from exact "
+                             f"attention (limit {bound})")
+    out["juno_attention"] = juno
+    secs["juno_attention"] = time.perf_counter() - t_phase - sum(
+        secs.values())
+    out["launches"] = dict(_build.LAUNCHES)
+    if any(out["launches"].values()):
+        raise AssertionError(f"lm: the LM path launched a kernel of the "
+                             f"port: {out['launches']}")
+    out["max_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = secs
+    log("lm.phi4_mini", **out)
+    del params, k, v, index, exact, full
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # pipeline phase
 # ---------------------------------------------------------------------------
 N_STREAM = 10_000_000          # the DEEP10M subset's size
@@ -4306,13 +4652,14 @@ def phase_serve(name: str, spec, seed: int, n_points: int, card: str,
     return out
 
 
-def kernel_line(kernels: dict, serves: list[dict]) -> dict:
+def kernel_line(kernels: dict, serves: list[dict], lm: dict) -> dict:
     line = []
     for name, rows in kernels.items():
         head = rows[0]
         src, replaces = SOURCES[name]
-        counts = {key: sum(e["launches"][key] for s in serves
-                           for e in s["engines"].values())
+        counts = {key: lm["launches"][key]
+                  + sum(e["launches"][key] for s in serves
+                        for e in s["engines"].values())
                   + sum(s["mutate"]["launches"][key]
                         + s["paged"]["launches"][key] for s in serves)
                   + sum(ls[key] for s in serves
@@ -4365,6 +4712,7 @@ def main() -> int:
                           args.out, tune["tuned"], args.hit_calls)
               for name, spec in (("l2", DEEP_LIKE), ("ip", TTI_LIKE))]
     attn = phase_attention(args.seed, device["nvidia_smi"])
+    lm = phase_lm(args.seed, device["nvidia_smi"])
     # the probe entry on each index's own grid leads its rows (the l2 np 16
     # row heads the line): that is the main path's shape (cap is the
     # fullest cell's, known after the build); the dense entry on each grid
@@ -4376,10 +4724,11 @@ def main() -> int:
                                         for r in s["hit_count_pass"]]
     kernels["kernels"]["pq_scan"] += [r for s in serves
                                       for r in s["pq_scan_pass"]]
-    line = kernel_line(kernels["kernels"], serves)
+    line = kernel_line(kernels["kernels"], serves, lm)
     report = {"device": device, **kernels, "serve": serves,
               "autotune": {k: tune[k] for k in ("rows", "cache")},
-              "attention": attn, "seconds": time.perf_counter() - t_start}
+              "attention": attn, "lm": lm,
+              "seconds": time.perf_counter() - t_start}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     print(json.dumps(line), flush=True)

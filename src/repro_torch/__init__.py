@@ -22,6 +22,11 @@ observability (``obs/``: metrics, spans, JSONL export, the online recall
 probe), the cluster-sharded index (``dist/``: one ``torch.device`` a
 shard, searched in one process and merged exactly) and the replica fleet
 (``serve/fleet.py``: routing, admission, failover, fan-out writes,
-sharded and paged replicas). See ROADMAP.md for what is still to come.
+sharded and paged replicas). On the LM side: JUNO-attention
+(``models/juno_attention.py``) and the dense decoder-only serving path
+(``models/``: config, params, layers, transformer, api; ``serve/engine.py``,
+the continuous-batching decode engine; ``configs/``, the four dense
+architectures; ``data/tokens.py``). See ROADMAP.md for what is still to
+come.
 """
 from .device import resolve_device  # noqa: F401

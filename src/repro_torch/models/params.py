@@ -1,0 +1,140 @@
+"""Declarative parameter schemas.
+
+Port of ``repro/models/params.py``. A schema is a tree of dicts whose
+leaves are ``Spec(shape, init, dtype)``; :func:`init_params` makes real
+tensors from it. There is no ``PartitionSpec``: the port runs on one
+device (sharding is ROADMAP queue 1 item 2.4). Stacked layers:
+:func:`stack` prepends a layer axis to every leaf, the layout the
+reference's ``lax.scan`` consumes; the port's layer loop slices it.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from ..device import resolve_device
+
+
+class Spec(NamedTuple):
+    """One parameter (or cache) leaf: its shape, its init and its dtype
+    (a ``torch.dtype`` or a dtype name such as ``"bfloat16"``)."""
+
+    shape: tuple
+    init: str = "normal"     # "normal" | "zeros" | "ones" | "neg" | "embed"
+    dtype: Any = torch.float32
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """``"bfloat16"`` / ``torch.bfloat16`` -> ``torch.bfloat16``."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def tree_map(fn: Callable, tree, is_leaf: Optional[Callable] = None):
+    """Apply ``fn`` to every leaf of a tree of dicts, keeping its shape."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts in sorted-key order (``jax.tree``'s)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack(schema, n: int):
+    """Prepend a stacked-layer axis of size n to every leaf."""
+    return tree_map(lambda s: Spec((n,) + s.shape, s.init, s.dtype), schema)
+
+
+def _one(s: Spec, gen: Optional[torch.Generator], dev: torch.device,
+         dtype: Optional[torch.dtype]) -> torch.Tensor:
+    dt = as_dtype(s.dtype)
+    if dtype is not None and dt.is_floating_point:
+        dt = dtype
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=dt, device=dev)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=dt, device=dev)
+    if s.init == "neg":
+        return torch.full(s.shape, -1, dtype=dt, device=dev)
+    if gen is None:
+        raise ValueError(f"a {s.init!r} leaf of shape {s.shape} needs a "
+                         f"generator")
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    scale = 0.02 if s.init == "embed" else fan_in ** -0.5
+    x = torch.randn(s.shape, generator=gen, device=dev, dtype=torch.float32)
+    return x.mul_(scale).to(dt)
+
+
+def init_params(schema, generator: Optional[torch.Generator] = None, *,
+                device=None, dtype=None):
+    """Materialise a schema as tensors on ``device``.
+
+    Parameters
+    ----------
+    schema : tree of dicts of :class:`Spec`
+    generator : torch.Generator, optional
+        Draws the ``normal`` and ``embed`` leaves, one after another in
+        sorted-key order; it must live on ``device``. Only a schema with
+        none of them (a decode cache) may go without one.
+    device : str or torch.device, optional
+        ``None`` = ``cuda``; ``"cpu"`` for the CPU.
+    dtype : torch.dtype or str, optional
+        Store every float leaf in this dtype instead of its Spec's (the
+        compute dtype, so that a model's weights are held once, as
+        :func:`cast_floats` would make them at each use).
+
+    Returns
+    -------
+    The same tree with tensors for leaves. Inits are the reference's: a
+    standard normal drawn in f32 times ``fan_in ** -0.5`` (``fan_in`` the
+    second-to-last dim), ``embed`` 0.02, ``zeros``, ``ones`` and ``neg``
+    (-1), then cast to the leaf's dtype. The reference draws from
+    ``jax.random``, so the values differ; carry its parameters across
+    with :func:`repro_torch.models.api.params_from_reference`.
+    """
+    dev = resolve_device(device)
+    dt = None if dtype is None else as_dtype(dtype)
+    out: dict = {}
+
+    def fill(sch, dst):
+        for k in sorted(sch):
+            if is_spec(sch[k]):
+                dst[k] = _one(sch[k], generator, dev, dt)
+            else:
+                dst[k] = {}
+                fill(sch[k], dst[k])
+    if is_spec(schema):
+        return _one(schema, generator, dev, dt)
+    fill(schema, out)
+    return out
+
+
+def cast_floats(tree, dtype):
+    """Cast float leaves to the compute dtype (the reference applies it per
+    block, at each use). A leaf already in ``dtype`` is returned as is."""
+    dt = as_dtype(dtype)
+
+    def one(x):
+        if isinstance(x, torch.Tensor) and x.dtype.is_floating_point:
+            return x.to(dt)
+        return x
+    return tree_map(one, tree)
+
+
+def n_params(schema) -> int:
+    """The number of elements the schema's leaves hold."""
+    total = 0
+    for s in tree_leaves(schema):
+        n = 1
+        for d in s.shape:
+            n *= d
+        total += n
+    return total

@@ -102,3 +102,34 @@ def assert_ids_equal_up_to_ties(ids, ref_ids, scores, ref_scores, *,
     assert not bad.any(), (
         f"{int(bad.sum())} ids differ outside score ties, first at "
         f"{np.argwhere(bad)[:5].tolist()}")
+
+
+def jax_token_draws(batch: int, seq: int, step: int, seed: int = 0,
+                    shard: int = 0) -> np.ndarray:
+    """The (batch, seq + 1) f32 uniform draws
+    ``repro.data.tokens.make_batch`` makes for (seed, step, shard),
+    replayed with ``jax.random`` (data/tokens.py:16-20), for the port's
+    ``make_batch(u=...)``."""
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed),
+                                                step), shard)
+    return np.asarray(jax.random.uniform(key, (batch, seq + 1)))
+
+
+def port_model_config(cfg):
+    """The port's ModelConfig (and its nested MoE/MLA/SSM configs) with
+    the field values of a ``repro.models.config.ModelConfig``."""
+    import dataclasses
+    from repro_torch.models import config as C
+    nested = {"moe": C.MoEConfig, "mla": C.MLAConfig, "ssm": C.SSMConfig}
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name in nested and v is not None:
+            v = nested[f.name](**dataclasses.asdict(v))
+        kw[f.name] = v
+    return C.ModelConfig(**kw)
+
+
+def to_numpy_tree(tree):
+    """A ``repro`` parameter or cache pytree as a tree of numpy arrays."""
+    return jax.tree.map(np.asarray, tree)

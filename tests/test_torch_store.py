@@ -361,13 +361,33 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.dist.distributed_index',\n"
         "        'repro_torch.serve.fleet', 'repro_torch.kernels.autotune',\n"
         "        'repro_torch.core.metrics', 'repro_torch.core.scan',\n"
-        "        'repro_torch.models.juno_attention'} <= walked, walked\n"
+        "        'repro_torch.models.juno_attention',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.models.api',\n"
+        "        'repro_torch.serve.engine', 'repro_torch.configs',\n"
+        "        'repro_torch.data.tokens'} <= walked, walked\n"
         "print(len(walked))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15   # every module of the port imported
+
+
+def test_card_test_helpers_import_no_jax():
+    """The card's machine has no JAX: its test file
+    (``tests/test_torch_kernels_gpu.py``, run there with ``--noconftest``)
+    and the helpers it imports must import neither ``jax`` nor ``repro``."""
+    code = (
+        "import sys\n"
+        "import _torch_lut_views, _torch_rt_grids, test_torch_kernels_gpu\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+        " or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), os.path.join(REPO, "tests")]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
