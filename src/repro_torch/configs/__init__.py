@@ -2,9 +2,8 @@
 
 Port of ``repro/configs``. Each ``<arch>.py`` holds FULL (the published
 config, the reference's numbers verbatim) and SMOKE (same family,
-reduced) ModelConfigs. The port runs the dense decoder-only family so
-far, so only its four architectures are registered; the others come with
-their blocks (ROADMAP queue 1 item 2.2).
+reduced) ModelConfigs, for all ten architectures, in the reference's
+order.
 """
 from __future__ import annotations
 
@@ -15,6 +14,12 @@ ARCH_IDS = [
     "mistral_large_123b",
     "deepseek_coder_33b",
     "h2o_danube_3_4b",
+    "whisper_large_v3",
+    "hymba_1_5b",
+    "deepseek_v2_lite_16b",
+    "llama4_scout_17b_a16e",
+    "llama_3_2_vision_90b",
+    "mamba2_1_3b",
 ]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

@@ -1,5 +1,6 @@
-"""The LM side of the port: the dense decoder-only transformer
-(``config``, ``params``, ``layers``, ``transformer``, ``api``) and
+"""The LM side of the port: the ten architectures' model code (``config``,
+``params``, ``layers``, ``transformer`` with ``moe``, ``mla`` and
+``mamba2``, ``whisper``, ``api``) and
 ``juno_attention``, JUNO's ANN search applied to the KV cache of
 decode-time attention (PQ-indexed keys, an approximate scan, exact
 attention over the top-C positions)."""

@@ -1,10 +1,10 @@
 """Family-dispatch API: one entry point per model kind.
 
-Port of ``repro/models/api.py`` for the decoder-only dense family:
-``get_model(cfg)`` returns a :class:`ModelAPI` whose callables the
-serving loop (``serve/engine.py``) drives. ``loss`` runs without autograd
-(training is ROADMAP queue 1 item 2.3); an encoder-decoder or
-cross-attention config is refused (item 2.2).
+Port of ``repro/models/api.py``: ``get_model(cfg)`` returns a
+:class:`ModelAPI` whose callables hide the family differences
+(decoder-only, cross-attention VLM, encoder-decoder) from the serving
+loop (``serve/engine.py``). ``loss`` runs without autograd (training is
+ROADMAP queue 1 item 2.3).
 
 Weights and caches carry across from the reference as numpy trees
 (:func:`params_from_reference`, :func:`cache_from_reference`), so the
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import transformer
+from . import transformer, whisper
 from .config import ModelConfig
 from .params import Spec, is_spec, tree_map
 
@@ -45,26 +45,39 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def _token_batch_schema(cfg: ModelConfig):
     def make(batch: int, seq: int) -> dict:
-        return {"tokens": Spec((batch, seq), "zeros", torch.int32),
-                "targets": Spec((batch, seq), "zeros", torch.int32)}
+        sch = {"tokens": Spec((batch, seq), "zeros", torch.int32),
+               "targets": Spec((batch, seq), "zeros", torch.int32)}
+        ctx = (batch, cfg.n_context_tokens, cfg.d_model)
+        if cfg.encoder_decoder:
+            sch["frames"] = Spec(ctx, "normal", cfg.dtype)
+        elif cfg.cross_attn_period:
+            sch["context"] = Spec(ctx, "normal", cfg.dtype)
+        return sch
     return make
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    """The API of a decoder-only dense config (other families raise
-    ``NotImplementedError``)."""
-    transformer.check_dense(cfg)
+    """The API of ``cfg``'s family: encoder-decoder (Whisper) or
+    decoder-only (every other, a VLM's batches carrying ``context``)."""
+    if cfg.encoder_decoder:
+        return _whisper_api(cfg)
+    return _decoder_api(cfg)
+
+
+def _decoder_api(cfg: ModelConfig) -> ModelAPI:
     schema = transformer.model_schema(cfg)
 
     def loss(params, batch):
         with torch.inference_mode():
-            x = transformer.forward(cfg, params, batch["tokens"])
+            x = transformer.forward(cfg, params, batch["tokens"],
+                                    context=batch.get("context"))
             logits = transformer.lm_logits(cfg, params, x)
             return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
         with torch.inference_mode():
-            return transformer.prefill(cfg, params, batch["tokens"], cache)
+            return transformer.prefill(cfg, params, batch["tokens"], cache,
+                                       context=batch.get("context"))
 
     def decode_fn(params, cache, token, pos):
         with torch.inference_mode():
@@ -73,6 +86,33 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg, schema=schema,
         cache_schema=lambda b, s: transformer.init_cache_schema(cfg, b, s),
+        batch_schema=_token_batch_schema(cfg),
+        loss=loss, prefill=prefill_fn, decode=decode_fn)
+
+
+def _whisper_api(cfg: ModelConfig) -> ModelAPI:
+    schema = whisper.model_schema(cfg)
+
+    def loss(params, batch):
+        with torch.inference_mode():
+            enc = whisper.encode(cfg, params, batch["frames"])
+            x = whisper.decoder_forward(cfg, params, batch["tokens"], enc)
+            logits = transformer.lm_logits(cfg, params, x)
+            return _xent(logits, batch["targets"])
+
+    def prefill_fn(params, batch, cache):
+        with torch.inference_mode():
+            return whisper.prefill(cfg, params, batch["frames"],
+                                   batch["tokens"], cache)
+
+    def decode_fn(params, cache, token, pos):
+        with torch.inference_mode():
+            return whisper.decode(cfg, params, cache, token, pos)
+
+    return ModelAPI(
+        cfg=cfg, schema=schema,
+        cache_schema=lambda b, s: whisper.init_cache_schema(
+            cfg, b, s, cfg.n_context_tokens),
         batch_schema=_token_batch_schema(cfg),
         loss=loss, prefill=prefill_fn, decode=decode_fn)
 
@@ -117,8 +157,10 @@ def params_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
     ----------
     tree : nested dict of numpy arrays
         ``repro``'s params (``jax.tree.map(np.asarray, params)``), with
-        the stacked ``blocks`` leaves of shape (L, ...), as the port keeps
-        them. Checked leaf by leaf against ``model_schema(cfg)``.
+        the stacked leaves as the port keeps them: ``blocks`` (L, ...), a
+        VLM's ``blocks`` (groups, self blocks, ...) and ``cross_blocks``
+        (groups, ...), Whisper's ``enc_blocks``/``dec_blocks``. Checked
+        leaf by leaf against the family's schema.
     cfg : ModelConfig
     device : str or torch.device, optional
         ``None`` = ``cuda``.
@@ -128,16 +170,24 @@ def params_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
     dict
         The same tree of tensors, values bit-equal to the source.
     """
-    return _from_tree(tree, transformer.model_schema(cfg),
-                      resolve_device(device), "params")
+    return _from_tree(tree, get_model(cfg).schema, resolve_device(device),
+                      "params")
 
 
 def cache_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
-    """The reference's decode cache (``{"blocks": {"k", "v"[, "kpos"]}}``,
-    leaves (L, B, S, ...)) as the port's, so that decode can go on from a
-    cache the reference filled. Checked against ``init_cache_schema`` at
-    the tree's own batch and length."""
-    k = tree["blocks"]["k"]
-    batch, seq = np.shape(k)[1], np.shape(k)[2]
-    schema = transformer.init_cache_schema(cfg, batch, seq)
+    """The reference's decode cache as the port's, so that decode can go
+    on from a cache the reference filled: ``{"blocks": ...}`` with the
+    family's leaves (``k``/``v``[/``kpos``], ``ckv``/``kr``,
+    ``conv``/``ssm``, Whisper's ``xk``/``xv``) stacked (L, B, ...), or a
+    VLM's (groups, self blocks, B, ...) beside ``cross_k``/``cross_v``
+    (groups, B, ...). Checked against the family's cache schema at the
+    tree's own batch and length."""
+    blocks = tree["blocks"]
+    lead = 2 if cfg.cross_attn_period else 1
+    if "k" in blocks or "ckv" in blocks:
+        shape = np.shape(blocks["k" if "k" in blocks else "ckv"])
+        batch, seq = shape[lead], shape[lead + 1]
+    else:                                   # an SSM's state has no length
+        batch, seq = np.shape(blocks["conv"])[lead], 1
+    schema = get_model(cfg).cache_schema(batch, seq)
     return _from_tree(tree, schema, resolve_device(device), "cache")

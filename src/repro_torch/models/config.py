@@ -4,9 +4,8 @@ Port of ``repro/models/config.py``, field for field: one declarative
 dataclass that each ``repro_torch/configs/<arch>.py`` instantiates with
 the published numbers. The model code dispatches on the ``attn_kind`` /
 ``mixer_kind`` / ``moe`` / ``cross_attn_period`` / ``encoder_decoder``
-fields. The port's model code runs the dense decoder-only family so far
-(``models/transformer.py:check_dense``); the other families' fields are
-kept so that every configuration, and its parameter count, carries over.
+fields, so every family (dense / MoE / MLA / SSM / hybrid / enc-dec /
+VLM) is a configuration, not a fork.
 """
 from __future__ import annotations
 

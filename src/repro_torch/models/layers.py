@@ -141,6 +141,18 @@ def decode_mask(pos: torch.Tensor, tk: int) -> torch.Tensor:
     return _valid(q_pos, k_pos, pos.long() + 1, causal=True, window=None)
 
 
+def update_index(pos: torch.Tensor, s: int, t: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows (B, 1), cols (B, T)) of a T-token write at per-batch start pos
+    into S slots, placed as ``lax.dynamic_update_slice`` places it: a
+    negative start counts from the end, and the start is clamped to
+    [0, S - T]."""
+    start = pos.long()
+    start = torch.where(start < 0, start + s, start).clamp(0, s - t)
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return rows, start[:, None] + torch.arange(t, device=pos.device)
+
+
 def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """:func:`attention`'s decode path (Tq <= 4) under its (B, Tq, Tk)

@@ -69,8 +69,13 @@ def _one(s: Spec, gen: Optional[torch.Generator], dev: torch.device,
                          f"generator")
     fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
     scale = 0.02 if s.init == "embed" else fan_in ** -0.5
-    x = torch.randn(s.shape, generator=gen, device=dev, dtype=torch.float32)
-    return x.mul_(scale).to(dt)
+    out = torch.empty(s.shape, dtype=dt, device=dev)
+    # a stacked leaf is drawn one slab of its leading (layer) axis at a
+    # time, so that its f32 draw is never whole on the device
+    for slab in (out if len(s.shape) >= 3 else (out,)):
+        slab.copy_(torch.randn(slab.shape, generator=gen, device=dev,
+                               dtype=torch.float32).mul_(scale))
+    return out
 
 
 def init_params(schema, generator: Optional[torch.Generator] = None, *,
@@ -96,7 +101,8 @@ def init_params(schema, generator: Optional[torch.Generator] = None, *,
     The same tree with tensors for leaves. Inits are the reference's: a
     standard normal drawn in f32 times ``fan_in ** -0.5`` (``fan_in`` the
     second-to-last dim), ``embed`` 0.02, ``zeros``, ``ones`` and ``neg``
-    (-1), then cast to the leaf's dtype. The reference draws from
+    (-1), then cast to the leaf's dtype; a leaf of three or more dims is
+    drawn slab by slab along its first. The reference draws from
     ``jax.random``, so the values differ; carry its parameters across
     with :func:`repro_torch.models.api.params_from_reference`.
     """

@@ -1,43 +1,36 @@
-"""The decoder-only transformer, dense family: GQA attention (full or
-sliding-window) and a SwiGLU MLP in every block.
+"""The unified decoder-only transformer: dense/GQA, sliding-window, MLA,
+MoE, SSM (Mamba-2), hybrid (attention and SSM in parallel) and
+interleaved cross-attention (VLM) families, one block stack parameterised
+entirely by ModelConfig.
 
-Port of the dense part of ``repro/models/transformer.py``. The layout is
-the reference's: block weights are stacked on a leading layer axis
-(``params["blocks"][...]`` of shape (L, ...)) and the decode cache the
-same way (``cache["blocks"]["k"]`` (L, B, S, KVH, hd)); the port loops
-over the layers and slices them. Activations are (B, T, D).
-
-A configuration of another family (MoE, MLA, SSM, hybrid, cross-attention
-or encoder-decoder) is refused with ``NotImplementedError``: those blocks
-are ROADMAP queue 1 item 2.2.
+Port of ``repro/models/transformer.py``. The layout is the reference's:
+block weights are stacked on a leading layer axis (``params["blocks"]``
+leaves (L, ...)), and for a VLM on two, (groups, self blocks a group,
+...), beside its ``cross_blocks`` (groups, ...); the decode cache is
+stacked the same way. The port loops over the layers and slices them.
+Activations are (B, T, D).
 
 The decode cache is updated IN PLACE (the reference returns a new cache
 from a jitted function that donates the old one); :func:`decode` and
 :func:`prefill` return the cache they were given.
+
+Two faults of the reference are copied for parity (ROADMAP queue 3):
+a sliding-window prefill stores the prompt's last ``w`` tokens at slots
+0.., which decode's ``pos mod w`` does not continue when the prompt is
+longer than the window and not a multiple of it; and a VLM's prefill
+projects the cached cross-attention K/V from the raw context, without
+``lnc`` and in the parameters' dtype, while :func:`cross_block_apply`
+normalises it, so decode differs from :func:`forward`.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from . import layers
+from . import layers, mamba2, mla as mla_lib, moe as moe_lib
 from .config import ModelConfig
 from .params import Spec, as_dtype, cast_floats, stack
-
-NOT_PORTED = "ROADMAP queue 1 item 2.2 (MoE, MLA, Mamba2, Whisper, cross-attention)"
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense decoder-only
-    GQA model, the family the port runs so far."""
-    other = [name for name, on in (
-        ("moe", cfg.moe is not None), ("attn_kind=mla", cfg.attn_kind == "mla"),
-        (f"mixer_kind={cfg.mixer_kind}", cfg.mixer_kind != "attn"),
-        ("cross_attn_period", bool(cfg.cross_attn_period)),
-        ("encoder_decoder", cfg.encoder_decoder)) if on]
-    if other or cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other) or cfg.attn_kind} is not ported "
-            f"to repro_torch yet; see {NOT_PORTED}")
 
 
 # --------------------------------------------------------------------------
@@ -57,19 +50,60 @@ def mlp_schema(cfg: ModelConfig) -> dict:
             "w_out": Spec((f, d))}
 
 
+def _mixer_schema(cfg: ModelConfig) -> dict:
+    sch: dict = {"ln1": Spec((cfg.d_model,), "ones")}
+    if cfg.mixer_kind in ("attn", "hybrid"):
+        sch["attn"] = (mla_lib.mla_schema(cfg) if cfg.attn_kind == "mla"
+                       else attn_schema(cfg))
+    if cfg.mixer_kind in ("ssm", "hybrid"):
+        sch["ssm"] = mamba2.mamba_schema(cfg)
+    if cfg.mixer_kind == "hybrid":
+        sch["attn_bn"] = Spec((cfg.d_model,), "ones")
+        sch["ssm_bn"] = Spec((cfg.d_model,), "ones")
+    return sch
+
+
+def _ffn_schema(cfg: ModelConfig) -> dict:
+    return (moe_lib.moe_schema(cfg.d_model, cfg.moe) if cfg.moe
+            else mlp_schema(cfg))
+
+
 def block_schema(cfg: ModelConfig) -> dict:
-    return {"ln1": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
-            "ln2": Spec((cfg.d_model,), "ones"), "mlp": mlp_schema(cfg)}
+    sch = _mixer_schema(cfg)
+    if cfg.mixer_kind != "ssm":                 # mamba2 blocks: mixer only
+        sch["ln2"] = Spec((cfg.d_model,), "ones")
+        sch["mlp"] = _ffn_schema(cfg)
+    return sch
+
+
+def cross_block_schema(cfg: ModelConfig) -> dict:
+    return {"ln1": Spec((cfg.d_model,), "ones"),
+            "lnc": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
+            "ln2": Spec((cfg.d_model,), "ones"), "mlp": _ffn_schema(cfg)}
+
+
+def groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, self blocks a group): a VLM's groups of ``period - 1``
+    self blocks, each followed by one cross block; otherwise one group of
+    every layer."""
+    if cfg.cross_attn_period:
+        return (cfg.n_layers // cfg.cross_attn_period,
+                cfg.cross_attn_period - 1)
+    return 1, cfg.n_layers
 
 
 def model_schema(cfg: ModelConfig) -> dict:
-    """The parameter schema: ``embed``, the stacked ``blocks``,
-    ``final_norm`` and (untied) ``lm_head``."""
-    check_dense(cfg)
+    """The parameter schema: ``embed``, the stacked ``blocks`` (and a
+    VLM's ``cross_blocks``), ``final_norm`` and (untied) ``lm_head``."""
     d, v = cfg.d_model, cfg.vocab_size
-    sch: dict = {"embed": Spec((v, d), "embed"),
-                 "blocks": stack(block_schema(cfg), cfg.n_layers),
-                 "final_norm": Spec((d,), "ones")}
+    sch: dict = {"embed": Spec((v, d), "embed")}
+    if cfg.cross_attn_period:
+        n_groups, per = groups(cfg)
+        sch["blocks"] = stack(stack(block_schema(cfg), per), n_groups)
+        sch["cross_blocks"] = stack(cross_block_schema(cfg), n_groups)
+    else:
+        sch["blocks"] = stack(block_schema(cfg), cfg.n_layers)
+    sch["final_norm"] = Spec((d,), "ones")
     if not cfg.tie_embeddings:
         sch["lm_head"] = Spec((d, v))
     return sch
@@ -81,46 +115,159 @@ def layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def self_layer(cfg: ModelConfig, tree: dict, g: int, j: int) -> dict:
+    """Self block ``j`` of group ``g`` of a stacked ``blocks`` tree."""
+    return layer(layer(tree, g), j) if cfg.cross_attn_period else layer(
+        tree, j)
+
+
+def rope_table(cfg: ModelConfig, positions: torch.Tensor):
+    """The RoPE table the blocks' attention rotates by at ``positions``
+    (at ``qk_rope_dim`` for MLA, ``head_dim`` otherwise; None for an
+    attention-free model), made once a pass."""
+    if cfg.mixer_kind == "ssm":
+        return None
+    dim = cfg.mla.qk_rope_dim if cfg.attn_kind == "mla" else cfg.head_dim
+    return layers.rope_table(positions, dim, cfg.rope_theta)
+
+
 # --------------------------------------------------------------------------
 # block application (full sequence: forward / prefill)
 # --------------------------------------------------------------------------
 
 
-def _mlp(x, p):
+def _mlp(x, p, cfg):
+    if cfg.moe:
+        return moe_lib.moe_ffn(x, p, cfg.moe)
     return layers.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+
+
+def _write_prefix(cache_arr: torch.Tensor, vals: torch.Tensor) -> None:
+    """Prefill's cache write of T tokens at slots 0..T-1."""
+    t = vals.shape[1]
+    if t > cache_arr.shape[1]:
+        raise ValueError(f"a prompt of {t} tokens does not fit a cache of "
+                         f"{cache_arr.shape[1]}")
+    cache_arr[:, :t] = vals
+
+
+def _write_kv(cfg, cache_block: dict, k, v) -> None:
+    """Prefill's K/V write at slot 0 on. With a sliding window, the last
+    ``keep = min(w, T)`` tokens go to slots 0..keep-1 (the reference's
+    layout: decode then writes position p at slot p mod w, so a prompt
+    longer than the window and not a multiple of it overwrites a slot that
+    is not the oldest; ROADMAP queue 3)."""
+    t = k.shape[1]
+    if cfg.sliding_window:
+        keep = min(cache_block["k"].shape[1], t)
+        cache_block["k"][:, :keep] = k[:, t - keep:]
+        cache_block["v"][:, :keep] = v[:, t - keep:]
+        cache_block["kpos"][:, :keep] = torch.arange(
+            t - keep, t, dtype=cache_block["kpos"].dtype, device=k.device)
+    else:
+        _write_prefix(cache_block["k"], k)
+        _write_prefix(cache_block["v"], v)
+
+
+def _write_state(cache_block: dict, conv, ssm) -> None:
+    cache_block["conv"].copy_(conv)
+    cache_block["ssm"].copy_(ssm)
+
+
+def _self_attn(cfg, x, p, positions, table, cache=None):
+    q, k, v = layers.gqa_qkv(x, p, cfg, positions, table)
+    if cache is not None:
+        _write_kv(cfg, cache, k, v)
+    o = layers.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                         chunk=cfg.attn_chunk)
+    return layers.attn_out(o, p)
+
+
+def _hybrid_mix(cfg, p, ya, ys):
+    return 0.5 * (layers.rms_norm(ya, p["attn_bn"], cfg.norm_eps)
+                  + layers.rms_norm(ys, p["ssm_bn"], cfg.norm_eps))
 
 
 def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, table, cache=None) -> torch.Tensor:
     """One block over a full sequence: x (B, T, D) -> (B, T, D)
-    (``table``: the RoPE table of ``positions``, made once a pass). With
-    ``cache``, this layer's decode cache, its K/V are written there, as
-    prefill does."""
+    (``table``: :func:`rope_table` of ``positions``). With ``cache``, this
+    layer's decode cache, the mixer's state is written there (K/V, the
+    latent ``ckv``/``kr``, or ``conv``/``ssm``), as prefill does."""
     p = cast_floats(p, cfg.dtype)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
-    if cache is not None:
-        _write_kv(cfg, cache, k, v)
-    o = layers.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                         chunk=cfg.attn_chunk)
+    if cfg.mixer_kind == "attn" and cfg.attn_kind == "mla":
+        if cache is not None:
+            ckv, kr = mla_lib._latent_kv(h, p["attn"], cfg, positions, table)
+            _write_prefix(cache["ckv"], ckv.to(cache["ckv"].dtype))
+            _write_prefix(cache["kr"], kr.to(cache["kr"].dtype))
+        x = x + mla_lib.mla_attention(h, p["attn"], cfg, positions,
+                                      table=table)
+    elif cfg.mixer_kind == "attn":
+        x = x + _self_attn(cfg, h, p["attn"], positions, table, cache)
+    elif cfg.mixer_kind == "ssm":
+        y, (conv, ssm) = mamba2.mamba_mixer(h, p["ssm"], cfg)
+        if cache is not None:
+            _write_state(cache, conv, ssm)
+        return x + y                                # mamba2: no MLP
+    else:                                           # hybrid (hymba)
+        ya = _self_attn(cfg, h, p["attn"], positions, table, cache)
+        ys, (conv, ssm) = mamba2.mamba_mixer(h, p["ssm"], cfg)
+        if cache is not None:
+            _write_state(cache, conv, ssm)
+        x = x + _hybrid_mix(cfg, p, ya, ys)
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _mlp(h2, p["mlp"], cfg)
+
+
+def cross_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      context: torch.Tensor) -> torch.Tensor:
+    """Cross-attention block (VLM): queries from x, K/V from the context
+    embeddings normalised by ``lnc`` (no RoPE on cross-attention, as
+    Llama-3.2-Vision)."""
+    p = cast_floats(p, cfg.dtype)
+    b, t, _ = x.shape
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    ctx = layers.rms_norm(context, p["lnc"], cfg.norm_eps)
+    tc = ctx.shape[1]
+    q = (h @ p["attn"]["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = (ctx @ p["attn"]["wk"]).reshape(b, tc, cfg.n_kv_heads, cfg.head_dim)
+    v = (ctx @ p["attn"]["wv"]).reshape(b, tc, cfg.n_kv_heads, cfg.head_dim)
+    o = layers.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     x = x + layers.attn_out(o, p["attn"])
     h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(h2, p["mlp"])
+    return x + _mlp(h2, p["mlp"], cfg)
 
 
 def embed_tokens(cfg, params, tokens):
     return params["embed"][tokens.long()].to(as_dtype(cfg.dtype))
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """tokens (B, T) int -> final hidden states (B, T, D), normed."""
-    check_dense(cfg)
+def _context(cfg: ModelConfig, context) -> Optional[torch.Tensor]:
+    if not cfg.cross_attn_period:
+        return None
+    if context is None:
+        raise ValueError(f"{cfg.name} cross-attends: pass its context "
+                         f"(B, {cfg.n_context_tokens}, {cfg.d_model})")
+    return context.to(as_dtype(cfg.dtype))
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, T) int -> final hidden states (B, T, D), normed. A VLM
+    takes its ``context`` (B, n_context_tokens, D)."""
+    ctx = _context(cfg, context)
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = block_apply(cfg, layer(params["blocks"], i), x, positions, table)
+    table = rope_table(cfg, positions)
+    n_groups, per = groups(cfg)
+    for g in range(n_groups):
+        for j in range(per):
+            x = block_apply(cfg, self_layer(cfg, params["blocks"], g, j), x,
+                            positions, table)
+        if ctx is not None:
+            x = cross_block_apply(cfg, layer(params["cross_blocks"], g), x,
+                                  ctx)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -139,40 +286,61 @@ def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor
 
 
 def init_cache_schema(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """Schema of the decode cache: per layer ``k``/``v`` (B, S, KVH, hd) in
-    the compute dtype, S = max_seq, or the window for sliding-window
-    attention, which also keeps ``kpos`` (B, S) int32, the position each
-    slot holds (-1: none)."""
-    check_dense(cfg)
-    w = cfg.sliding_window
-    s = min(w, max_seq) if w else max_seq
-    kvshape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-    c = {"k": Spec(kvshape, "zeros", cfg.dtype),
-         "v": Spec(kvshape, "zeros", cfg.dtype)}
-    if w:
-        c["kpos"] = Spec((batch, s), "neg", torch.int32)
-    return {"blocks": stack(c, cfg.n_layers)}
+    """Schema of the decode cache, per layer:
 
+    * GQA attention: ``k``/``v`` (B, S, KVH, hd) in the compute dtype, S =
+      max_seq, or the window for sliding-window attention, which also
+      keeps ``kpos`` (B, S) int32, the position each slot holds (-1: none);
+    * MLA: the latent ``ckv`` (B, S, lora) and the rotated ``kr`` (B, S,
+      rope);
+    * SSM: ``conv`` (B, W-1, conv_dim) in the compute dtype and ``ssm``
+      (B, H, P, N) in f32; a hybrid block keeps both GQA's and these.
 
-def _update_index(pos: torch.Tensor, s: int, t: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rows (B, 1), cols (B, T)) of a T-token write at per-batch start pos
-    into S slots, placed as ``lax.dynamic_update_slice`` places it: a
-    negative start counts from the end, and the start is clamped to
-    [0, S - T]."""
-    start = pos.long()
-    start = torch.where(start < 0, start + s, start).clamp(0, s - t)
-    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
-    return rows, start[:, None] + torch.arange(t, device=pos.device)
+    A VLM stacks the blocks' caches twice, (groups, self blocks, ...), and
+    keeps each group's ``cross_k``/``cross_v`` (groups, B, n_context, KVH,
+    hd)."""
+    def layer_cache() -> dict:
+        if cfg.attn_kind == "mla":
+            m = cfg.mla
+            return {"ckv": Spec((batch, max_seq, m.kv_lora_rank), "zeros",
+                                cfg.dtype),
+                    "kr": Spec((batch, max_seq, m.qk_rope_dim), "zeros",
+                               cfg.dtype)}
+        c: dict = {}
+        if cfg.mixer_kind in ("attn", "hybrid"):
+            w = cfg.sliding_window
+            s = min(w, max_seq) if w else max_seq
+            kvshape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+            c["k"] = Spec(kvshape, "zeros", cfg.dtype)
+            c["v"] = Spec(kvshape, "zeros", cfg.dtype)
+            if w:
+                c["kpos"] = Spec((batch, s), "neg", torch.int32)
+        if cfg.mixer_kind in ("ssm", "hybrid"):
+            s_cfg = cfg.ssm
+            _, nh, conv_dim = mamba2.ssm_dims(cfg)
+            c["conv"] = Spec((batch, s_cfg.conv_width - 1, conv_dim),
+                             "zeros", cfg.dtype)
+            c["ssm"] = Spec((batch, nh, s_cfg.head_dim, s_cfg.d_state),
+                            "zeros", torch.float32)
+        return c
+
+    if cfg.cross_attn_period:
+        n_groups, per = groups(cfg)
+        ctx_kv = (n_groups, batch, cfg.n_context_tokens, cfg.n_kv_heads,
+                  cfg.head_dim)
+        return {"blocks": stack(stack(layer_cache(), per), n_groups),
+                "cross_k": Spec(ctx_kv, "zeros", cfg.dtype),
+                "cross_v": Spec(ctx_kv, "zeros", cfg.dtype)}
+    return {"blocks": stack(layer_cache(), cfg.n_layers)}
 
 
 def _batched_update(cache_arr: torch.Tensor, new_vals: torch.Tensor,
                     pos: torch.Tensor, index=None) -> torch.Tensor:
     """Write new_vals (B, T, ...) into cache (B, S, ...) at per-batch start
-    ``pos`` (B,), in place (``index``: :func:`_update_index`'s, if made
-    already for this pos)."""
-    rows, cols = index or _update_index(pos, cache_arr.shape[1],
-                                        new_vals.shape[1])
+    ``pos`` (B,), in place (``index``: :func:`layers.update_index`'s, if
+    made already for this pos)."""
+    rows, cols = index or layers.update_index(pos, cache_arr.shape[1],
+                                              new_vals.shape[1])
     cache_arr[rows, cols] = new_vals.to(cache_arr.dtype)
     return cache_arr
 
@@ -180,7 +348,7 @@ def _batched_update(cache_arr: torch.Tensor, new_vals: torch.Tensor,
 def _decode_self_attn(x, p, cfg, cache, pos, tick):
     """One-token self-attention against the cache at per-slot positions
     pos (B,); the cache's leaves are updated in place. ``tick`` holds what
-    every layer of the step shares (:func:`_tick_constants`)."""
+    every layer of the step shares (:func:`tick_constants`)."""
     b = x.shape[0]
     q, k_new, v_new = layers.gqa_qkv(x, p, cfg, pos[:, None], tick["rope"])
     if cfg.sliding_window:
@@ -202,25 +370,65 @@ def _decode_self_attn(x, p, cfg, cache, pos, tick):
     return layers.attn_out(o, p)
 
 
+def _decode_ssm(h, p, cfg, cache):
+    """The mixer's one-token recurrence; ``conv``/``ssm`` updated in place."""
+    y, (conv, ssm) = mamba2.mamba_mixer(
+        h, p["ssm"], cfg, conv_state=cache["conv"], ssm_state=cache["ssm"],
+        single_step=True)
+    _write_state(cache, conv, ssm)
+    return y
+
+
 def block_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos, tick):
     """One block for one token a row: x (B, 1, D); ``cache`` is this
     layer's (views of the stacked cache), updated in place; ``tick``:
-    :func:`_tick_constants`."""
+    :func:`tick_constants`."""
     p = cast_floats(p, cfg.dtype)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _decode_self_attn(h, p["attn"], cfg, cache, pos, tick)
+    if cfg.mixer_kind == "attn" and cfg.attn_kind == "mla":
+        out, _, _ = mla_lib.mla_decode(
+            h, p["attn"], cfg, cache["ckv"], cache["kr"], pos,
+            index=tick["index"], mask=tick["mask"], table=tick["rope"])
+        x = x + out
+    elif cfg.mixer_kind == "attn":
+        x = x + _decode_self_attn(h, p["attn"], cfg, cache, pos, tick)
+    elif cfg.mixer_kind == "ssm":
+        return x + _decode_ssm(h, p, cfg, cache)
+    else:                                           # hybrid
+        ya = _decode_self_attn(h, p["attn"], cfg, cache, pos, tick)
+        ys = _decode_ssm(h, p, cfg, cache)
+        x = x + _hybrid_mix(cfg, p, ya, ys)
     h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(h2, p["mlp"])
+    return x + _mlp(h2, p["mlp"], cfg)
 
 
-def _tick_constants(cfg: ModelConfig, s: int, pos: torch.Tensor) -> dict:
+def _cross_decode(cfg, p, x, ck, cv):
+    """One token a row through a cross block against its cached context
+    K/V (ck, cv (B, n_context, KVH, hd))."""
+    p = cast_floats(p, cfg.dtype)
+    b = x.shape[0]
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (h @ p["attn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    o = layers.attention(q, ck, cv, causal=False, chunk=cfg.attn_chunk)
+    x = x + layers.attn_out(o, p["attn"])
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _mlp(h2, p["mlp"], cfg)
+
+
+def tick_constants(cfg: ModelConfig, blocks: dict, pos: torch.Tensor
+                   ) -> dict:
     """What every layer of a decode step shares: the RoPE table at pos,
-    and for a full cache of S slots the write index and the mask."""
-    tick = {"rope": layers.rope_table(pos[:, None], cfg.head_dim,
-                                      cfg.rope_theta)}
-    if not cfg.sliding_window:
-        tick["index"] = _update_index(pos, s, 1)
-        tick["mask"] = layers.decode_mask(pos, s)
+    and for a full (not sliding-window) attention or latent cache the
+    write index and the mask. ``blocks``: the stacked block caches."""
+    tick = {"rope": rope_table(cfg, pos[:, None])}
+    if cfg.attn_kind == "mla":
+        s = blocks["ckv"].shape[-2]                 # (..., B, S, lora)
+    elif "k" in blocks and not cfg.sliding_window:
+        s = blocks["k"].shape[-3]                   # (..., B, S, KVH, hd)
+    else:
+        return tick
+    tick["index"] = layers.update_index(pos, s, 1)
+    tick["mask"] = layers.decode_mask(pos, s)
     return tick
 
 
@@ -228,49 +436,56 @@ def decode(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor,
            pos) -> tuple[torch.Tensor, dict]:
     """token (B, 1) int, pos scalar or (B,) per-slot positions (continuous
     batching) -> (logits (B, V) f32, the cache, updated in place)."""
-    check_dense(cfg)
     x = embed_tokens(cfg, params, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(
         token.shape[0])
-    tick = _tick_constants(cfg, cache["blocks"]["k"].shape[2], pos)
-    for i in range(cfg.n_layers):
-        x = block_decode(cfg, layer(params["blocks"], i), x,
-                         layer(cache["blocks"], i), pos, tick)
+    tick = tick_constants(cfg, cache["blocks"], pos)
+    n_groups, per = groups(cfg)
+    for g in range(n_groups):
+        for j in range(per):
+            x = block_decode(cfg, self_layer(cfg, params["blocks"], g, j), x,
+                             self_layer(cfg, cache["blocks"], g, j), pos,
+                             tick)
+        if cfg.cross_attn_period:
+            x = _cross_decode(cfg, layer(params["cross_blocks"], g), x,
+                              cache["cross_k"][g], cache["cross_v"][g])
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x)[:, 0], cache
 
 
-def _write_kv(cfg, cache_block: dict, k, v) -> None:
-    """Prefill's cache write at slot 0 on. With a sliding window, the last
-    ``keep = min(w, T)`` tokens go to slots 0..keep-1 (the reference's
-    layout: decode then writes position p at slot p mod w, so a prompt
-    longer than the window and not a multiple of it overwrites a slot that
-    is not the oldest; ROADMAP queue 3)."""
-    t = k.shape[1]
-    if cfg.sliding_window:
-        keep = min(cache_block["k"].shape[1], t)
-        cache_block["k"][:, :keep] = k[:, t - keep:]
-        cache_block["v"][:, :keep] = v[:, t - keep:]
-        cache_block["kpos"][:, :keep] = torch.arange(
-            t - keep, t, dtype=cache_block["kpos"].dtype, device=k.device)
-    else:
-        if t > cache_block["k"].shape[1]:
-            raise ValueError(f"a prompt of {t} tokens does not fit a cache "
-                             f"of {cache_block['k'].shape[1]}")
-        cache_block["k"][:, :t] = k
-        cache_block["v"][:, :t] = v
+def _cross_kv(cfg, p, ctx, cache, g) -> None:
+    """Group g's context K/V for decode, as the reference's prefill
+    projects them: from the raw context (no ``lnc``) times the parameters
+    in their own dtype (a bf16 context against f32 weights promotes to
+    f32), then cast to the cache's dtype (ROADMAP queue 3)."""
+    b, tc, _ = ctx.shape
+    for name, w in (("cross_k", p["attn"]["wk"]), ("cross_v",
+                                                   p["attn"]["wv"])):
+        dt = torch.promote_types(ctx.dtype, w.dtype)
+        kv = (ctx.to(dt) @ w.to(dt)).reshape(b, tc, cfg.n_kv_heads,
+                                             cfg.head_dim)
+        cache[name][g] = kv.to(cache[name].dtype)
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            cache: dict) -> tuple[torch.Tensor, dict]:
+            cache: dict, *, context: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, dict]:
     """Run the whole prompt tokens (B, T), fill the cache (in place) and
-    return the last position's logits (B, V) f32 and the cache."""
-    check_dense(cfg)
+    return the last position's logits (B, V) f32 and the cache. A VLM's
+    context K/V are projected here, once a group."""
+    ctx = _context(cfg, context)
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = block_apply(cfg, layer(params["blocks"], i), x, positions, table,
-                        layer(cache["blocks"], i))
+    table = rope_table(cfg, positions)
+    n_groups, per = groups(cfg)
+    for g in range(n_groups):
+        for j in range(per):
+            x = block_apply(cfg, self_layer(cfg, params["blocks"], g, j), x,
+                            positions, table,
+                            self_layer(cfg, cache["blocks"], g, j))
+        if ctx is not None:
+            p_cross = layer(params["cross_blocks"], g)
+            _cross_kv(cfg, p_cross, ctx, cache, g)
+            x = cross_block_apply(cfg, p_cross, x, ctx)
     x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x)[:, 0], cache

@@ -1,0 +1,169 @@
+"""Encoder-decoder backbone (Whisper-large-v3).
+
+Port of ``repro/models/whisper.py``. The conv/mel frontend is a stub, as
+in the reference: the batch carries precomputed frame embeddings
+``frames`` (B, T_enc, D). The encoder is not causal; each decoder layer
+projects its cross K/V from the encoder's output. Positional encoding is
+RoPE throughout (the reference's recorded deviation from Whisper's learned
+embeddings, ``configs/whisper_large_v3.py``).
+
+The decode cache is updated in place, as ``transformer``'s.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers
+from .config import ModelConfig
+from .params import Spec, as_dtype, cast_floats, stack
+from .transformer import (attn_schema, layer, lm_logits, mlp_schema,
+                          tick_constants, _batched_update, _write_prefix)
+
+
+def enc_block_schema(cfg: ModelConfig) -> dict:
+    return {"ln1": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
+            "ln2": Spec((cfg.d_model,), "ones"), "mlp": mlp_schema(cfg)}
+
+
+def dec_block_schema(cfg: ModelConfig) -> dict:
+    return {"ln1": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
+            "lnx": Spec((cfg.d_model,), "ones"), "xattn": attn_schema(cfg),
+            "ln2": Spec((cfg.d_model,), "ones"), "mlp": mlp_schema(cfg)}
+
+
+def model_schema(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab_size
+    return {"embed": Spec((v, d), "embed"),
+            "enc_blocks": stack(enc_block_schema(cfg), cfg.n_encoder_layers),
+            "enc_norm": Spec((d,), "ones"),
+            "dec_blocks": stack(dec_block_schema(cfg), cfg.n_layers),
+            "final_norm": Spec((d,), "ones"),
+            "lm_head": Spec((d, v))}
+
+
+def _proj_kv(ctx, p, cfg):
+    b, tc, _ = ctx.shape
+    k = (ctx @ p["wk"]).reshape(b, tc, cfg.n_kv_heads, cfg.head_dim)
+    v = (ctx @ p["wv"]).reshape(b, tc, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _mlp(x, p):
+    return layers.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames (B, T_enc, D) stub embeddings -> encoder states (B, T_enc, D)."""
+    x = frames.to(as_dtype(cfg.dtype))
+    positions = torch.arange(frames.shape[1], device=x.device)
+    table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_encoder_layers):
+        p = cast_floats(layer(params["enc_blocks"], i), cfg.dtype)
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
+        o = layers.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        x = x + layers.attn_out(o, p["attn"])
+        h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _mlp(h2, p["mlp"])
+    return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block(cfg, p, x, positions, table, enc_out, cache=None):
+    """One decoder block over a full sequence; with ``cache`` (this
+    layer's), its self K/V and cross K/V are written there."""
+    p = cast_floats(p, cfg.dtype)
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
+    if cache is not None:
+        _write_prefix(cache["k"], k.to(cache["k"].dtype))
+        _write_prefix(cache["v"], v.to(cache["v"].dtype))
+    o = layers.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    x = x + layers.attn_out(o, p["attn"])
+    hx = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
+    qx = (hx @ p["xattn"]["wq"]).reshape(hx.shape[0], hx.shape[1],
+                                         cfg.n_heads, cfg.head_dim)
+    kx, vx = _proj_kv(enc_out, p["xattn"], cfg)
+    if cache is not None:
+        cache["xk"].copy_(kx)
+        cache["xv"].copy_(vx)
+    ox = layers.attention(qx, kx, vx, causal=False, chunk=cfg.attn_chunk)
+    x = x + layers.attn_out(ox, p["xattn"])
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _mlp(h2, p["mlp"])
+
+
+def _embed(cfg, params, tokens):
+    return params["embed"][tokens.long()].to(as_dtype(cfg.dtype))
+
+
+def decoder_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                    enc_out: torch.Tensor) -> torch.Tensor:
+    """Teacher-forcing decoder pass -> hidden states (B, T, D), normed."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = _dec_block(cfg, layer(params["dec_blocks"], i), x, positions,
+                       table, enc_out)
+    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def init_cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
+                      enc_len: int) -> dict:
+    """Per decoder layer: the self ``k``/``v`` (B, max_seq, KVH, hd) and
+    the cross ``xk``/``xv`` (B, enc_len, KVH, hd), in the compute dtype."""
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    ckv = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    blk = {"k": Spec(kv, "zeros", cfg.dtype), "v": Spec(kv, "zeros",
+                                                        cfg.dtype),
+           "xk": Spec(ckv, "zeros", cfg.dtype),
+           "xv": Spec(ckv, "zeros", cfg.dtype)}
+    return {"blocks": stack(blk, cfg.n_layers)}
+
+
+def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+            tokens: torch.Tensor, cache: dict):
+    """Encode the frames, project each layer's cross K/V, run the prompt
+    through the decoder filling the self cache (all in place). Returns
+    (last logits (B, V) f32, cache)."""
+    enc_out = encode(cfg, params, frames)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = _dec_block(cfg, layer(params["dec_blocks"], i), x, positions,
+                       table, enc_out, layer(cache["blocks"], i))
+    x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params, x)[:, 0], cache
+
+
+def decode(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor,
+           pos):
+    """One decoder token a row against the self cache and the cross K/V
+    prefill projected: token (B, 1), pos scalar or (B,) -> (logits (B, V)
+    f32, the cache, updated in place)."""
+    x = _embed(cfg, params, token)
+    b = token.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(b)
+    tick = tick_constants(cfg, cache["blocks"], pos)
+    for i in range(cfg.n_layers):
+        p = cast_floats(layer(params["dec_blocks"], i), cfg.dtype)
+        cb = layer(cache["blocks"], i)
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k1, v1 = layers.gqa_qkv(h, p["attn"], cfg, pos[:, None],
+                                   tick["rope"])
+        k = _batched_update(cb["k"], k1, pos, tick["index"])
+        v = _batched_update(cb["v"], v1, pos, tick["index"])
+        # attention(q, k, v, causal=True, q_offset=pos, kv_len=pos + 1)
+        o = layers.grouped_attention(q, k, v, tick["mask"])
+        x = x + layers.attn_out(o, p["attn"])
+        hx = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
+        qx = (hx @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        ox = layers.attention(qx, cb["xk"], cb["xv"], causal=False,
+                              chunk=cfg.attn_chunk)
+        x = x + layers.attn_out(ox, p["xattn"])
+        h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _mlp(h2, p["mlp"])
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params, x)[:, 0], cache

@@ -7,7 +7,9 @@ all slots (prompt tokens are fed through the same decode path:
 slot for the next queued one. The cache is preallocated and updated in
 place by the decode (the reference donates it to a jitted decode). On a
 CUDA device the tick's decode is one CUDA graph, captured on the first
-tick (where the reference jits it). The greedy argmax runs on the device
+tick (where the reference jits it); every decoder-only cache updates in
+place there (K/V and ``kpos``, MLA's ``ckv``/``kr``, the SSM's ``conv`` and
+f32 ``ssm``). The greedy argmax runs on the device
 and returns the first maximum, as ``np.argmax`` does, so a tick copies B
 token ids to the host.
 """
@@ -73,6 +75,10 @@ class ServeEngine:
         self.queue.append(req)
 
     def _admit(self):
+        # as the reference, only the position is reset: a slot's SSM state
+        # (``conv``/``ssm``) carries over from its previous request and the
+        # idle ticks since (ROADMAP queue 3); an attention cache is masked
+        # past the position, so it does not show
         for slot in range(self.n_slots):
             if self.slot_req[slot] is None and self.queue:
                 req = self.queue.pop(0)

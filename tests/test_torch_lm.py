@@ -391,20 +391,6 @@ def test_n_params_full_configs(arch):
     assert PC.get_config(arch.replace("_", "-")) is pc
 
 
-@pytest.mark.parametrize("arch", [a for a in RC.ARCH_IDS if a not in ARCHS])
-def test_other_families_refused(arch):
-    cfg = port_model_config(RC.get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        PT.init_cache_schema(cfg, 1, 8)
-    with pytest.raises(KeyError):
-        PC.get_smoke_config(arch)
-    if cfg.encoder_decoder or cfg.cross_attn_period:
-        with pytest.raises(NotImplementedError, match="item 2.2"):
-            p_make_batch(cfg, batch=1, seq=4, step=0, device="cpu")
-
-
 def test_init_params_inits_and_dtypes():
     _, cfg = configs("phi4_mini_3_8b", "bfloat16")
     schema = get_model(cfg).schema

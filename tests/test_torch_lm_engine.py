@@ -19,20 +19,13 @@ caches are compared (f32: rtol 1e-5; bf16: 2^-5 of the largest
 magnitude), leaving out the rows written after a listed divergence (the
 whole slot of a sliding-window ring).
 """
-import dataclasses
-
-import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import to_numpy_tree
-from repro import configs as RC
-from repro.models import get_model as r_get_model
-from repro.models import params as RPm
-from repro.serve import engine as RE
+from _torch_parity import engine_lockstep
 from repro_torch import configs as PC
-from repro_torch.models import get_model, params_from_reference
+from repro_torch.models import get_model
 from repro_torch.models import params as PPm
 from repro_torch.serve import engine as PE
 
@@ -47,70 +40,10 @@ SWA_REQUESTS = [(5, 6), (36, 5), (3, 8), (9, 4), (40, 6), (7, 7)]
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
 
 
-def _requests(mod, arch: str, vocab: int):
-    rng = np.random.default_rng(7)
-    spec = SWA_REQUESTS if arch == "h2o_danube_3_4b" else REQUESTS
-    return [mod.Request(rid=i, prompt=rng.integers(0, vocab, n).tolist(),
-                        max_new=m) for i, (n, m) in enumerate(spec)]
-
-
-class Recorder:
-    """Wraps a port model's decode: the tokens, positions and logits of
-    every tick."""
-
-    def __init__(self, decode):
-        self.decode, self.ticks = decode, []
-
-    def __call__(self, params, cache, token, pos):
-        logits, cache = self.decode(params, cache, token, pos)
-        self.ticks.append((token.clone(), pos.clone(), logits.clone()))
-        return logits, cache
-
-
 def lockstep(arch: str, dtype: str):
-    rc = dataclasses.replace(RC.get_smoke_config(arch), dtype=dtype)
-    pc = dataclasses.replace(PC.get_smoke_config(arch), dtype=dtype)
-    rm, pm = r_get_model(rc), get_model(pc)
-    rp = jax.jit(lambda k: RPm.init_params(rm.schema, k))(
-        jax.random.PRNGKey(0))
-    pp = params_from_reference(to_numpy_tree(rp), pc, "cpu")
-    rec = Recorder(pm.decode)
-    max_seq = MAX_SEQ[arch]
-    ref = RE.ServeEngine(rm, rp, n_slots=N_SLOTS, max_seq=max_seq)
-    port = PE.ServeEngine(pm._replace(decode=rec), pp, n_slots=N_SLOTS,
-                          max_seq=max_seq, device="cpu")
-    r_reqs = _requests(RE, arch, rc.vocab_size)
-    p_reqs = _requests(PE, arch, pc.vocab_size)
-    for r, p in zip(r_reqs, p_reqs):
-        ref.submit(r)
-        port.submit(p)
-    diverged: dict = {}          # rid -> (out index, tick, slot, position, gap)
-    ticks = 0
-    while ref.queue or any(s is not None for s in ref.slot_req):
-        before = [len(p.out) for p in p_reqs]
-        n_ref, n_port = ref.step(), port.step()
-        assert n_ref == n_port, (ticks, n_ref, n_port)
-        logits = rec.ticks[-1][2]
-        for r, p, n0 in zip(r_reqs, p_reqs, before):
-            assert r.slot == p.slot and r.done == p.done and r.fed == p.fed
-            assert len(r.out) == len(p.out), (p.rid, r.out, p.out)
-            if len(p.out) == n0 or p.rid in diverged:
-                continue
-            if r.out[-1] != p.out[-1]:
-                row = logits[p.slot]
-                top2 = torch.topk(row, 2).values
-                gap = float(top2[0] - top2[1])
-                limit = 2 * TOL[dtype] * float(row.abs().max())
-                assert gap < limit, (
-                    f"request {p.rid} tick {ticks}: {p.out[-1]} against the "
-                    f"reference's {r.out[-1]} at a top-2 gap of {gap}")
-                diverged[p.rid] = (len(p.out) - 1, ticks, p.slot,
-                                   int(rec.ticks[-1][1][p.slot]), gap)
-        ticks += 1
-        assert ticks < 500
-    assert not port.queue and all(s is None for s in port.slot_req)
-    np.testing.assert_array_equal(port.pos, ref.pos)
-    return r_reqs, p_reqs, ref, port, rec, diverged
+    spec = SWA_REQUESTS if arch == "h2o_danube_3_4b" else REQUESTS
+    return engine_lockstep(arch, dtype, spec, n_slots=N_SLOTS,
+                           max_seq=MAX_SEQ[arch], tol=TOL[dtype])
 
 
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "h2o_danube_3_4b"])

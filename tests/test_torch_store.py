@@ -363,6 +363,8 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.core.metrics', 'repro_torch.core.scan',\n"
         "        'repro_torch.models.juno_attention',\n"
         "        'repro_torch.models.transformer', 'repro_torch.models.api',\n"
+        "        'repro_torch.models.moe', 'repro_torch.models.mla',\n"
+        "        'repro_torch.models.mamba2', 'repro_torch.models.whisper',\n"
         "        'repro_torch.serve.engine', 'repro_torch.configs',\n"
         "        'repro_torch.data.tokens'} <= walked, walked\n"
         "print(len(walked))\n")
