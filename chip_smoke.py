@@ -131,7 +131,7 @@ Phases, each raising on failure:
    ``PagedIndexData`` with a cache of a quarter of ``cluster_codes``:
    each engine's ids and scores bit-equal to the resident engine of the
    same configuration, request by request, its launches exactly that
-   configuration's kernels, evictions > 0, QPS as the median of three
+   configuration's kernels, evictions > 0, QPS as the median of two
    passes in turns with the resident engine, the ratio, the cache
    counters and ``gather``'s host seconds a pass; one gather of the
    largest batch taken apart (the rows' copy out of the memory map, their
@@ -212,7 +212,7 @@ Phases, each raising on failure:
    to the end: ticks, ms a tick (median, p99), tokens/s, the tick's byte
    bound beside a CUDA-event time of one plain decode and of the engine's
    CUDA graph of it and of the K cache's f32 upcast, every output made in
-   the first 512 ticks equal to a replay of them through plain ``decode``;
+   the first 256 ticks equal to a replay of them through plain ``decode``;
    prefill (B 4, T 4096: the flash path) and one decode against
    ``forward`` in f32 at 4 layers (within 2e-2) and in bf16 at 32
    (recorded); a 2-layer slice on the CPU (logits within 2^-5 of the
@@ -237,13 +237,24 @@ Phases, each raising on failure:
    width; ``reduced`` says why): prefill, 16 steps, f32 checks (the VLM's
    decode must miss forward: the reference's cross-cache fault); no
    kernel of the port launched;
-9. the kernel line, then the card line, then the result line. A
+9. train (``train.phi4_mini``) — the training path (``repro_torch.train``:
+   autograd's backward through the remat'd blocks, in-place AdamW; plain
+   PyTorch, no kernel of the port) on phi4-mini-3.8b FULL: f32 master
+   weights, bf16 compute, 8 steps on one B 2 × T 1024 batch (the loss
+   falls) and 4 on fresh batches, ms a step against its FLOP and byte
+   bounds, tokens/s, the device peak beside the 16 B a parameter of
+   state, the optimizer's own ms; a 2-layer f32 slice's loss and
+   gradients against the CPU's; remat on against off at 4 layers; AdamW
+   in place against plain; bf16 cast-through and 2 micro-batches at 4
+   layers; a crash-restart run equal to an uninterrupted one and the
+   trainer CLI's resume at SMOKE width; no kernel of the port launched;
+10. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes, the ``mutate`` rounds, the first
    pass of each paged engine, the ``obs`` passes, the ``dist`` and
    ``fleet`` phases, the ``autotune`` engines' configured passes, the
-   ``pipeline`` builds and 10M engine passes and ``lm.phi4_mini`` and
-   ``lm.families`` (none)
+   ``pipeline`` builds and 10M engine passes and ``lm.phi4_mini``,
+   ``lm.families`` and ``train.phi4_mini`` (none)
    (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
@@ -265,8 +276,10 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import gzip
 import hashlib
+import io
 import json
 import math
 import os
@@ -277,6 +290,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 from typing import Optional
 
@@ -315,6 +329,14 @@ from repro_torch.kernels import selective_lut as slut  # noqa: E402
 from repro_torch.kernels import sphere_hits as sph  # noqa: E402
 from repro_torch.kernels.ref import NEG  # noqa: E402
 from repro_torch.configs import get_config as get_lm_config  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.data.tokens import make_batch as lm_batch  # noqa: E402
+from repro_torch.dist import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.dist.fault_tolerance import run_with_restart  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.train import (AdamWConfig, TrainConfig,  # noqa: E402
+                               adamw_update, adamw_update_, init_opt_state,
+                               init_train_state, make_train_step)
 from repro_torch.models import (build_kv_index, draw_kv_init,  # noqa: E402
                                 encode_step, juno_decode_attention,
                                 kv_index_from_arrays, traffic_model)
@@ -2561,12 +2583,17 @@ def _dir_bytes(path: str) -> int:
                for d, _, fs in os.walk(path) for f in fs)
 
 
+# timed turns of (resident pass, paged pass) a paged engine (two leave the
+# script's 1200 s room for train.phi4_mini)
+PAGED_TURNS = 2
+
+
 def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
                  metric: str, fused: bool, grid, n_points: int) -> dict:
     """One paged engine configuration beside the resident engine of the same
     configuration (over ``resident``, a ``MutableJunoIndex``): a first pass
     with the launches counted, every request bit-equal to the resident
-    engine's, then three turns of (resident pass, paged pass)."""
+    engine's, then two turns of (resident pass, paged pass)."""
     prefilter = "scan" if grid is None else "rt"
     dev = resident.data.ivf.centroids.device
     pdata = PagedIndexData(path, cache_bytes=cache_bytes, device=dev)
@@ -2590,7 +2617,7 @@ def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
         raise AssertionError(f"paged {prefilter} fused={fused}: launches "
                              f"{launches}, expected exactly {sorted(must)}")
     t_res, t_pag, g_s = [], [], []
-    for _ in range(3):
+    for _ in range(PAGED_TURNS):
         t_res.append(run_stream(reng, queries, stream)[1])
         g0 = clock.s
         got, t = run_stream(peng, queries, stream)
@@ -2601,7 +2628,7 @@ def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
     if st["evictions"] <= 0:
         raise AssertionError(f"paged {prefilter} fused={fused}: no eviction "
                              f"with a cache of {cache_bytes} bytes")
-    rows = peng.stats["queries"] // 4
+    rows = peng.stats["queries"] // (PAGED_TURNS + 1)
     qps, qps_res = rows / statistics.median(t_pag), \
         rows / statistics.median(t_res)
     return {"prefilter": prefilter, "fused": fused, "rows": rows,
@@ -2609,7 +2636,7 @@ def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
                 qps / qps_res, "qps_turns": [rows / t for t in t_pag],
             "qps_resident_turns": [rows / t for t in t_res],
             "first_pass_s": t_first, "gather_s_per_pass": g_s,
-            "gather_calls_per_pass": clock.calls // 4,
+            "gather_calls_per_pass": clock.calls // (PAGED_TURNS + 1),
             "verified_rows_first_pass": first_verified,
             "hits": st["hits"], "misses": st["misses"],
             "evictions": st["evictions"], "verified_rows":
@@ -3957,10 +3984,10 @@ LM = dict(arch="phi4_mini_3_8b", n_slots=8, max_seq=4096, n_requests=16,
           prompt=(32, 1024), max_new=(16, 64), check_layers=4, batch=4,
           seq=4096, slice_layers=2, slice_batch=2, slice_tokens=64,
           entries=16, q_scale=0.5,
-          # the plain replay checks the first 512 of the ~1,630 ticks (the
-          # host-bound replay took 62-100 s whole; lm.families needs the
-          # time under the script's 1200 s)
-          replay_ticks=512)
+          # the plain replay checks the first 256 of the ~1,630 ticks (the
+          # host-bound replay took 62-100 s whole; lm.families and
+          # train.phi4_mini need the time under the script's 1200 s)
+          replay_ticks=256)
 LM_TOP_C = (256, 512, 1024)
 LM_CONSISTENCY_TOL = 2e-2      # tests/test_arch_smoke.py:114, rtol = atol
 # the card's 2-layer bf16 logits against the CPU's on the same weights and
@@ -4726,6 +4753,385 @@ def phase_families(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="phi4_mini_3_8b", batch=2, seq=1024, steps=8, fresh=4,
+             slice_layers=2, slice_seq=128, check_layers=4, variant_steps=2,
+             restart_steps=10, fault_at=7, ckpt_every=5)
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+TRAIN_SLICE_RTOL = 1e-5        # the CPU slice's loss, relative
+TRAIN_SLICE_GRAD_TOL = 1e-4    # its gradients, of the tree's largest
+TRAIN_STATE_BYTES = 16         # f32 params, grads, m and v a parameter
+# the depths tried, most first, if the FULL state does not fit
+TRAIN_DEPTHS = (32, 28, 24, 16)
+
+
+def _train_grads(model, params, batch):
+    """(loss, gradients as a list in ``tree_leaves`` order) of one batch."""
+    leaves = lm_params.tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_()
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for x in leaves:
+        x.requires_grad_(False)
+    return loss.detach(), list(grads)
+
+
+def _train_flops(cfg, tokens: int) -> float:
+    """A step's matmul FLOP: every block weight 4 passes (forward, remat's
+    recompute, the backward's two products), the head 3, causal attention
+    (half the T × T scores and the PV product) 4 passes."""
+    d, f, h, kv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    per_layer = d * h * hd * 2 + d * kv * hd * 2 + 3 * d * f
+    attn = 2 * TRAIN["batch"] * h * TRAIN["seq"] ** 2 * hd   # causal half
+    return (4 * (2 * tokens * per_layer + attn) * cfg.n_layers
+            + 3 * 2 * tokens * d * cfg.vocab_size)
+
+
+def _train_full(cfg, seed: int, dev) -> dict:
+    """FULL training: ``TRAIN["steps"]`` steps on one fixed batch, then
+    ``TRAIN["fresh"]`` on fresh batches; ms a step by CUDA events."""
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in lm_params.tree_leaves(state.params))
+    out = {"n_layers": cfg.n_layers, "n_params": n,
+           "init_s": time.perf_counter() - t0,
+           "state_bytes": TRAIN_STATE_BYTES * n}
+    step = make_train_step(model, TrainConfig(AdamWConfig(
+        lr=1e-3, warmup_steps=10)))
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    fixed = lm_batch(cfg, batch=b, seq=t, step=0, seed=seed, device=dev)
+    losses, gnorms, ms = [], [], []
+    for i in range(TRAIN["steps"] + TRAIN["fresh"]):
+        batch = fixed if i < TRAIN["steps"] else lm_batch(
+            cfg, batch=b, seq=t, step=i - TRAIN["steps"] + 1, seed=seed,
+            device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train: a loss or grad norm is not finite: "
+                             f"{losses} {gnorms}")
+    fixed_losses = losses[:TRAIN["steps"]]
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"train: the loss did not fall on the fixed "
+                             f"batch: {fixed_losses}")
+    tokens = b * t
+    step_ms = statistics.median(ms[1:TRAIN["steps"]])
+    flops = _train_flops(cfg, tokens)
+    opt_bytes = 28 * n          # read p, g, m, v; write p, m, v (f32)
+    out.update({
+        "losses": losses, "grad_norms": gnorms, "step_ms": ms,
+        "ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "flops": flops, "flop_bound_ms": flops / BF16_OPS_PER_S * 1e3,
+        "opt_bytes": opt_bytes,
+        "opt_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3})
+    out["bound_ms"] = out["flop_bound_ms"] + out["opt_bound_ms"]
+    # the optimizer alone, on the trained state with zero gradients (its
+    # time does not depend on the values)
+    grads = lm_params.tree_map(torch.zeros_like, state.params)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    out["opt_ms"] = time_ms(lambda: adamw_update_(ocfg, state.params, grads,
+                                                  state.opt), reps=3)
+    del state, grads, step
+    return out
+
+
+def _train_slice(cfg, seed: int, dev) -> dict:
+    """2 layers at full width in f32 (TF32 off), one loss and backward on
+    the card and on the CPU from the card's init: the loss within
+    ``TRAIN_SLICE_RTOL``, every gradient within ``TRAIN_SLICE_GRAD_TOL`` of
+    the tree's largest. Then one AdamW step, plain and in place, from the
+    same state and these gradients: params, m and v equal."""
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN["slice_layers"],
+                               dtype="float32")
+    model = get_model(cfg2)
+    params = init_params(model.schema, torch.Generator(device=dev)
+                         .manual_seed(seed), device=dev)
+    batch = lm_batch(cfg2, batch=1, seq=TRAIN["slice_seq"], step=0,
+                     seed=seed, device=dev)
+    t0 = time.perf_counter()
+    loss, grads = _train_grads(model, params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu_params = lm_params.tree_map(lambda x: x.cpu(), params)
+    t0 = time.perf_counter()
+    c_loss, c_grads = _train_grads(model, cpu_params, {
+        k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    top = max(float(g.abs().max()) for g in c_grads)
+    err = max(float((g.cpu() - c).abs().max())
+              for g, c in zip(grads, c_grads))
+    loss_rel = abs(float(loss) - float(c_loss)) / abs(float(c_loss))
+    del cpu_params, c_grads
+    out = {"layers": cfg2.n_layers, "seq": TRAIN["slice_seq"],
+           "loss": float(loss), "cpu_loss": float(c_loss),
+           "loss_rel": loss_rel, "grad_err": err, "grad_top": top,
+           "card_s": card_s, "cpu_s": cpu_s}
+    if loss_rel > TRAIN_SLICE_RTOL or err > TRAIN_SLICE_GRAD_TOL * top:
+        raise AssertionError(f"train slice: card vs CPU {out}")
+    # AdamW: the plain form first (it leaves its inputs), then in place
+    g_tree = lm_params.tree_unflatten(params, grads)
+    opt = init_opt_state(params)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    new_p, new_opt, met = adamw_update(ocfg, params, g_tree, opt)
+    ip_met = adamw_update_(ocfg, params, g_tree, opt)
+    equal = all(torch.equal(a, b) for x, y in (
+        (new_p, params), (new_opt.m, opt.m), (new_opt.v, opt.v))
+        for a, b in zip(lm_params.tree_leaves(x), lm_params.tree_leaves(y)))
+    equal = equal and torch.equal(met["grad_norm"], ip_met["grad_norm"]) \
+        and int(opt.step) == int(new_opt.step) == 1
+    out["adamw_in_place_equal"] = equal
+    if not equal:
+        raise AssertionError("train: AdamW in place differs from plain")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` (with the cuBLAS
+    workspace setting it requires), the previous mode restored after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _train_remat(cfg, seed: int, dev) -> dict:
+    """Remat on against off at 4 layers, full width, f32, one B 2 × T 1024
+    batch: loss and gradients ``torch.equal`` (deterministic algorithms
+    on); the largest difference with them off is recorded."""
+    out = {"layers": TRAIN["check_layers"]}
+    for det in (True, False):
+        runs = []
+        for on in (True, False):
+            c = dataclasses.replace(cfg, n_layers=TRAIN["check_layers"],
+                                    dtype="float32", remat=on)
+            model = get_model(c)
+            params = init_params(model.schema, torch.Generator(device=dev)
+                                 .manual_seed(seed), device=dev)
+            batch = lm_batch(c, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                             step=0, seed=seed, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            with deterministic() if det else contextlib.nullcontext():
+                runs.append(_train_grads(model, params, batch))
+            out[f"peak_bytes_remat_{'on' if on else 'off'}"] = \
+                torch.cuda.max_memory_allocated()
+            del params
+        (l1, g1), (l2, g2) = runs
+        diff = max(float((a - b).abs().max()) for a, b in zip(g1, g2))
+        same = torch.equal(l1, l2) and all(
+            torch.equal(a, b) for a, b in zip(g1, g2))
+        key = "deterministic" if det else "default"
+        out[key] = {"equal": same, "max_grad_diff": diff,
+                    "loss_diff": float((l1 - l2).abs())}
+        del runs, g1, g2
+        if det and not same:
+            raise AssertionError(f"train: remat on and off differ {out}")
+    return out
+
+
+def _train_variants(cfg, seed: int, dev) -> dict:
+    """4 layers at full width (bf16 compute): ``TRAIN["variant_steps"]``
+    steps of the plain step, of bf16 cast-through gradients and of 2
+    micro-batches, each from the same init and batches; all finite."""
+    c = dataclasses.replace(cfg, n_layers=TRAIN["check_layers"])
+    model = get_model(c)
+    out = {}
+    for name, kw in (("plain", {}), ("bf16_grads", {"grad_dtype":
+                                                    "bfloat16"}),
+                     ("accum_2", {"accum_steps": 2})):
+        state = init_train_state(model, torch.Generator(device=dev)
+                                 .manual_seed(seed), device=dev)
+        step = make_train_step(model, TrainConfig(AdamWConfig(
+            lr=1e-3, warmup_steps=10), **kw))
+        losses = []
+        for s in range(TRAIN["variant_steps"]):
+            batch = lm_batch(c, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                             step=s, seed=seed, device=dev)
+            state, met = step(state, batch)
+            losses += [float(met["loss"]), float(met["grad_norm"])]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train {name}: not finite: {losses}")
+        out[name] = {"losses": losses[::2], "grad_norms": losses[1::2]}
+        del state
+    return out
+
+
+def _train_restart(seed: int, dev) -> dict:
+    """SMOKE width on the card: ``run_with_restart`` with a fault at step
+    ``fault_at`` and a checkpoint every ``ckpt_every`` steps ends
+    ``torch.equal`` to an uninterrupted run (deterministic algorithms on);
+    then the trainer CLI in-process, 8 steps with a checkpoint every 3 and
+    a resume to 12."""
+    cfg = get_smoke_config(TRAIN["arch"])
+    model = get_model(cfg)
+    step = make_train_step(model, TrainConfig(AdamWConfig(
+        lr=1e-3, warmup_steps=3)))
+
+    def step_fn(state, s):
+        return step(state, lm_batch(cfg, batch=2, seq=16, step=s, seed=seed,
+                                    device=dev))
+
+    def init():
+        return init_train_state(model, torch.Generator(device=dev)
+                                .manual_seed(seed), device=dev)
+    out: dict = {}
+    with deterministic(), tempfile.TemporaryDirectory() as tmp:
+        ref = init()
+        for s in range(TRAIN["restart_steps"]):
+            ref, _ = step_fn(ref, s)
+        crashed = []
+
+        def injector(s):
+            if s == TRAIN["fault_at"] and not crashed:
+                crashed.append(s)
+                raise RuntimeError("injected fault")
+        like = init()
+        cdir = os.path.join(tmp, "restart")
+        final, n = run_with_restart(
+            step_fn, init(), TRAIN["restart_steps"],
+            save_fn=lambda st, s: ckpt_lib.save(cdir, s, st),
+            restore_fn=lambda: (None, 0) if ckpt_lib.latest_step(cdir) is None
+            else ckpt_lib.restore(cdir, like, device=dev),
+            ckpt_every=TRAIN["ckpt_every"], fault_injector=injector)
+        got = ckpt_lib.tree_flatten(final)
+        want = ckpt_lib.tree_flatten(ref)
+        out["restart_equal"] = bool(crashed) and n == TRAIN[
+            "restart_steps"] and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        out["checkpoints"] = sorted(os.listdir(cdir))
+        if not out["restart_equal"]:
+            raise AssertionError(f"train: the restarted run differs {out}")
+        ck = os.path.join(tmp, "cli")
+        argv = ["--smoke", "--ckpt-dir", ck, "--device", dev.type]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            first = train_cli.main(argv + ["--steps", "8", "--ckpt-every",
+                                           "3"])
+            more = train_cli.main(argv + ["--steps", "12", "--resume"])
+        text = buf.getvalue()
+    out["cli"] = {"losses": first + more,
+                  "resumed": "resumed from step 8" in text}
+    if not out["cli"]["resumed"] or len(more) != 4:
+        raise AssertionError(f"train CLI: no resume from step 8: {text}")
+    return out
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """``train.phi4_mini``: the training path (``repro_torch.train``,
+    ``dist.checkpoint``/``fault_tolerance``, ``launch.train``; plain
+    PyTorch and autograd, no kernel of the port).
+
+    1. FULL: phi4-mini-3.8b at all 32 layers (fewer, with ``reduced``, if
+       the state does not fit), f32 master weights from a seeded init,
+       bf16 compute, remat on, ``AdamWConfig(lr=1e-3, warmup_steps=10)``;
+       8 steps on one B 2 × T 1024 batch (the last loss below the first),
+       4 on fresh batches; every loss and grad norm finite. ms a step
+       (median of steps 2-8, CUDA events), tokens/s, the device peak
+       beside the 16 B a parameter of state, the step's FLOP bound at the
+       bf16 rate plus AdamW's byte bound (28 B a parameter), the
+       optimizer's own ms;
+    2. the CPU slice (2 layers, f32, B 1 × T 128), then AdamW in place
+       against plain on its gradients;
+    3. remat on against off (4 layers, f32);
+    4. bf16 cast-through and 2 micro-batches (4 layers);
+    5. crash-restart and the CLI's resume at SMOKE width;
+    6. zero launches of the port's kernels.
+    """
+    dev = resolve_device()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held >= 1 << 30:
+        raise AssertionError(f"train: {held} bytes still allocated at the "
+                             f"phase's start")
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    cfg = get_lm_config(TRAIN["arch"])
+    out: dict = {"config": cfg.name, "dtype": cfg.dtype,
+                 "param_dtype": cfg.param_dtype, "card": card,
+                 "shape": dict(TRAIN), "held_bytes_at_start": held,
+                 "reserved_bytes_at_start": torch.cuda.memory_reserved(),
+                 "free_bytes_at_start": torch.cuda.mem_get_info()[0]}
+    secs: dict = {}
+    # the state fills the card: the allocator maps each segment's pages as
+    # it grows, so that freed blocks of other sizes do not fragment it (the
+    # FULL steps reserved up to 77.7 GiB of the card's 79.2 without it,
+    # 75.9 with it, for a 69.4 GiB peak)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        failed = []
+        for depth in TRAIN_DEPTHS:
+            try:
+                out["full"] = _train_full(dataclasses.replace(
+                    cfg, n_layers=depth), seed, dev)
+            except torch.cuda.OutOfMemoryError as e:
+                failed.append(f"{depth} layers: {str(e)[:400]}")
+            if "full" in out:
+                break
+            gc.collect()                    # the failed attempt's state
+            torch.cuda.empty_cache()
+            failed[-1] += (f" [{torch.cuda.memory_allocated()} bytes "
+                           f"allocated after the cleanup]")
+        else:
+            raise AssertionError(f"train: no depth fits: {failed}")
+        if failed:
+            out["reduced"] = {"n_layers": out["full"]["n_layers"],
+                              "reason": failed}
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["full"] = time.perf_counter() - t_phase
+        for name, fn in (("slice", _train_slice), ("remat", _train_remat),
+                         ("variants", _train_variants)):
+            out[name] = fn(cfg, seed, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            secs[name] = time.perf_counter() - t_phase - sum(secs.values())
+        out["restart"] = _train_restart(seed, dev)
+        secs["restart"] = time.perf_counter() - t_phase - sum(
+            secs.values())
+    finally:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+    out["launches"] = dict(_build.LAUNCHES)
+    if any(out["launches"].values()):
+        raise AssertionError(f"train: a kernel of the port launched: "
+                             f"{out['launches']}")
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("train.phi4_mini", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # pipeline phase
 # ---------------------------------------------------------------------------
 N_STREAM = 10_000_000          # the DEEP10M subset's size
@@ -5196,6 +5602,7 @@ def main() -> int:
     attn = phase_attention(args.seed, device["nvidia_smi"])
     lm = phase_lm(args.seed, device["nvidia_smi"])
     families = phase_families(args.seed, device["nvidia_smi"])
+    train = phase_train(args.seed, device["nvidia_smi"])
     # the probe entry on each index's own grid leads its rows (the l2 np 16
     # row heads the line): that is the main path's shape (cap is the
     # fullest cell's, known after the build); the dense entry on each grid
@@ -5211,6 +5618,7 @@ def main() -> int:
     report = {"device": device, **kernels, "serve": serves,
               "autotune": {k: tune[k] for k in ("rows", "cache")},
               "attention": attn, "lm": lm, "lm_families": families,
+              "train": train,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

@@ -23,10 +23,15 @@ probe), the cluster-sharded index (``dist/``: one ``torch.device`` a
 shard, searched in one process and merged exactly) and the replica fleet
 (``serve/fleet.py``: routing, admission, failover, fan-out writes,
 sharded and paged replicas). On the LM side: JUNO-attention
-(``models/juno_attention.py``) and the dense decoder-only serving path
+(``models/juno_attention.py``), the dense decoder-only serving path
 (``models/``: config, params, layers, transformer, api; ``serve/engine.py``,
-the continuous-batching decode engine; ``configs/``, the four dense
-architectures; ``data/tokens.py``). See ROADMAP.md for what is still to
-come.
+the continuous-batching decode engine; ``configs/``; ``data/tokens.py``),
+the MoE, MLA, Mamba-2, hybrid, cross-attention (VLM) and Whisper
+encoder-decoder families (``models/{moe,mla,mamba2,whisper}.py``, all ten
+architectures' configs), and training (``train/``: AdamW and the train
+step, gradients by autograd with remat; ``dist/``: checkpoints in the
+reference's layout, the step watchdog and crash-restart loop, gradient
+compression; ``launch/train.py``, the trainer CLI). See ROADMAP.md for
+what is still to come.
 """
 from .device import resolve_device  # noqa: F401

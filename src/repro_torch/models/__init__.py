@@ -5,7 +5,7 @@
 decode-time attention (PQ-indexed keys, an approximate scan, exact
 attention over the top-C positions)."""
 from .api import (ModelAPI, cache_from_reference, get_model,  # noqa: F401
-                  params_from_reference)
+                  params_from_reference, train_state_from_reference)
 from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig  # noqa: F401
 from .juno_attention import (KVIndex, build_kv_index,  # noqa: F401
                              draw_kv_init, encode_step,

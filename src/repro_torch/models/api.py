@@ -3,12 +3,14 @@
 Port of ``repro/models/api.py``: ``get_model(cfg)`` returns a
 :class:`ModelAPI` whose callables hide the family differences
 (decoder-only, cross-attention VLM, encoder-decoder) from the serving
-loop (``serve/engine.py``). ``loss`` runs without autograd (training is
-ROADMAP queue 1 item 2.3).
+loop (``serve/engine.py``) and the trainer (``train/steps.py``). ``loss``
+is differentiable (autograd records it unless the caller turns it off);
+``prefill`` and ``decode`` run under ``torch.inference_mode``.
 
-Weights and caches carry across from the reference as numpy trees
-(:func:`params_from_reference`, :func:`cache_from_reference`), so the
-CPU tests hold the port to ``repro`` on the same parameters.
+Weights, caches and a training state carry across from the reference as
+numpy trees (:func:`params_from_reference`, :func:`cache_from_reference`,
+:func:`train_state_from_reference`), so the CPU tests hold the port to
+``repro`` on the same parameters.
 """
 from __future__ import annotations
 
@@ -68,11 +70,10 @@ def _decoder_api(cfg: ModelConfig) -> ModelAPI:
     schema = transformer.model_schema(cfg)
 
     def loss(params, batch):
-        with torch.inference_mode():
-            x = transformer.forward(cfg, params, batch["tokens"],
-                                    context=batch.get("context"))
-            logits = transformer.lm_logits(cfg, params, x)
-            return _xent(logits, batch["targets"])
+        x = transformer.forward(cfg, params, batch["tokens"],
+                                context=batch.get("context"))
+        logits = transformer.lm_logits(cfg, params, x)
+        return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
         with torch.inference_mode():
@@ -94,11 +95,10 @@ def _whisper_api(cfg: ModelConfig) -> ModelAPI:
     schema = whisper.model_schema(cfg)
 
     def loss(params, batch):
-        with torch.inference_mode():
-            enc = whisper.encode(cfg, params, batch["frames"])
-            x = whisper.decoder_forward(cfg, params, batch["tokens"], enc)
-            logits = transformer.lm_logits(cfg, params, x)
-            return _xent(logits, batch["targets"])
+        enc = whisper.encode(cfg, params, batch["frames"])
+        x = whisper.decoder_forward(cfg, params, batch["tokens"], enc)
+        logits = transformer.lm_logits(cfg, params, x)
+        return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
         with torch.inference_mode():
@@ -191,3 +191,37 @@ def cache_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
         batch, seq = np.shape(blocks["conv"])[lead], 1
     schema = get_model(cfg).cache_schema(batch, seq)
     return _from_tree(tree, schema, resolve_device(device), "cache")
+
+
+def train_state_from_reference(tree, cfg: ModelConfig, device=None):
+    """The reference's ``TrainState`` as the port's
+    (:class:`repro_torch.train.TrainState`), so that both packages step
+    from the same state.
+
+    Parameters
+    ----------
+    tree : (params, (m, v, step)) of numpy arrays
+        ``jax.tree.map(np.asarray, state)`` of a ``repro.train``
+        ``TrainState`` (its NamedTuples unpack as such pairs): ``params``,
+        ``m`` and ``v`` checked leaf by leaf against the family's schema
+        (as :func:`params_from_reference`), ``step`` a 0-dim int32.
+    cfg : ModelConfig
+    device : str or torch.device, optional
+        ``None`` = ``cuda``.
+
+    Returns
+    -------
+    TrainState
+        Values bit-equal to the source.
+    """
+    from ..train import OptState, TrainState
+    params, (m, v, step) = tree
+    dev = resolve_device(device)
+    schema = get_model(cfg).schema
+    if np.shape(step) != ():
+        raise ValueError(f"opt/step has shape {np.shape(step)}, want ()")
+    return TrainState(
+        params=_from_tree(params, schema, dev, "params"),
+        opt=OptState(m=_from_tree(m, schema, dev, "opt/m"),
+                     v=_from_tree(v, schema, dev, "opt/v"),
+                     step=_tensor(np.asarray(step, np.int32), dev)))

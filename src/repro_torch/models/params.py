@@ -48,6 +48,20 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like: dict, leaves) -> dict:
+    """``like``'s tree of dicts with ``leaves`` (an iterable in
+    :func:`tree_leaves` order) in its leaves' places."""
+    return _fill(like, iter(leaves))
+
+
+def _fill(tree: dict, it) -> dict:
+    # a module-level function, not a closure over the iterator: a
+    # recursive closure is a reference cycle, which would keep the leaves
+    # (a step's gradients) alive until the garbage collector runs
+    return {k: _fill(tree[k], it) if isinstance(tree[k], dict) else next(it)
+            for k in sorted(tree)}
+
+
 def stack(schema, n: int):
     """Prepend a stacked-layer axis of size n to every leaf."""
     return tree_map(lambda s: Spec((n,) + s.shape, s.init, s.dtype), schema)

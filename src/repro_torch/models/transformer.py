@@ -7,8 +7,15 @@ Port of ``repro/models/transformer.py``. The layout is the reference's:
 block weights are stacked on a leading layer axis (``params["blocks"]``
 leaves (L, ...)), and for a VLM on two, (groups, self blocks a group,
 ...), beside its ``cross_blocks`` (groups, ...); the decode cache is
-stacked the same way. The port loops over the layers and slices them.
-Activations are (B, T, D).
+stacked the same way. The port loops over the layers: :func:`forward`
+takes each stacked leaf apart once (:func:`unstack`), so that autograd
+writes each leaf's gradient into one stacked buffer; prefill and decode
+slice layer by layer (:func:`layer`). Activations are (B, T, D).
+
+Remat: while autograd records, :func:`forward` checkpoints each block
+(and each VLM group) when ``cfg.remat`` is set, as the reference's
+``jax.checkpoint`` does: the backward recomputes a block's activations
+from its saved input. Forward values do not change.
 
 The decode cache is updated IN PLACE (the reference returns a new cache
 from a jitted function that donates the old one); :func:`decode` and
@@ -24,13 +31,15 @@ normalises it, so decode differs from :func:`forward`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import layers, mamba2, mla as mla_lib, moe as moe_lib
 from .config import ModelConfig
-from .params import Spec, as_dtype, cast_floats, stack
+from .params import Spec, as_dtype, cast_floats, stack, tree_leaves, tree_map
 
 
 # --------------------------------------------------------------------------
@@ -113,6 +122,26 @@ def layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked tree: views of every leaf's slice."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def unstack(tree: dict, lead: int = 1) -> list[dict]:
+    """Every layer of a stacked tree, each leaf taken apart once: its
+    ``lead`` leading (layer) axes flattened into one, then one ``unbind``.
+    Autograd's backward of the ``unbind`` stacks the layers' gradients into
+    one buffer, where slicing layer by layer (:func:`layer`) would make a
+    zero tensor the size of the whole leaf for each layer."""
+    parts = tree_map(lambda v: v.flatten(0, lead - 1).unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` checkpointed (its activations recomputed in the backward
+    from its inputs) when ``cfg.remat`` is set and autograd records;
+    otherwise ``fn``."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def self_layer(cfg: ModelConfig, tree: dict, g: int, j: int) -> dict:
@@ -240,7 +269,9 @@ def cross_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()].to(as_dtype(cfg.dtype))
+    # F.embedding's backward sums each row's gradients in token order (an
+    # indexing backward's accumulate runs in parallel, its order varying)
+    return F.embedding(tokens.long(), params["embed"]).to(as_dtype(cfg.dtype))
 
 
 def _context(cfg: ModelConfig, context) -> Optional[torch.Tensor]:
@@ -261,13 +292,20 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     positions = torch.arange(tokens.shape[1], device=x.device)
     table = rope_table(cfg, positions)
     n_groups, per = groups(cfg)
-    for g in range(n_groups):
-        for j in range(per):
-            x = block_apply(cfg, self_layer(cfg, params["blocks"], g, j), x,
-                            positions, table)
-        if ctx is not None:
-            x = cross_block_apply(cfg, layer(params["cross_blocks"], g), x,
-                                  ctx)
+    blocks = unstack(params["blocks"], 2 if ctx is not None else 1)
+    block = remat(cfg, lambda p, h: block_apply(cfg, p, h, positions, table))
+    if ctx is None:
+        for p in blocks:
+            x = block(p, x)
+    else:
+        def group(h, p_selfs, p_cross):
+            for p in p_selfs:
+                h = block(p, h)
+            return cross_block_apply(cfg, p_cross, h, ctx)
+        cross = unstack(params["cross_blocks"])
+        group = remat(cfg, group)
+        for g in range(n_groups):
+            x = group(x, blocks[g * per:(g + 1) * per], cross[g])
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

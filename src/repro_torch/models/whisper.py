@@ -7,17 +7,22 @@ projects its cross K/V from the encoder's output. Positional encoding is
 RoPE throughout (the reference's recorded deviation from Whisper's learned
 embeddings, ``configs/whisper_large_v3.py``).
 
-The decode cache is updated in place, as ``transformer``'s.
+The decode cache is updated in place, as ``transformer``'s. The encoder
+and the teacher-forcing decoder take each stacked leaf apart once and
+checkpoint each block while autograd records (``cfg.remat``), as
+:func:`transformer.forward` does.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import layers
 from .config import ModelConfig
 from .params import Spec, as_dtype, cast_floats, stack
-from .transformer import (attn_schema, layer, lm_logits, mlp_schema,
-                          tick_constants, _batched_update, _write_prefix)
+from .transformer import (attn_schema, layer, lm_logits, mlp_schema, remat,
+                          tick_constants, unstack, _batched_update,
+                          _write_prefix)
 
 
 def enc_block_schema(cfg: ModelConfig) -> dict:
@@ -58,14 +63,18 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
     x = frames.to(as_dtype(cfg.dtype))
     positions = torch.arange(frames.shape[1], device=x.device)
     table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.n_encoder_layers):
-        p = cast_floats(layer(params["enc_blocks"], i), cfg.dtype)
+
+    def block(p, x):
+        p = cast_floats(p, cfg.dtype)
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
         o = layers.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
         x = x + layers.attn_out(o, p["attn"])
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _mlp(h2, p["mlp"])
+        return x + _mlp(h2, p["mlp"])
+    block = remat(cfg, block)
+    for p in unstack(params["enc_blocks"]):
+        x = block(p, x)
     return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -94,7 +103,7 @@ def _dec_block(cfg, p, x, positions, table, enc_out, cache=None):
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens.long()].to(as_dtype(cfg.dtype))
+    return F.embedding(tokens.long(), params["embed"]).to(as_dtype(cfg.dtype))
 
 
 def decoder_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -103,9 +112,10 @@ def decoder_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = _dec_block(cfg, layer(params["dec_blocks"], i), x, positions,
-                       table, enc_out)
+    block = remat(cfg, lambda p, h: _dec_block(cfg, p, h, positions, table,
+                                               enc_out))
+    for p in unstack(params["dec_blocks"]):
+        x = block(p, x)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -366,7 +366,11 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "        'repro_torch.models.mamba2', 'repro_torch.models.whisper',\n"
         "        'repro_torch.serve.engine', 'repro_torch.configs',\n"
-        "        'repro_torch.data.tokens'} <= walked, walked\n"
+        "        'repro_torch.data.tokens', 'repro_torch.train.optimizer',\n"
+        "        'repro_torch.train.steps', 'repro_torch.dist.checkpoint',\n"
+        "        'repro_torch.dist.fault_tolerance',\n"
+        "        'repro_torch.dist.compression',\n"
+        "        'repro_torch.launch.train'} <= walked, walked\n"
         "print(len(walked))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
