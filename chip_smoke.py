@@ -224,7 +224,8 @@ Phases, each raising on failure:
    there) at full width in bf16 from a seeded init, one JSON line a
    model, each model freed before the next (its device peak recorded):
    deepseek-v2-lite-16b FULL served by a ``ServeEngine`` of 8 slots of
-   4096 (8 requests, every output equal to a plain replay; ms a tick
+   4096 (8 requests, every output equal to a plain replay of the first
+   256 ticks, whole where its last tick is replayed; ms a tick
    beside the byte bound, which reads every expert), f32 prefill/decode
    against forward at 4 layers under the MoE capacity rule, the share of
    dropped slots at B 4 × T 4096, the absorbed MLA decode against the
@@ -248,13 +249,25 @@ Phases, each raising on failure:
    in place against plain; bf16 cast-through and 2 micro-batches at 4
    layers; a crash-restart run equal to an uninterrupted one and the
    trainer CLI's resume at SMOKE width; no kernel of the port launched;
-10. the kernel line, then the card line, then the result line. A
+10. shard (``shard.phi4_mini``) — the sharded train step
+   (``repro_torch.dist.sharding``: DTensor state on a ``DeviceMesh``, the
+   SP schedule, ``grad_pspecs``; plain PyTorch, no kernel of the port) on
+   a one-rank NCCL group's (1, 1) ("data", "model") mesh: phi4-mini-3.8b
+   FULL at as many layers as fit (32), 3 steps from the train phase's seed
+   and batch, sharded and unsharded at the same depth (loss within 1e-4
+   and grad norm within 1e-3, relative), ms a step, a profiled step's
+   device busy time and the peak of each;
+   a 2-layer f32 slice's gradients sharded against unsharded (within 1e-5
+   of the largest; ``torch.equal`` recorded); a SMOKE-width checkpoint
+   saved from the mesh restored onto it and onto no mesh, equal; no
+   kernel of the port launched;
+11. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes, the ``mutate`` rounds, the first
    pass of each paged engine, the ``obs`` passes, the ``dist`` and
    ``fleet`` phases, the ``autotune`` engines' configured passes, the
    ``pipeline`` builds and 10M engine passes and ``lm.phi4_mini``,
-   ``lm.families`` and ``train.phi4_mini`` (none)
+   ``lm.families``, ``train.phi4_mini`` and ``shard.phi4_mini`` (none)
    (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
@@ -332,10 +345,13 @@ from repro_torch.configs import get_config as get_lm_config  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.tokens import make_batch as lm_batch  # noqa: E402
 from repro_torch.dist import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.dist import sharding as shmod  # noqa: E402
+from repro_torch.launch.mesh import normalize_pspec  # noqa: E402
 from repro_torch.dist.fault_tolerance import run_with_restart  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.train import (AdamWConfig, TrainConfig,  # noqa: E402
-                               adamw_update, adamw_update_, init_opt_state,
+from repro_torch.train import (AdamWConfig, OptState,  # noqa: E402
+                               TrainConfig, TrainState, adamw_update,
+                               adamw_update_, init_opt_state,
                                init_train_state, make_train_step)
 from repro_torch.models import (build_kv_index, draw_kv_init,  # noqa: E402
                                 encode_step, juno_decode_attention,
@@ -2583,9 +2599,9 @@ def _dir_bytes(path: str) -> int:
                for d, _, fs in os.walk(path) for f in fs)
 
 
-# timed turns of (resident pass, paged pass) a paged engine (two leave the
-# script's 1200 s room for train.phi4_mini)
-PAGED_TURNS = 2
+# timed turns of (resident pass, paged pass) a paged engine (one leaves
+# the script's 1200 s room for train.phi4_mini and shard.phi4_mini)
+PAGED_TURNS = 1
 
 
 def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
@@ -2593,7 +2609,7 @@ def paged_engine(path: str, cache_bytes: int, resident, queries, stream, *,
     """One paged engine configuration beside the resident engine of the same
     configuration (over ``resident``, a ``MutableJunoIndex``): a first pass
     with the launches counted, every request bit-equal to the resident
-    engine's, then two turns of (resident pass, paged pass)."""
+    engine's, then ``PAGED_TURNS`` turns of (resident pass, paged pass)."""
     prefilter = "scan" if grid is None else "rt"
     dev = resident.data.ivf.centroids.device
     pdata = PagedIndexData(path, cache_bytes=cache_bytes, device=dev)
@@ -4359,6 +4375,10 @@ FAMILIES = {
                "and 1 cross block) are 10.7 B"),
 }
 MLA_TOL = 1e-3        # absorbed vs decompressed MLA, f32, relative
+# the plain replay checks each served family's first 256 ticks (of 301
+# and 458; the host-bound replays took 127 s whole, and shard.phi4_mini
+# needs the time under the script's 1200 s), as lm.phi4_mini's does
+FAMILY_REPLAY_TICKS = 256
 
 
 class MoEDrops:
@@ -4411,7 +4431,9 @@ def _family_init(cfg, seed: int, dev) -> tuple:
 def _family_serve(cfg, model, params, spec: dict, seed: int, dev) -> dict:
     """A :class:`TickLogEngine` serving ``spec``'s requests to the end: ms
     a tick, tokens/s, the tick's byte bound, the graph's CUDA-event ms;
-    every output equal to the plain replay (:func:`replay_ticks`); the
+    every output equal to the plain replay of the first
+    ``FAMILY_REPLAY_TICKS`` ticks (:func:`replay_ticks`: each request's
+    prefix; whole where its last tick is replayed); the
     requests admitted to a slot an earlier request had used (whose SSM
     state they inherit: ROADMAP queue 3)."""
     reqs = lm_requests(np.random.default_rng(seed), cfg.vocab_size, spec)
@@ -4458,13 +4480,22 @@ def _family_serve(cfg, model, params, spec: dict, seed: int, dev) -> dict:
     ticks = eng.ticks
     del eng
     torch.cuda.empty_cache()
+    # a request is whole in the replay when its last tick is replayed
+    last = {}
+    for t, (_, _, rids) in enumerate(ticks):
+        for rid in rids:
+            if rid >= 0:
+                last[int(rid)] = t
+    out["outputs_whole_in_replay"] = sum(
+        last[r.rid] < FAMILY_REPLAY_TICKS for r in reqs)
     t0 = time.perf_counter()
     out.update(replay_ticks(model, params, ticks, reqs, spec["n_slots"],
-                            spec["max_seq"], dev))
+                            spec["max_seq"], dev, FAMILY_REPLAY_TICKS))
     out["replay_s"] = time.perf_counter() - t0
-    if out["outputs_equal"] != len(reqs):
+    if out["outputs_equal"] != out["outputs_whole_in_replay"]:
         raise AssertionError(f"{cfg.name}: {out['outputs_equal']} of "
-                             f"{len(reqs)} outputs replayed whole")
+                             f"{out['outputs_whole_in_replay']} outputs "
+                             f"replayed whole")
     return out
 
 
@@ -4716,7 +4747,8 @@ def phase_families(seed: int, card: str) -> dict:
     at a time, each freed before the next (its device peak recorded).
 
     1. deepseek-v2-lite-16b FULL (MoE + MLA): a ServeEngine of 8 slots ×
-       4096 serving 8 requests, every output equal to a plain replay;
+       4096 serving 8 requests, every output equal to a plain replay
+       of the first ``FAMILY_REPLAY_TICKS`` ticks;
        f32 prefill/decode against forward at 4 layers, batch 1, T with
        cap(T) = cap(T + 1) (the first of T 1024, 512, ..., 16 where
        forward keeps its last token's slots), decode gated only if
@@ -5128,6 +5160,303 @@ def phase_train(seed: int, card: str) -> dict:
     out["seconds"] = secs
     out["phase_s"] = time.perf_counter() - t_phase
     log("train.phi4_mini", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# shard phase
+# ---------------------------------------------------------------------------
+
+SHARD = dict(steps=2, slice_layers=2, smoke_batch=2, smoke_seq=16)
+SHARD_LOSS_RTOL = 1e-4         # the reference SP test's own bounds: loss
+SHARD_GNORM_RTOL = 1e-3        # and grad norm, relative
+SHARD_SLICE_GRAD_TOL = 1e-5    # the slice's gradients, of the tree's largest
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL process group (its store a ``HashStore``: no
+    address, no network) and its (1, 1) ("data", "model") ``DeviceMesh``,
+    registered with SP (``sharding.enable(("data",), sp=True)``); the
+    registry cleared and the group destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        shmod.enable(("data",), sp=True, mesh=mesh)
+        yield mesh
+    finally:
+        shmod.disable()
+        dist.destroy_process_group()
+
+
+def device_busy(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (device activity only,
+    no trace kept): its wall ms, the summed device time of its kernels and
+    copies, and the idle share ``1 - busy / wall`` (the profiler's own
+    host time included: an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if busy else None}
+
+
+def _grad_pspecs(model, mesh):
+    return lm_params.tree_map(
+        lambda s: normalize_pspec(s.pspec, mesh, s.shape), model.schema,
+        lm_params.is_spec)
+
+
+def _shard_steps(cfg, seed: int, dev, mesh) -> dict:
+    """``SHARD["steps"]`` train steps from the train phase's seeded init on
+    its fixed B 2 × T 1024 batch, then one under the profiler: through the
+    sharded path (parameters placed on ``mesh``, ``grad_pspecs`` from the
+    schema) or, with no mesh, the unsharded one. Losses, grad norms,
+    CUDA-event and host ms a step, the profiled step's wall and device
+    busy ms, the device peak."""
+    model = get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.schema, torch.Generator(device=dev)
+                         .manual_seed(seed), device=dev)
+    gp = None
+    if mesh is not None:
+        # a one-rank mesh splits nothing: the DTensors hold these tensors
+        params = lm_params.distribute(params, model.schema, mesh)
+        gp = _grad_pspecs(model, mesh)
+    state = TrainState(params, init_opt_state(params))
+    del params
+    step = make_train_step(model, TrainConfig(AdamWConfig(
+        lr=1e-3, warmup_steps=10)), grad_pspecs=gp)
+    batch = lm_batch(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"], step=0,
+                     seed=seed, device=dev)
+    out: dict = {"n_layers": cfg.n_layers, "losses": [], "grad_norms": [],
+                 "step_ms": [], "host_ms": []}
+    for _ in range(SHARD["steps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, met = step(state, batch)
+        end.record()
+        end.synchronize()
+        out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"].append(start.elapsed_time(end))
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+    # one more step under the profiler: the device's busy time against the
+    # step's wall time (the host's share: DTensor's dispatch)
+    box: dict = {}
+
+    def profiled():
+        box["state"], box["met"] = step(state, batch)
+    out["profiled_step"] = device_busy(profiled)
+    state = box.pop("state")
+    out["losses"].append(float(box["met"]["loss"]))
+    out["grad_norms"].append(float(box["met"]["grad_norm"]))
+    box.clear()
+    if mesh is not None:
+        leaves = lm_params.tree_leaves(state.params)
+        out["dtensor_leaves"] = sum(shmod.is_dtensor(x) for x in leaves)
+        out["n_leaves"] = len(leaves)
+        out["moments_placed"] = all(
+            tuple(m.placements) == tuple(p.placements)
+            for p, m in zip(leaves, lm_params.tree_leaves(state.opt.m)))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    del state, step
+    return out
+
+
+def _shard_slice(cfg, seed: int, dev, mesh) -> dict:
+    """2 layers at full width in f32 (TF32 off), one B 2 × T 1024 loss and
+    backward unsharded and through the sharded path from the same
+    parameters: gradients within ``SHARD_SLICE_GRAD_TOL`` of the tree's
+    largest; a (1, 1) mesh should change no value, so the largest
+    difference and ``torch.equal`` are recorded."""
+    cfg2 = dataclasses.replace(cfg, n_layers=SHARD["slice_layers"],
+                               dtype="float32")
+    model = get_model(cfg2)
+    params = init_params(model.schema, torch.Generator(device=dev)
+                         .manual_seed(seed), device=dev)
+    batch = lm_batch(cfg2, batch=TRAIN["batch"], seq=TRAIN["seq"], step=0,
+                     seed=seed, device=dev)
+    shmod.disable()
+    try:
+        loss, grads = _train_grads(model, params, batch)
+    finally:
+        shmod.enable(("data",), sp=True, mesh=mesh)
+    dparams = lm_params.distribute(params, model.schema, mesh)
+    d_loss, d_grads = _train_grads(model, dparams, batch)
+    d_grads = [g.full_tensor() for g in d_grads]
+    top = max(float(g.abs().max()) for g in grads)
+    err = max(float((a - b).abs().max()) for a, b in zip(d_grads, grads))
+    out = {"layers": cfg2.n_layers, "loss": float(loss),
+           "sharded_loss": float(d_loss), "grad_err": err, "grad_top": top,
+           "loss_equal": torch.equal(loss, d_loss),
+           "grads_equal": all(torch.equal(a, b)
+                              for a, b in zip(d_grads, grads))}
+    if err > SHARD_SLICE_GRAD_TOL * top or not math.isfinite(err):
+        raise AssertionError(f"shard slice: sharded vs unsharded {out}")
+    return out
+
+
+def _shard_checkpoint(seed: int, dev, mesh) -> dict:
+    """SMOKE width: one sharded step, a save from the (1, 1) mesh, a
+    restore onto it (``shardings=``) and onto no mesh, each leaf
+    ``torch.equal`` to the saved state."""
+    cfg = get_smoke_config(TRAIN["arch"])
+    model = get_model(cfg)
+    params = lm_params.distribute(init_params(
+        model.schema, torch.Generator(device=dev).manual_seed(seed),
+        device=dev), model.schema, mesh)
+    state = TrainState(params, init_opt_state(params))
+    step = make_train_step(model, TrainConfig(AdamWConfig(
+        lr=1e-3, warmup_steps=3)), grad_pspecs=_grad_pspecs(model, mesh))
+    state, _ = step(state, lm_batch(cfg, batch=SHARD["smoke_batch"],
+                                    seq=SHARD["smoke_seq"], step=0,
+                                    seed=seed, device=dev))
+    lay = lm_params.shardings(model.schema, mesh)
+    saved = [x.full_tensor() if shmod.is_dtensor(x) else x
+             for x in ckpt_lib.tree_flatten(state)]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_lib.save(tmp, 1, state)
+        on_mesh, step_no = ckpt_lib.restore(
+            tmp, state, shardings=TrainState(lay, OptState(lay, lay, None)),
+            device=dev)
+        plain, _ = ckpt_lib.restore(tmp, state, device=dev)
+    got = ckpt_lib.tree_flatten(on_mesh)
+    out["onto_mesh_equal"] = step_no == 1 and all(
+        shmod.is_dtensor(a) == shmod.is_dtensor(b) and torch.equal(
+            a.full_tensor() if shmod.is_dtensor(a) else a, s)
+        for a, b, s in zip(got, ckpt_lib.tree_flatten(state), saved))
+    out["onto_none_equal"] = all(
+        not shmod.is_dtensor(a) and torch.equal(a, s)
+        for a, s in zip(ckpt_lib.tree_flatten(plain), saved))
+    if not (out["onto_mesh_equal"] and out["onto_none_equal"]):
+        raise AssertionError(f"shard: checkpoint round trip {out}")
+    return out
+
+
+def phase_shard(seed: int, card: str) -> dict:
+    """``shard.phi4_mini``: the sharded train step (``repro_torch.dist.
+    sharding`` on a ``DeviceMesh``: DTensor parameters, gradients and
+    moments, the SP schedule's layout changes, ``grad_pspecs``; plain
+    PyTorch and autograd, no kernel of the port) on a one-rank NCCL
+    group's (1, 1) ("data", "model") mesh, SP on. Every path of the
+    sharded step runs there but the expert-parallel MoE, which needs a
+    "model" axis past 1 (the CPU tests hold it on a (2, 4) gloo mesh).
+
+    1. FULL: phi4-mini-3.8b at 32 layers (fewer, with ``reduced``, if the
+       state does not fit), the train phase's seed, config and fixed
+       batch; ``SHARD["steps"]`` steps and a profiled one sharded, then as
+       many unsharded at the same depth: losses within ``SHARD_LOSS_RTOL``
+       and grad norms within ``SHARD_GNORM_RTOL`` (relative), ms a step
+       (CUDA events and host), the profiled step's wall against its device
+       busy time, and the device peak of each;
+    2. a 2-layer f32 slice: sharded against unsharded gradients within
+       ``SHARD_SLICE_GRAD_TOL`` of the tree's largest, the largest
+       difference and ``torch.equal`` recorded;
+    3. SMOKE width: a checkpoint saved from the mesh restores onto it and
+       onto no mesh, ``torch.equal``;
+    4. zero launches of the port's kernels.
+    """
+    dev = resolve_device()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held >= 1 << 30:
+        raise AssertionError(f"shard: {held} bytes still allocated at the "
+                             f"phase's start")
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    cfg = get_lm_config(TRAIN["arch"])
+    out: dict = {"config": cfg.name, "dtype": cfg.dtype, "card": card,
+                 "mesh": {"shape": [1, 1], "names": ["data", "model"],
+                          "backend": "nccl", "sp": True},
+                 "shape": dict(SHARD, batch=TRAIN["batch"], seq=TRAIN["seq"]),
+                 "held_bytes_at_start": held}
+    secs: dict = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        with one_rank_mesh() as mesh:
+            failed = []
+            for depth in TRAIN_DEPTHS:
+                try:
+                    out["sharded"] = _shard_steps(dataclasses.replace(
+                        cfg, n_layers=depth), seed, dev, mesh)
+                except torch.cuda.OutOfMemoryError as e:
+                    failed.append(f"{depth} layers: {str(e)[:400]}")
+                if "sharded" in out:
+                    break
+                gc.collect()
+                torch.cuda.empty_cache()
+            else:
+                raise AssertionError(f"shard: no depth fits: {failed}")
+            depth = out["sharded"]["n_layers"]
+            out["n_layers"] = depth
+            if failed:
+                out["reduced"] = {"n_layers": depth, "reason": failed}
+            secs["sharded"] = time.perf_counter() - t_phase
+            shmod.disable()
+            try:
+                out["unsharded"] = _shard_steps(dataclasses.replace(
+                    cfg, n_layers=depth), seed, dev, None)
+            finally:
+                shmod.enable(("data",), sp=True, mesh=mesh)
+            secs["unsharded"] = time.perf_counter() - t_phase - sum(
+                secs.values())
+            s, u = out["sharded"], out["unsharded"]
+            out["loss_rel"] = [abs(a - b) / max(1.0, abs(b))
+                               for a, b in zip(s["losses"], u["losses"])]
+            out["grad_norm_rel"] = [abs(a - b) / max(1.0, abs(b)) for a, b
+                                    in zip(s["grad_norms"], u["grad_norms"])]
+            out["bit_equal_metrics"] = (s["losses"] == u["losses"] and
+                                        s["grad_norms"] == u["grad_norms"])
+            out["ms_per_step"] = {"sharded": s["step_ms"][-1],
+                                  "unsharded": u["step_ms"][-1]}
+            if max(out["loss_rel"]) > SHARD_LOSS_RTOL or max(
+                    out["grad_norm_rel"]) > SHARD_GNORM_RTOL or not all(
+                    math.isfinite(x) for x in s["losses"] + s["grad_norms"]):
+                raise AssertionError(f"shard: sharded vs unsharded {out}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["slice"] = _shard_slice(cfg, seed, dev, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            secs["slice"] = time.perf_counter() - t_phase - sum(
+                secs.values())
+            out["checkpoint"] = _shard_checkpoint(seed, dev, mesh)
+            secs["checkpoint"] = time.perf_counter() - t_phase - sum(
+                secs.values())
+    finally:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+    out["launches"] = dict(_build.LAUNCHES)
+    if any(out["launches"].values()):
+        raise AssertionError(f"shard: a kernel of the port launched: "
+                             f"{out['launches']}")
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("shard.phi4_mini", **out)
     return out
 
 
@@ -5603,6 +5932,7 @@ def main() -> int:
     lm = phase_lm(args.seed, device["nvidia_smi"])
     families = phase_families(args.seed, device["nvidia_smi"])
     train = phase_train(args.seed, device["nvidia_smi"])
+    shard = phase_shard(args.seed, device["nvidia_smi"])
     # the probe entry on each index's own grid leads its rows (the l2 np 16
     # row heads the line): that is the main path's shape (cap is the
     # fullest cell's, known after the build); the dense entry on each grid
@@ -5618,7 +5948,7 @@ def main() -> int:
     report = {"device": device, **kernels, "serve": serves,
               "autotune": {k: tune[k] for k in ("rows", "cache")},
               "attention": attn, "lm": lm, "lm_families": families,
-              "train": train,
+              "train": train, "shard": shard,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

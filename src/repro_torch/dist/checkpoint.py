@@ -11,10 +11,15 @@ and a crash mid-save leaves the previous one intact.
 Leaves are taken in the reference's ``jax.tree.leaves`` order: a dict's
 values by sorted key, a tuple's (a ``NamedTuple``'s: ``TrainState``,
 ``OptState``) in field order, ``None`` holding no leaf. A leaf is a
-tensor, a numpy array or a Python scalar. ``restore`` rebuilds the tree
-against a reference tree ``like`` and places the leaves on ``device``
-(the reference's ``shardings``: the elastic reshard is ROADMAP queue 1
-item 2.4).
+tensor, a DTensor, a numpy array or a Python scalar.
+
+Under a mesh the layout on disk is the same: :func:`save` of a tree of
+DTensors gathers each leaf whole (every rank calls it, in the same
+order), rank 0 writes, and the others wait for the commit on a barrier.
+:func:`restore` rebuilds the tree against a reference tree ``like`` and
+places the leaves on ``device``, or with ``shardings`` onto a mesh's
+placements, whatever mesh wrote them (the elastic reshard): each rank
+reads the whole leaf and keeps its own slice.
 """
 from __future__ import annotations
 
@@ -86,6 +91,11 @@ def tree_unflatten(like, leaves):
     return next(leaves)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _bytes(leaf) -> tuple[bytes, str, list]:
     """A leaf's raw bytes (C order), numpy dtype name and shape."""
     if isinstance(leaf, torch.Tensor):
@@ -101,8 +111,23 @@ def _bytes(leaf) -> tuple[bytes, str, list]:
 def save(directory: str, step: int, tree, *, keep: int | None = None) -> str:
     """Write ``tree`` as checkpoint ``step``; returns the committed path.
 
-    ``keep=N`` prunes to the N newest checkpoints after the commit.
+    ``keep=N`` prunes to the N newest checkpoints after the commit. A
+    tree with DTensor leaves is saved by every rank of their process
+    group together: each leaf gathered whole, rank 0 writing.
     """
+    leaves = tree_flatten(tree)
+    if any(_is_dtensor(x) for x in leaves):
+        import torch.distributed as dist
+        full = [x.full_tensor() if _is_dtensor(x) else x for x in leaves]
+        path = _step_dir(directory, step)
+        if dist.get_rank() == 0:
+            path = _write(directory, step, full, keep)
+        dist.barrier()
+        return path
+    return _write(directory, step, leaves, keep)
+
+
+def _write(directory: str, step: int, leaves: list, keep) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory,
                        f".tmp_{_PREFIX}{step:08d}.{os.getpid()}")
@@ -110,7 +135,7 @@ def save(directory: str, step: int, tree, *, keep: int | None = None) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": []}
-    for i, leaf in enumerate(tree_flatten(tree)):
+    for i, leaf in enumerate(leaves):
         raw, dtype, shape = _bytes(leaf)
         fname = f"leaf_{i:05d}.bin"
         with open(os.path.join(tmp, fname), "wb") as f:
@@ -132,14 +157,20 @@ def save(directory: str, step: int, tree, *, keep: int | None = None) -> str:
     return final
 
 
-def restore(directory: str, like, *, step: int | None = None, device=None):
+def restore(directory: str, like, *, step: int | None = None, device=None,
+            shardings=None):
     """Load checkpoint ``step`` (default: latest) shaped like ``like``.
 
     Returns ``(tree, step)``: ``like``'s structure with tensors on
     ``device`` (``None`` = ``cuda``) for its leaves, in the manifest's
-    dtypes and shapes.
+    dtypes and shapes. ``shardings``: optional tree matching ``like``
+    whose leaves are :class:`repro_torch.launch.mesh.Sharding` (e.g.
+    ``models.params.shardings(schema, mesh)``) or ``None``; a leaf with a
+    sharding becomes a DTensor with its placements on its mesh (on the
+    mesh's device type), on whichever mesh saved it.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if shardings is None or device is not None \
+        else None
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -161,5 +192,41 @@ def restore(directory: str, like, *, step: int | None = None, device=None):
         dt = _DTYPES[entry["dtype"]]
         t = (torch.frombuffer(raw, dtype=dt) if raw
              else torch.empty(0, dtype=dt))
-        leaves.append(t.reshape(entry["shape"]).to(dev))
-    return tree_unflatten(like, iter(leaves)), manifest["step"]
+        leaves.append(t.reshape(entry["shape"]))
+    lays = ([None] * len(leaves) if shardings is None
+            else _layouts(shardings, like))
+    out = [_place(t, sh, dev) for t, sh in zip(leaves, lays)]
+    return tree_unflatten(like, iter(out)), manifest["step"]
+
+
+def _layouts(shardings, like) -> list:
+    """``shardings``' leaves in ``like``'s leaf order (a Sharding, a
+    NamedTuple itself, counts as a leaf; so does None where ``like`` holds
+    a leaf)."""
+    from ..launch.mesh import Sharding
+    out = []
+
+    def walk(sh, lk):
+        if lk is None:
+            return
+        if isinstance(lk, dict):
+            for k in sorted(lk):
+                walk(None if sh is None else sh[k], lk[k])
+        elif isinstance(lk, (tuple, list)) and not isinstance(sh, Sharding):
+            for i, t in enumerate(lk):
+                walk(None if sh is None else sh[i], t)
+        else:
+            out.append(sh)
+    walk(shardings, like)
+    return out
+
+
+def _place(t: torch.Tensor, sh, dev):
+    if sh is None:
+        return t.to(dev if dev is not None else resolve_device(None))
+    from torch.distributed.tensor import DTensor
+    from ..models.params import local_shard
+    t = t.to(sh.mesh.device_type)
+    return DTensor.from_local(local_shard(t, sh.mesh, sh.placements),
+                              sh.mesh, sh.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())

@@ -5,7 +5,11 @@ Port of ``repro/models/api.py``: ``get_model(cfg)`` returns a
 (decoder-only, cross-attention VLM, encoder-decoder) from the serving
 loop (``serve/engine.py``) and the trainer (``train/steps.py``). ``loss``
 is differentiable (autograd records it unless the caller turns it off);
-``prefill`` and ``decode`` run under ``torch.inference_mode``.
+``prefill`` and ``decode`` run under ``torch.inference_mode``. Under a
+mesh (``repro_torch.dist.sharding.enable``) ``loss`` takes parameters
+placed by ``params.distribute`` and the global batch, and returns the
+global loss on every rank; ``prefill`` and ``decode`` run on one device
+and refuse a registered mesh.
 
 Weights, caches and a training state carry across from the reference as
 numpy trees (:func:`params_from_reference`, :func:`cache_from_reference`,
@@ -20,9 +24,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist import sharding as shmod
 from . import transformer, whisper
 from .config import ModelConfig
-from .params import Spec, is_spec, tree_map
+from .params import P, Spec, is_spec, tree_map
 
 
 class ModelAPI(NamedTuple):
@@ -38,22 +43,36 @@ class ModelAPI(NamedTuple):
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy. logits (B, T, V) f32, targets (B, T)."""
+    """Mean next-token cross-entropy. logits (B, T, V) f32, targets (B, T).
+    For DTensor logits (batch-sharded, under a mesh) the mean of the
+    shards' means, a plain 0-dim tensor on every rank."""
+    if shmod.is_dtensor(logits):
+        return shmod.batch_mean(_xent, logits,
+                                shmod.constrain_batch(targets, None))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, targets.long()[..., None],
                                 dim=-1)[..., 0]
     return torch.mean(lse - gold)
 
 
+def _one_device() -> None:
+    if shmod.mesh() is not None:
+        raise NotImplementedError(
+            "prefill and decode run on one device: disable the mesh "
+            "(repro_torch.dist.sharding.disable) to serve")
+
+
 def _token_batch_schema(cfg: ModelConfig):
     def make(batch: int, seq: int) -> dict:
-        sch = {"tokens": Spec((batch, seq), "zeros", torch.int32),
-               "targets": Spec((batch, seq), "zeros", torch.int32)}
+        rows = P(("pod", "data"), None)
+        sch = {"tokens": Spec((batch, seq), "zeros", torch.int32, rows),
+               "targets": Spec((batch, seq), "zeros", torch.int32, rows)}
         ctx = (batch, cfg.n_context_tokens, cfg.d_model)
+        ctx_p = P(("pod", "data"), None, None)
         if cfg.encoder_decoder:
-            sch["frames"] = Spec(ctx, "normal", cfg.dtype)
+            sch["frames"] = Spec(ctx, "normal", cfg.dtype, ctx_p)
         elif cfg.cross_attn_period:
-            sch["context"] = Spec(ctx, "normal", cfg.dtype)
+            sch["context"] = Spec(ctx, "normal", cfg.dtype, ctx_p)
         return sch
     return make
 
@@ -76,11 +95,13 @@ def _decoder_api(cfg: ModelConfig) -> ModelAPI:
         return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
+        _one_device()
         with torch.inference_mode():
             return transformer.prefill(cfg, params, batch["tokens"], cache,
                                        context=batch.get("context"))
 
     def decode_fn(params, cache, token, pos):
+        _one_device()
         with torch.inference_mode():
             return transformer.decode(cfg, params, cache, token, pos)
 
@@ -101,11 +122,13 @@ def _whisper_api(cfg: ModelConfig) -> ModelAPI:
         return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
+        _one_device()
         with torch.inference_mode():
             return whisper.prefill(cfg, params, batch["frames"],
                                    batch["tokens"], cache)
 
     def decode_fn(params, cache, token, pos):
+        _one_device()
         with torch.inference_mode():
             return whisper.decode(cfg, params, cache, token, pos)
 

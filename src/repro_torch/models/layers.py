@@ -16,13 +16,22 @@ reference's numerics:
   output to ``q``'s dtype;
 * RoPE rotates halves (not interleaved pairs) in f32; ``rms_norm`` casts
   the normalised f32 rows to the input's dtype before the weight.
+
+Given DTensors (the sharded path, ``repro_torch.dist.sharding``)
+``rms_norm``, :func:`gqa_qkv`, :func:`attend` and :func:`attn_out` run on
+local shards: the projections column-parallel with heads over "model",
+the output projection row-parallel. Plain tensors take the plain path,
+also inside a function that ``sharding.local`` runs on local shards.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import sharding as shmod
 
 NEG_INF = -1e30
 FAR = 2 ** 30            # the position of a masked-out or padded key
@@ -35,7 +44,10 @@ FAR = 2 ** 30            # the position of a masked-out or padded key
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
-    """x (..., D) -> RMS-normalised in f32, cast to x's dtype, times weight."""
+    """x (..., D) -> RMS-normalised in f32, cast to x's dtype, times weight
+    (on local shards for a DTensor x: the rows are independent)."""
+    if shmod.is_dtensor(x):
+        return shmod.local(rms_norm, x, weight, eps)
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
@@ -270,7 +282,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def gqa_qkv(x, p, cfg, positions, table=None):
     """x (B, T, D) -> q (B, T, H, hd), k/v (B, T, KVH, hd), rope applied
-    (``table``: :func:`rope_table` of ``positions``, if made already)."""
+    (``table``: :func:`rope_table` of ``positions``, if made already).
+    Under a mesh: the projections of the whole sequence, column-parallel
+    (:func:`sharded_heads`)."""
+    if shmod.is_dtensor(x):
+        xg = shmod.seq_all_gather(x)
+        return sharded_heads(*(shmod.col_parallel(xg, p[w]) for w in
+                               ("wq", "wk", "wv")), cfg, positions, table)
     b, t, _ = x.shape
     q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
@@ -281,7 +299,34 @@ def gqa_qkv(x, p, cfg, positions, table=None):
     return q, k, v
 
 
+def sharded_heads(q2, k2, v2, cfg, positions, table=None):
+    """The column-parallel projections (B, T, heads·hd) as rotated heads
+    (B, T, heads, hd) with heads over "model" (``constrain_heads``; KV
+    heads fewer than the model axis stay replicated)."""
+    table = table or rope_table(positions, cfg.head_dim, cfg.rope_theta)
+
+    def rope(t):
+        return apply_rope(t, positions, cfg.rope_theta, table)
+
+    def heads(x2, n, rotate):
+        return shmod.constrain_heads(shmod.split_heads(
+            x2, n, cfg.head_dim, rope if rotate else None))
+    return (heads(q2, cfg.n_heads, True), heads(k2, cfg.n_kv_heads, True),
+            heads(v2, cfg.n_kv_heads, False))
+
+
+def attend(q, k, v, **kw):
+    """:func:`attention`; on DTensors, on each rank's heads
+    (``sharding.head_attention``)."""
+    if shmod.is_dtensor(q):
+        return shmod.head_attention(partial(attention, **kw), q, k, v)
+    return attention(q, k, v, **kw)
+
+
 def attn_out(o, p):
-    """o (B, T, H, hd) -> (B, T, D) through ``wo``."""
+    """o (B, T, H, hd) -> (B, T, D) through ``wo`` (row-parallel under a
+    mesh, the output in the activation layout)."""
+    if shmod.is_dtensor(o):
+        return shmod.row_parallel(shmod.merge_heads(o), p["wo"])
     b, t, h, hd = o.shape
     return o.reshape(b, t, h * hd) @ p["wo"]

@@ -18,7 +18,7 @@ import torch
 
 from .config import ModelConfig
 from .layers import rms_norm, silu
-from .params import Spec
+from .params import P, Spec
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -34,14 +34,17 @@ def mamba_schema(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     d_in, nh, conv_dim = ssm_dims(cfg)
     gn = s.n_groups * s.d_state
-    return {"w_z": Spec((d, d_in)), "w_x": Spec((d, d_in)),
-            "w_B": Spec((d, gn)), "w_C": Spec((d, gn)),
-            "w_dt": Spec((d, nh)),
-            "dt_bias": Spec((nh,), "zeros"), "A_log": Spec((nh,), "zeros"),
-            "D": Spec((nh,), "ones"),
-            "conv_w": Spec((s.conv_width, conv_dim)),
-            "norm_w": Spec((d_in,), "ones"),
-            "w_out": Spec((d_in, d))}
+    return {"w_z": Spec((d, d_in), pspec=P("data", "model")),
+            "w_x": Spec((d, d_in), pspec=P("data", "model")),
+            "w_B": Spec((d, gn), pspec=P("data", None)),
+            "w_C": Spec((d, gn), pspec=P("data", None)),
+            "w_dt": Spec((d, nh), pspec=P("data", None)),
+            "dt_bias": Spec((nh,), "zeros", pspec=P(None)),
+            "A_log": Spec((nh,), "zeros", pspec=P(None)),
+            "D": Spec((nh,), "ones", pspec=P(None)),
+            "conv_w": Spec((s.conv_width, conv_dim), pspec=P(None, "model")),
+            "norm_w": Spec((d_in,), "ones", pspec=P("model")),
+            "w_out": Spec((d_in, d), pspec=P("model", "data"))}
 
 
 def _repeat(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:

@@ -23,18 +23,24 @@ import torch
 from .config import ModelConfig
 from .layers import (NEG_INF, apply_rope, attention, decode_mask,
                      update_index)
-from .params import Spec
+from .params import P, Spec
 
 
 def mla_schema(cfg: ModelConfig) -> dict:
     m = cfg.mla
     h = cfg.n_heads
-    return {"wq": Spec((cfg.d_model, h * (m.qk_nope_dim + m.qk_rope_dim))),
-            "w_dkv": Spec((cfg.d_model, m.kv_lora_rank)),
-            "w_krope": Spec((cfg.d_model, m.qk_rope_dim)),
-            "w_uk": Spec((m.kv_lora_rank, h, m.qk_nope_dim)),
-            "w_uv": Spec((m.kv_lora_rank, h, m.v_head_dim)),
-            "wo": Spec((h * m.v_head_dim, cfg.d_model))}
+    return {"wq": Spec((cfg.d_model, h * (m.qk_nope_dim + m.qk_rope_dim)),
+                       pspec=P("data", "model")),
+            "w_dkv": Spec((cfg.d_model, m.kv_lora_rank),
+                          pspec=P("data", None)),
+            "w_krope": Spec((cfg.d_model, m.qk_rope_dim),
+                            pspec=P("data", None)),
+            "w_uk": Spec((m.kv_lora_rank, h, m.qk_nope_dim),
+                         pspec=P(None, "model", None)),
+            "w_uv": Spec((m.kv_lora_rank, h, m.v_head_dim),
+                         pspec=P(None, "model", None)),
+            "wo": Spec((h * m.v_head_dim, cfg.d_model),
+                       pspec=P("model", "data"))}
 
 
 def _project_q(x, p, cfg, positions, table=None):

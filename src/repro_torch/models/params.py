@@ -1,11 +1,19 @@
 """Declarative parameter schemas.
 
 Port of ``repro/models/params.py``. A schema is a tree of dicts whose
-leaves are ``Spec(shape, init, dtype)``; :func:`init_params` makes real
-tensors from it. There is no ``PartitionSpec``: the port runs on one
-device (sharding is ROADMAP queue 1 item 2.4). Stacked layers:
-:func:`stack` prepends a layer axis to every leaf, the layout the
-reference's ``lax.scan`` consumes; the port's layer loop slices it.
+leaves are ``Spec(shape, init, dtype, pspec)``. The same schema serves
+three consumers:
+
+* :func:`init_params` makes real tensors from it;
+* :func:`pspecs` / :func:`shardings` give each leaf's layout on a mesh
+  (``pspec``: the reference's ``PartitionSpec`` as a tuple of per-dim
+  entries, :func:`P`), and :func:`distribute` places a parameter tree
+  onto a ``DeviceMesh`` as DTensors by it;
+* ``n_params`` counts it.
+
+Stacked layers: :func:`stack` prepends a layer axis (never sharded) to
+every leaf, the layout the reference's ``lax.scan`` consumes; the port's
+layer loop slices it.
 """
 from __future__ import annotations
 
@@ -16,13 +24,22 @@ import torch
 from ..device import resolve_device
 
 
+def P(*entries) -> tuple:
+    """A pspec: one entry a dim, ``None`` (replicated), a mesh axis name
+    or a tuple of names (the reference's ``PartitionSpec(*entries)``)."""
+    return tuple(entries)
+
+
 class Spec(NamedTuple):
-    """One parameter (or cache) leaf: its shape, its init and its dtype
-    (a ``torch.dtype`` or a dtype name such as ``"bfloat16"``)."""
+    """One parameter (or cache) leaf, fields in this order: its shape, its
+    init, its dtype (a ``torch.dtype`` or a dtype name such as
+    ``"bfloat16"``) and its pspec (:func:`P`; replicated by default). The
+    pspec comes last so that ``Spec(shape, init, dtype)`` stays valid."""
 
     shape: tuple
     init: str = "normal"     # "normal" | "zeros" | "ones" | "neg" | "embed"
     dtype: Any = torch.float32
+    pspec: tuple = ()
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -63,8 +80,61 @@ def _fill(tree: dict, it) -> dict:
 
 
 def stack(schema, n: int):
-    """Prepend a stacked-layer axis of size n to every leaf."""
-    return tree_map(lambda s: Spec((n,) + s.shape, s.init, s.dtype), schema)
+    """Prepend a stacked-layer axis of size n (never sharded) to every
+    leaf."""
+    return tree_map(lambda s: Spec((n,) + s.shape, s.init, s.dtype,
+                                   (None,) + tuple(s.pspec)), schema)
+
+
+def pspecs(schema):
+    """The schema's tree of pspecs."""
+    return tree_map(lambda s: s.pspec, schema, is_spec)
+
+
+def shardings(schema, mesh):
+    """The schema's tree of :class:`repro_torch.launch.mesh.Sharding` on
+    ``mesh`` (a ``DeviceMesh``): each leaf's pspec normalised to the mesh
+    and its shape (``launch.mesh.normalize_pspec``), as placements."""
+    from ..launch.mesh import named_sharding
+    return tree_map(lambda s: named_sharding(mesh, s.pspec, s.shape),
+                    schema, is_spec)
+
+
+def local_shard(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's part of a full tensor ``t`` laid out by ``placements``
+    on ``mesh`` (sizes even, as normalised pspecs make them): a view of
+    ``t``, made contiguous only where the mesh splits it."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    part = t
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            size = part.shape[pl.dim] // mesh.size(i)
+            part = part.narrow(pl.dim, coord[i] * size, size)
+    return part if part.is_contiguous() else part.contiguous()
+
+
+def distribute(params, schema, mesh):
+    """Place a tree of tensors onto ``mesh`` by ``schema``'s layouts.
+
+    Every rank holds the same full tree (the same seed, or a checkpoint);
+    each keeps its own slice of each leaf (no collective). Returns the
+    tree of DTensors, each a leaf of its own (``requires_grad`` off). A
+    leaf the mesh does not split (all of them on a one-rank mesh) keeps
+    the input's storage, so that a state which fills the card is not
+    copied: the train step's in-place update then writes ``params`` too
+    (pass a copy to keep them)."""
+    from torch.distributed.tensor import DTensor
+    lay = shardings(schema, mesh)
+
+    def fill(p, sh):
+        if isinstance(p, dict):
+            return {k: fill(p[k], sh[k]) for k in p}
+        p = p.detach()
+        return DTensor.from_local(local_shard(p, mesh, sh.placements), mesh,
+                                  sh.placements, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+    return fill(params, lay)
 
 
 def _one(s: Spec, gen: Optional[torch.Generator], dev: torch.device,

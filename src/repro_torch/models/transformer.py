@@ -21,6 +21,17 @@ The decode cache is updated IN PLACE (the reference returns a new cache
 from a jitted function that donates the old one); :func:`decode` and
 :func:`prefill` return the cache they were given.
 
+Under a mesh (``repro_torch.dist.sharding.enable``; parameters placed by
+``params.distribute``) :func:`forward` runs the reference's sharded
+schedule on DTensors: activations (B, T, D) batch-sharded, and under SP
+seq-sharded over "model" between blocks (``constrain_act`` on the
+embedding, on every block's output and every cross group's); attention
+column-parallel into heads over "model" and row-parallel out; the MLP
+through ``fused_mlp``; the MoE expert-parallel (``moe.moe_ffn``); MLA, the
+SSM, the hybrid's mixers and cross-attention on the whole sequence
+(``seq_all_gather``) with their weights gathered, on local shards. Prefill
+and decode run on one device.
+
 Two faults of the reference are copied for parity (ROADMAP queue 3):
 a sliding-window prefill stores the prompt's last ``w`` tokens at slots
 0.., which decode's ``pos mod w`` does not continue when the prompt is
@@ -31,15 +42,18 @@ normalises it, so decode differs from :func:`forward`.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import sharding as shmod
 from . import layers, mamba2, mla as mla_lib, moe as moe_lib
 from .config import ModelConfig
-from .params import Spec, as_dtype, cast_floats, stack, tree_leaves, tree_map
+from .params import (P, Spec, as_dtype, cast_floats, stack, tree_leaves,
+                     tree_map)
 
 
 # --------------------------------------------------------------------------
@@ -49,26 +63,34 @@ from .params import Spec, as_dtype, cast_floats, stack, tree_leaves, tree_map
 
 def attn_schema(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": Spec((d, h * hd)), "wk": Spec((d, kv * hd)),
-            "wv": Spec((d, kv * hd)), "wo": Spec((h * hd, d))}
+    return {"wq": Spec((d, h * hd), pspec=P("data", "model")),
+            "wk": Spec((d, kv * hd), pspec=P("data", "model")),
+            "wv": Spec((d, kv * hd), pspec=P("data", "model")),
+            "wo": Spec((h * hd, d), pspec=P("model", "data"))}
 
 
 def mlp_schema(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": Spec((d, f)), "w_in": Spec((d, f)),
-            "w_out": Spec((f, d))}
+    return {"w_gate": Spec((d, f), pspec=P("data", "model")),
+            "w_in": Spec((d, f), pspec=P("data", "model")),
+            "w_out": Spec((f, d), pspec=P("model", "data"))}
+
+
+def _norm_spec(cfg: ModelConfig) -> Spec:
+    """A (D,) norm weight, ones, replicated."""
+    return Spec((cfg.d_model,), "ones", pspec=P(None))
 
 
 def _mixer_schema(cfg: ModelConfig) -> dict:
-    sch: dict = {"ln1": Spec((cfg.d_model,), "ones")}
+    sch: dict = {"ln1": _norm_spec(cfg)}
     if cfg.mixer_kind in ("attn", "hybrid"):
         sch["attn"] = (mla_lib.mla_schema(cfg) if cfg.attn_kind == "mla"
                        else attn_schema(cfg))
     if cfg.mixer_kind in ("ssm", "hybrid"):
         sch["ssm"] = mamba2.mamba_schema(cfg)
     if cfg.mixer_kind == "hybrid":
-        sch["attn_bn"] = Spec((cfg.d_model,), "ones")
-        sch["ssm_bn"] = Spec((cfg.d_model,), "ones")
+        sch["attn_bn"] = _norm_spec(cfg)
+        sch["ssm_bn"] = _norm_spec(cfg)
     return sch
 
 
@@ -80,15 +102,15 @@ def _ffn_schema(cfg: ModelConfig) -> dict:
 def block_schema(cfg: ModelConfig) -> dict:
     sch = _mixer_schema(cfg)
     if cfg.mixer_kind != "ssm":                 # mamba2 blocks: mixer only
-        sch["ln2"] = Spec((cfg.d_model,), "ones")
+        sch["ln2"] = _norm_spec(cfg)
         sch["mlp"] = _ffn_schema(cfg)
     return sch
 
 
 def cross_block_schema(cfg: ModelConfig) -> dict:
-    return {"ln1": Spec((cfg.d_model,), "ones"),
-            "lnc": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
-            "ln2": Spec((cfg.d_model,), "ones"), "mlp": _ffn_schema(cfg)}
+    return {"ln1": _norm_spec(cfg), "lnc": _norm_spec(cfg),
+            "attn": attn_schema(cfg), "ln2": _norm_spec(cfg),
+            "mlp": _ffn_schema(cfg)}
 
 
 def groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -105,16 +127,16 @@ def model_schema(cfg: ModelConfig) -> dict:
     """The parameter schema: ``embed``, the stacked ``blocks`` (and a
     VLM's ``cross_blocks``), ``final_norm`` and (untied) ``lm_head``."""
     d, v = cfg.d_model, cfg.vocab_size
-    sch: dict = {"embed": Spec((v, d), "embed")}
+    sch: dict = {"embed": Spec((v, d), "embed", pspec=P("model", "data"))}
     if cfg.cross_attn_period:
         n_groups, per = groups(cfg)
         sch["blocks"] = stack(stack(block_schema(cfg), per), n_groups)
         sch["cross_blocks"] = stack(cross_block_schema(cfg), n_groups)
     else:
         sch["blocks"] = stack(block_schema(cfg), cfg.n_layers)
-    sch["final_norm"] = Spec((d,), "ones")
+    sch["final_norm"] = _norm_spec(cfg)
     if not cfg.tie_embeddings:
-        sch["lm_head"] = Spec((d, v))
+        sch["lm_head"] = Spec((d, v), pspec=P("data", "model"))
     return sch
 
 
@@ -130,9 +152,20 @@ def unstack(tree: dict, lead: int = 1) -> list[dict]:
     Autograd's backward of the ``unbind`` stacks the layers' gradients into
     one buffer, where slicing layer by layer (:func:`layer`) would make a
     zero tensor the size of the whole leaf for each layer."""
-    parts = tree_map(lambda v: v.flatten(0, lead - 1).unbind(0), tree)
+    parts = tree_map(lambda v: _unbind(v, lead), tree)
     n = len(tree_leaves(parts)[0])
     return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def _unbind(v, lead: int):
+    if not shmod.is_dtensor(v):
+        return v.flatten(0, lead - 1).unbind(0)
+    # a DTensor's layer axes are never sharded: unbind the local shard
+    from torch.distributed.tensor import Shard
+    out = tuple(Shard(p.dim - lead) if isinstance(p, Shard) else p
+                for p in v.placements)
+    return shmod.local(lambda t: t.flatten(0, lead - 1).unbind(0), v,
+                       out=out)
 
 
 def remat(cfg: ModelConfig, fn: Callable) -> Callable:
@@ -167,8 +200,23 @@ def rope_table(cfg: ModelConfig, positions: torch.Tensor):
 
 def _mlp(x, p, cfg):
     if cfg.moe:
-        return moe_lib.moe_ffn(x, p, cfg.moe)
-    return layers.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+        return shmod.constrain_act(moe_lib.moe_ffn(x, p, cfg.moe))
+    return shmod.fused_mlp(x, p["w_gate"], p["w_in"], p["w_out"])
+
+
+def _whole(fn, h, p, *args):
+    """``fn(h, p, *args)`` for a mixer that needs the whole sequence and
+    has no tensor-parallel schedule (MLA, the SSM, cross-attention): under
+    a mesh, on local shards of the gathered sequence with its weights
+    gathered, the output back in the activation layout. Returns what
+    ``fn`` returns (the first output constrained)."""
+    if not shmod.is_dtensor(h):
+        return fn(h, p, *args)
+    out = shmod.local(fn, shmod.seq_all_gather(h), shmod.replicated(p),
+                      *args)
+    if isinstance(out, tuple):
+        return (shmod.constrain_act(out[0]),) + out[1:]
+    return shmod.constrain_act(out)
 
 
 def _write_prefix(cache_arr: torch.Tensor, vals: torch.Tensor) -> None:
@@ -204,11 +252,16 @@ def _write_state(cache_block: dict, conv, ssm) -> None:
 
 
 def _self_attn(cfg, x, p, positions, table, cache=None):
-    q, k, v = layers.gqa_qkv(x, p, cfg, positions, table)
+    if shmod.is_dtensor(x):
+        # x may be seq-sharded (SP): col_parallel_qkv gathers internally
+        q2, k2, v2 = shmod.col_parallel_qkv(x, p["wq"], p["wk"], p["wv"])
+        q, k, v = layers.sharded_heads(q2, k2, v2, cfg, positions, table)
+    else:
+        q, k, v = layers.gqa_qkv(x, p, cfg, positions, table)
     if cache is not None:
         _write_kv(cfg, cache, k, v)
-    o = layers.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                         chunk=cfg.attn_chunk)
+    o = layers.attend(q, k, v, causal=True, window=cfg.sliding_window,
+                      chunk=cfg.attn_chunk)
     return layers.attn_out(o, p)
 
 
@@ -230,18 +283,21 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
             ckv, kr = mla_lib._latent_kv(h, p["attn"], cfg, positions, table)
             _write_prefix(cache["ckv"], ckv.to(cache["ckv"].dtype))
             _write_prefix(cache["kr"], kr.to(cache["kr"].dtype))
-        x = x + mla_lib.mla_attention(h, p["attn"], cfg, positions,
-                                      table=table)
+        x = x + _whole(lambda hh, pp: mla_lib.mla_attention(
+            hh, pp, cfg, positions, table=table), h, p["attn"])
     elif cfg.mixer_kind == "attn":
         x = x + _self_attn(cfg, h, p["attn"], positions, table, cache)
     elif cfg.mixer_kind == "ssm":
-        y, (conv, ssm) = mamba2.mamba_mixer(h, p["ssm"], cfg)
+        y, (conv, ssm) = _whole(partial(mamba2.mamba_mixer, cfg=cfg), h,
+                                p["ssm"])
         if cache is not None:
             _write_state(cache, conv, ssm)
         return x + y                                # mamba2: no MLP
     else:                                           # hybrid (hymba)
+        h = shmod.seq_all_gather(h)
         ya = _self_attn(cfg, h, p["attn"], positions, table, cache)
-        ys, (conv, ssm) = mamba2.mamba_mixer(h, p["ssm"], cfg)
+        ys, (conv, ssm) = _whole(partial(mamba2.mamba_mixer, cfg=cfg), h,
+                                 p["ssm"])
         if cache is not None:
             _write_state(cache, conv, ssm)
         x = x + _hybrid_mix(cfg, p, ya, ys)
@@ -255,6 +311,15 @@ def cross_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     embeddings normalised by ``lnc`` (no RoPE on cross-attention, as
     Llama-3.2-Vision)."""
     p = cast_floats(p, cfg.dtype)
+    x = _whole(lambda xx, pp, cc: _cross_attn(cfg, pp, xx, cc), x,
+               {k: p[k] for k in ("ln1", "lnc", "attn")}, context)
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _mlp(h2, p["mlp"], cfg)
+
+
+def _cross_attn(cfg: ModelConfig, p: dict, x, context):
+    """x plus the cross-attention of its ``ln1`` rows over the
+    ``lnc``-normed context."""
     b, t, _ = x.shape
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     ctx = layers.rms_norm(context, p["lnc"], cfg.norm_eps)
@@ -263,15 +328,22 @@ def cross_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k = (ctx @ p["attn"]["wk"]).reshape(b, tc, cfg.n_kv_heads, cfg.head_dim)
     v = (ctx @ p["attn"]["wv"]).reshape(b, tc, cfg.n_kv_heads, cfg.head_dim)
     o = layers.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    x = x + layers.attn_out(o, p["attn"])
-    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(h2, p["mlp"], cfg)
+    return x + layers.attn_out(o, p["attn"])
 
 
 def embed_tokens(cfg, params, tokens):
+    """tokens (B, T) -> (B, T, D) in the compute dtype; under a mesh the
+    rows of each rank's batch shard from the gathered table, then the
+    activation layout."""
     # F.embedding's backward sums each row's gradients in token order (an
     # indexing backward's accumulate runs in parallel, its order varying)
-    return F.embedding(tokens.long(), params["embed"]).to(as_dtype(cfg.dtype))
+    dt = as_dtype(cfg.dtype)
+    if shmod.mesh() is None:
+        return F.embedding(tokens.long(), params["embed"]).to(dt)
+    x = shmod.local(lambda t, e: F.embedding(t.long(), e).to(dt),
+                    shmod.constrain_batch(tokens, None),
+                    shmod.replicated(params["embed"]))
+    return shmod.constrain_act(x)
 
 
 def _context(cfg: ModelConfig, context) -> Optional[torch.Tensor]:
@@ -280,7 +352,7 @@ def _context(cfg: ModelConfig, context) -> Optional[torch.Tensor]:
     if context is None:
         raise ValueError(f"{cfg.name} cross-attends: pass its context "
                          f"(B, {cfg.n_context_tokens}, {cfg.d_model})")
-    return context.to(as_dtype(cfg.dtype))
+    return shmod.constrain_batch(context, None, None).to(as_dtype(cfg.dtype))
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -293,7 +365,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     table = rope_table(cfg, positions)
     n_groups, per = groups(cfg)
     blocks = unstack(params["blocks"], 2 if ctx is not None else 1)
-    block = remat(cfg, lambda p, h: block_apply(cfg, p, h, positions, table))
+    block = remat(cfg, lambda p, h: shmod.constrain_act(
+        block_apply(cfg, p, h, positions, table)))
     if ctx is None:
         for p in blocks:
             x = block(p, x)
@@ -301,7 +374,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         def group(h, p_selfs, p_cross):
             for p in p_selfs:
                 h = block(p, h)
-            return cross_block_apply(cfg, p_cross, h, ctx)
+            return shmod.constrain_act(cross_block_apply(cfg, p_cross, h,
+                                                         ctx))
         cross = unstack(params["cross_blocks"])
         group = remat(cfg, group)
         for g in range(n_groups):
@@ -314,8 +388,15 @@ def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor
     """x (..., D) -> logits (..., V) f32: the product in the compute dtype,
     then cast to f32."""
     dt = as_dtype(cfg.dtype)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x.to(dt) @ head.to(dt)).float()
+    tie = cfg.tie_embeddings
+
+    def logits(a, w):
+        return (a.to(dt) @ (w.T if tie else w).to(dt)).float()
+    w = params["embed"] if tie else params["lm_head"]
+    if not shmod.is_dtensor(x):
+        return logits(x, w)
+    # the whole vocabulary on every rank of a batch shard
+    return shmod.local(logits, shmod.seq_all_gather(x), shmod.replicated(w))
 
 
 # --------------------------------------------------------------------------
@@ -336,30 +417,38 @@ def init_cache_schema(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
     A VLM stacks the blocks' caches twice, (groups, self blocks, ...), and
     keeps each group's ``cross_k``/``cross_v`` (groups, B, n_context, KVH,
-    hd)."""
+    hd). Each leaf carries the reference's pspec: the batch over
+    ("pod", "data"), the sequence of a full (not sliding-window)
+    attention or latent cache over "model" (context parallelism), an
+    SSM's channels or heads over "model"."""
+    rows = ("pod", "data")
+
     def layer_cache() -> dict:
         if cfg.attn_kind == "mla":
             m = cfg.mla
             return {"ckv": Spec((batch, max_seq, m.kv_lora_rank), "zeros",
-                                cfg.dtype),
+                                cfg.dtype, P(rows, "model", None)),
                     "kr": Spec((batch, max_seq, m.qk_rope_dim), "zeros",
-                               cfg.dtype)}
+                               cfg.dtype, P(rows, "model", None))}
         c: dict = {}
         if cfg.mixer_kind in ("attn", "hybrid"):
             w = cfg.sliding_window
             s = min(w, max_seq) if w else max_seq
             kvshape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-            c["k"] = Spec(kvshape, "zeros", cfg.dtype)
-            c["v"] = Spec(kvshape, "zeros", cfg.dtype)
+            kv_p = P(rows, None if w else "model", None, None)
+            c["k"] = Spec(kvshape, "zeros", cfg.dtype, kv_p)
+            c["v"] = Spec(kvshape, "zeros", cfg.dtype, kv_p)
             if w:
-                c["kpos"] = Spec((batch, s), "neg", torch.int32)
+                c["kpos"] = Spec((batch, s), "neg", torch.int32,
+                                 P(rows, None))
         if cfg.mixer_kind in ("ssm", "hybrid"):
             s_cfg = cfg.ssm
             _, nh, conv_dim = mamba2.ssm_dims(cfg)
             c["conv"] = Spec((batch, s_cfg.conv_width - 1, conv_dim),
-                             "zeros", cfg.dtype)
+                             "zeros", cfg.dtype, P(rows, None, "model"))
             c["ssm"] = Spec((batch, nh, s_cfg.head_dim, s_cfg.d_state),
-                            "zeros", torch.float32)
+                            "zeros", torch.float32,
+                            P(rows, "model", None, None))
         return c
 
     if cfg.cross_attn_period:
@@ -367,8 +456,10 @@ def init_cache_schema(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
         ctx_kv = (n_groups, batch, cfg.n_context_tokens, cfg.n_kv_heads,
                   cfg.head_dim)
         return {"blocks": stack(stack(layer_cache(), per), n_groups),
-                "cross_k": Spec(ctx_kv, "zeros", cfg.dtype),
-                "cross_v": Spec(ctx_kv, "zeros", cfg.dtype)}
+                "cross_k": Spec(ctx_kv, "zeros", cfg.dtype,
+                                P(None, rows, None, None, None)),
+                "cross_v": Spec(ctx_kv, "zeros", cfg.dtype,
+                                P(None, rows, None, None, None))}
     return {"blocks": stack(layer_cache(), cfg.n_layers)}
 
 

@@ -11,6 +11,14 @@ The decode cache is updated in place, as ``transformer``'s. The encoder
 and the teacher-forcing decoder take each stacked leaf apart once and
 checkpoint each block while autograd records (``cfg.remat``), as
 :func:`transformer.forward` does.
+
+Under a mesh (``repro_torch.dist.sharding``) the encoder and the
+teacher-forcing decoder run the reference's sharded schedule: the frames
+and the embedded tokens batch-sharded (``constrain_batch``), every
+block's output in the activation layout (``constrain_act``), self-attention
+with heads over "model" (``layers.gqa_qkv``) and a row-parallel output,
+the MLP through ``fused_mlp``, the decoder's cross-attention on the whole
+sequence with its weights gathered, on local shards.
 """
 from __future__ import annotations
 
@@ -19,31 +27,32 @@ import torch.nn.functional as F
 
 from . import layers
 from .config import ModelConfig
-from .params import Spec, as_dtype, cast_floats, stack
-from .transformer import (attn_schema, layer, lm_logits, mlp_schema, remat,
+from .params import P, Spec, as_dtype, cast_floats, stack
+from ..dist import sharding as shmod
+from .transformer import (_norm_spec, _whole, attn_schema, layer, lm_logits, mlp_schema, remat,
                           tick_constants, unstack, _batched_update,
                           _write_prefix)
 
 
 def enc_block_schema(cfg: ModelConfig) -> dict:
-    return {"ln1": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
-            "ln2": Spec((cfg.d_model,), "ones"), "mlp": mlp_schema(cfg)}
+    return {"ln1": _norm_spec(cfg), "attn": attn_schema(cfg),
+            "ln2": _norm_spec(cfg), "mlp": mlp_schema(cfg)}
 
 
 def dec_block_schema(cfg: ModelConfig) -> dict:
-    return {"ln1": Spec((cfg.d_model,), "ones"), "attn": attn_schema(cfg),
-            "lnx": Spec((cfg.d_model,), "ones"), "xattn": attn_schema(cfg),
-            "ln2": Spec((cfg.d_model,), "ones"), "mlp": mlp_schema(cfg)}
+    return {"ln1": _norm_spec(cfg), "attn": attn_schema(cfg),
+            "lnx": _norm_spec(cfg), "xattn": attn_schema(cfg),
+            "ln2": _norm_spec(cfg), "mlp": mlp_schema(cfg)}
 
 
 def model_schema(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
-    return {"embed": Spec((v, d), "embed"),
+    return {"embed": Spec((v, d), "embed", pspec=P("model", "data")),
             "enc_blocks": stack(enc_block_schema(cfg), cfg.n_encoder_layers),
-            "enc_norm": Spec((d,), "ones"),
+            "enc_norm": _norm_spec(cfg),
             "dec_blocks": stack(dec_block_schema(cfg), cfg.n_layers),
-            "final_norm": Spec((d,), "ones"),
-            "lm_head": Spec((d, v))}
+            "final_norm": _norm_spec(cfg),
+            "lm_head": Spec((d, v), pspec=P("data", "model"))}
 
 
 def _proj_kv(ctx, p, cfg):
@@ -54,24 +63,25 @@ def _proj_kv(ctx, p, cfg):
 
 
 def _mlp(x, p):
-    return layers.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+    return shmod.fused_mlp(x, p["w_gate"], p["w_in"], p["w_out"])
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames (B, T_enc, D) stub embeddings -> encoder states (B, T_enc, D)."""
-    x = frames.to(as_dtype(cfg.dtype))
+    x = shmod.constrain_batch(frames.to(as_dtype(cfg.dtype)), None, None)
     positions = torch.arange(frames.shape[1], device=x.device)
     table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
 
     def block(p, x):
         p = cast_floats(p, cfg.dtype)
+        x = shmod.constrain_act(x)
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
-        o = layers.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        o = layers.attend(q, k, v, causal=False, chunk=cfg.attn_chunk)
         x = x + layers.attn_out(o, p["attn"])
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + _mlp(h2, p["mlp"])
+        return shmod.constrain_act(x + _mlp(h2, p["mlp"]))
     block = remat(cfg, block)
     for p in unstack(params["enc_blocks"]):
         x = block(p, x)
@@ -82,13 +92,23 @@ def _dec_block(cfg, p, x, positions, table, enc_out, cache=None):
     """One decoder block over a full sequence; with ``cache`` (this
     layer's), its self K/V and cross K/V are written there."""
     p = cast_floats(p, cfg.dtype)
+    x = shmod.constrain_act(x)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
     if cache is not None:
         _write_prefix(cache["k"], k.to(cache["k"].dtype))
         _write_prefix(cache["v"], v.to(cache["v"].dtype))
-    o = layers.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    o = layers.attend(q, k, v, causal=True, chunk=cfg.attn_chunk)
     x = x + layers.attn_out(o, p["attn"])
+    x = _whole(lambda xx, pp, enc: _cross(cfg, pp, xx, enc, cache), x,
+               {"lnx": p["lnx"], "xattn": p["xattn"]}, enc_out)
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return shmod.constrain_act(x + _mlp(h2, p["mlp"]))
+
+
+def _cross(cfg, p, x, enc_out, cache=None):
+    """x plus the cross-attention of its ``lnx`` rows over the encoder's
+    output; with ``cache``, the cross K/V are written there."""
     hx = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
     qx = (hx @ p["xattn"]["wq"]).reshape(hx.shape[0], hx.shape[1],
                                          cfg.n_heads, cfg.head_dim)
@@ -97,19 +117,23 @@ def _dec_block(cfg, p, x, positions, table, enc_out, cache=None):
         cache["xk"].copy_(kx)
         cache["xv"].copy_(vx)
     ox = layers.attention(qx, kx, vx, causal=False, chunk=cfg.attn_chunk)
-    x = x + layers.attn_out(ox, p["xattn"])
-    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(h2, p["mlp"])
+    return x + layers.attn_out(ox, p["xattn"])
 
 
 def _embed(cfg, params, tokens):
-    return F.embedding(tokens.long(), params["embed"]).to(as_dtype(cfg.dtype))
+    dt = as_dtype(cfg.dtype)
+    if shmod.mesh() is None:
+        return F.embedding(tokens.long(), params["embed"]).to(dt)
+    return shmod.local(lambda t, e: F.embedding(t.long(), e).to(dt),
+                       shmod.constrain_batch(tokens, None),
+                       shmod.replicated(params["embed"]))
 
 
 def decoder_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                     enc_out: torch.Tensor) -> torch.Tensor:
     """Teacher-forcing decoder pass -> hidden states (B, T, D), normed."""
-    x = _embed(cfg, params, tokens)
+    x = shmod.constrain_batch(_embed(cfg, params, tokens), None, None)
+    enc_out = shmod.seq_all_gather(enc_out)
     positions = torch.arange(tokens.shape[1], device=x.device)
     table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
     block = remat(cfg, lambda p, h: _dec_block(cfg, p, h, positions, table,
@@ -125,10 +149,11 @@ def init_cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
     the cross ``xk``/``xv`` (B, enc_len, KVH, hd), in the compute dtype."""
     kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     ckv = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
-    blk = {"k": Spec(kv, "zeros", cfg.dtype), "v": Spec(kv, "zeros",
-                                                        cfg.dtype),
-           "xk": Spec(ckv, "zeros", cfg.dtype),
-           "xv": Spec(ckv, "zeros", cfg.dtype)}
+    rows = ("pod", "data")
+    blk = {"k": Spec(kv, "zeros", cfg.dtype, P(rows, "model", None, None)),
+           "v": Spec(kv, "zeros", cfg.dtype, P(rows, "model", None, None)),
+           "xk": Spec(ckv, "zeros", cfg.dtype, P(rows, None, None, None)),
+           "xv": Spec(ckv, "zeros", cfg.dtype, P(rows, None, None, None))}
     return {"blocks": stack(blk, cfg.n_layers)}
 
 

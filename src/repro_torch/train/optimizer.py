@@ -24,6 +24,12 @@ tensors; :func:`adamw_update_` writes the new values into ``params``,
 ``m`` and ``v`` (and the step) in place, a bounded slab at a time, so
 that a model whose state fills the card can take a step. The two are
 bit-equal.
+
+Sharded state. The state mirrors the parameter tree leaf for leaf, so a
+parameter's DTensor placements apply to its ``m`` and ``v`` identically
+(:func:`init_opt_state`): each rank updates its own shard (the update is
+elementwise, on the local tensors); the global norm sums each leaf's
+local sum of squares over the mesh dims it is sharded on.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..dist import sharding as shmod
 from ..models.params import tree_leaves, tree_map, tree_unflatten
 
 # elements updated at a time by the in-place form (its f64 temporaries
@@ -60,8 +67,30 @@ class OptState(NamedTuple):
     step: torch.Tensor
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if shmod.is_dtensor(x) else x
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's sum of squares in f32 (a DTensor's over every rank: its
+    local sums reduced over the mesh dims it is sharded on)."""
+    if not shmod.is_dtensor(x):
+        return torch.sum(torch.square(x.float()))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+    s = torch.sum(torch.square(x.to_local().float()))
+    pl = [Partial() if isinstance(p, Shard) else Replicate()
+          for p in x.placements]
+    return DTensor.from_local(s, x.device_mesh, pl,
+                              run_check=False).full_tensor()
+
+
 def init_opt_state(params) -> OptState:
-    """Zero moments beside the parameters, on their device."""
+    """Zero moments beside the parameters, on their device (DTensors with
+    the parameters' placements for a sharded tree)."""
     dev = tree_leaves(params)[0].device
     return OptState(m=tree_map(torch.zeros_like, params),
                     v=tree_map(torch.zeros_like, params),
@@ -72,7 +101,7 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (f32), the leaves
     summed in sorted-key order as the reference's ``jax.tree.leaves``; the
     root correctly rounded."""
-    total = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    total = sum(_sum_sq(x) for x in tree_leaves(tree))
     return torch.sqrt(total.double()).float()
 
 
@@ -148,11 +177,29 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
     tensors; the inputs are left as they were. ``metrics``: ``grad_norm``
     (f32, before the clip) and ``lr`` (f32, after the warmup)."""
     step, gnorm, scale, sc = _prepare(cfg, grads, state)
-    out = [_leaf(cfg, sc, scale, *leaves) for leaves in zip(
-        *map(tree_leaves, (params, grads, state.m, state.v)))]
+    out = [_wrap(p, _leaf(cfg, sc, scale, *map(_local, _aligned(p, g, m,
+                                                                 v))))
+           for p, g, m, v in zip(
+               *map(tree_leaves, (params, grads, state.m, state.v)))]
     new_p, new_m, new_v = (tree_unflatten(params, col) for col in zip(*out))
     new_step = torch.full_like(state.step, step)
     return new_p, OptState(new_m, new_v, new_step), _metrics(gnorm, sc)
+
+
+def _aligned(p, g, m, v):
+    """(p, g, m, v) with a DTensor gradient in its parameter's layout."""
+    if shmod.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return p, g, m, v
+
+
+def _wrap(p, new: tuple) -> tuple:
+    """Local results as DTensors in ``p``'s layout, for a DTensor p."""
+    if not shmod.is_dtensor(p):
+        return new
+    from torch.distributed.tensor import DTensor
+    return tuple(DTensor.from_local(t, p.device_mesh, p.placements,
+                                    run_check=False) for t in new)
 
 
 def _slabs(x: torch.Tensor) -> list:
@@ -175,8 +222,8 @@ def adamw_update_(cfg: AdamWConfig, params, grads, state: OptState) -> dict:
     state that fills the card. Returns the metrics.
     """
     step, gnorm, scale, sc = _prepare(cfg, grads, state)
-    for p, g, m, v in zip(*map(tree_leaves, (params, grads, state.m,
-                                              state.v))):
+    for leaves in zip(*map(tree_leaves, (params, grads, state.m, state.v))):
+        p, g, m, v = map(_local, _aligned(*leaves))
         for ps, gs, ms, vs in zip(_slabs(p), g.reshape(-1).split(SLAB),
                                   _slabs(m), _slabs(v)):
             for dst, new in zip((ps, ms, vs),

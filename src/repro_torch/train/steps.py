@@ -17,6 +17,15 @@ The step updates its :class:`TrainState` in place (the optimizer's
 in-place form, :func:`repro_torch.train.optimizer.adamw_update_`) and
 returns it: a model whose parameters and moments fill the card has no
 room for a second copy.
+
+Under a mesh (``repro_torch.dist.sharding.enable``) the state's leaves are
+DTensors (``models.params.distribute``; the moments take the parameters'
+placements) and every rank passes the same global batch: the model shards
+it, and the step's loss and metrics are the global ones on every rank.
+``grad_pspecs`` (a tree of pspecs like the parameters, e.g. the schema's
+``normalize_pspec``-ed) redistributes each gradient to that layout before
+AdamW: from a partial sum over the batch axes that is a reduce-scatter,
+each rank receiving only its shard.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
+from ..dist import sharding as shmod
 from ..models.api import ModelAPI
 from ..models.params import init_params, tree_leaves, tree_unflatten
 from .optimizer import AdamWConfig, OptState, adamw_update_, init_opt_state
@@ -49,14 +59,13 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig,
 
     ``state`` is updated in place and returned; ``metrics`` holds
     ``loss`` (f32, the mean over micro-batches), ``grad_norm`` and ``lr``
-    (0-dim tensors). ``grad_pspecs`` (the reference's mesh layout of the
-    gradients) belongs to the sharded trainer, ROADMAP queue 1 item 2.4:
-    passing one raises.
+    (0-dim tensors). ``grad_pspecs``: the gradients' layout on the
+    registered mesh (a tree of pspecs matching the parameters); it needs
+    a mesh, and raises without one.
     """
-    if grad_pspecs is not None:
-        raise NotImplementedError(
-            "grad_pspecs: the port's trainer runs on one device (sharding "
-            "is ROADMAP queue 1 item 2.4)")
+    if grad_pspecs is not None and shmod.mesh() is None:
+        raise ValueError("grad_pspecs lays the gradients out on a mesh: "
+                         "register one (repro_torch.dist.sharding.enable)")
     if tcfg.grad_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"grad_dtype {tcfg.grad_dtype!r}: float32 or "
                          f"bfloat16")
@@ -82,8 +91,7 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig,
                      for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=micro["tokens"].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree_leaves(state.params)]
             for i in range(a):
                 li, gi = grads_of(state.params, {k: v[i] for k, v in
@@ -97,6 +105,9 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig,
                 g.div_(a)
         else:
             loss, grads = grads_of(state.params, batch)
+        if grad_pspecs is not None:
+            grads = [shmod.constrain(g, *spec) for g, spec in
+                     zip(grads, tree_leaves(grad_pspecs))]
         metrics = adamw_update_(tcfg.optimizer, state.params,
                                 tree_unflatten(state.params, grads),
                                 state.opt)

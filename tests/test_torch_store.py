@@ -370,7 +370,8 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.train.steps', 'repro_torch.dist.checkpoint',\n"
         "        'repro_torch.dist.fault_tolerance',\n"
         "        'repro_torch.dist.compression',\n"
-        "        'repro_torch.launch.train'} <= walked, walked\n"
+        "        'repro_torch.launch.train', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.dist.sharding'} <= walked, walked\n"
         "print(len(walked))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -395,9 +395,11 @@ def test_train_step_frees_its_gradients(monkeypatch):
 
 
 def test_train_step_refuses_grad_pspecs():
+    """``grad_pspecs`` lays gradients out on a mesh: with none registered
+    the step refuses it (the sharded step is ``test_torch_sharding.py``'s)."""
     model = get_model(port_model_config(RC.get_smoke_config(
         "phi4_mini_3_8b")))
-    with pytest.raises(NotImplementedError, match="2.4"):
+    with pytest.raises(ValueError, match="mesh"):
         PTr.make_train_step(model, PTr.TrainConfig(), grad_pspecs={})
 
 
