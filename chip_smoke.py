@@ -259,15 +259,35 @@ Phases, each raising on failure:
    device busy time and the peak of each;
    a 2-layer f32 slice's gradients sharded against unsharded (within 1e-5
    of the largest; ``torch.equal`` recorded); a SMOKE-width checkpoint
-   saved from the mesh restored onto it and onto no mesh, equal; no
-   kernel of the port launched;
-11. the kernel line, then the card line, then the result line. A
+   saved from the mesh restored onto it and onto no mesh, equal;
+   ``shard.phi4_mini_serve``: prefill of 8 prompts of 512 tokens into a
+   cache of 8 × 4096 and 64 greedy decode ticks through the sharded
+   serving path (parameters in the dry run's serving layout, bf16; the
+   cache laid out by its schema) and unsharded from the same parameters
+   and prompts: the greedy tokens equal, every step's logits within 1e-3
+   of the largest, ms a tick both ways and the peaks; no kernel of the
+   port launched;
+11. dryrun — the dry-run CLI (``repro_torch.launch.dryrun``, a fake world
+   of 256 or 512 ranks, ``--device cuda``) over five cells in
+   subprocesses started before the train phase: hymba-1.5b long_500k on
+   the multi-pod mesh, mamba2-1.3b train_4k single-pod under SP,
+   phi4-mini long_500k (a skip), the JUNO 100M-point cell and phi4-mini
+   train_4k, each status gated, one line a cell (the dominant roofline
+   term; compute, memory and collective seconds at the H100's data-sheet
+   rates; counted over analytic FLOPs); then in process the fake pass of
+   the train phase's FULL step (B 2 × T 1024, no mesh): its counted FLOPs
+   equal to ``FlopCounterMode``'s count of the train phase's last real
+   step and its predicted state bytes to the real state's, MemTracker's
+   peak beside the card's and the analytic compute bound beside the
+   measured ms a step;
+12. the kernel line, then the card line, then the result line. A
    kernel's ``launches`` there counts its wrapper's calls in one pass of the
    four engines over both indexes, the ``mutate`` rounds, the first
    pass of each paged engine, the ``obs`` passes, the ``dist`` and
    ``fleet`` phases, the ``autotune`` engines' configured passes, the
    ``pipeline`` builds and 10M engine passes and ``lm.phi4_mini``,
-   ``lm.families``, ``train.phi4_mini`` and ``shard.phi4_mini`` (none)
+   ``lm.families``, ``train.phi4_mini``, ``shard.phi4_mini`` and the
+   dry run (none)
    (an rt
    engine that launches the dense ``sphere_hits`` entry fails; the line's
    ``sphere_hits`` counts both entries, each in ``entries``): a
@@ -309,6 +329,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
@@ -346,7 +367,9 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.tokens import make_batch as lm_batch  # noqa: E402
 from repro_torch.dist import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.dist import sharding as shmod  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_lib  # noqa: E402
 from repro_torch.launch.mesh import normalize_pspec  # noqa: E402
+from repro_torch.launch.shapes import ShapeSpec  # noqa: E402
 from repro_torch.dist.fault_tolerance import run_with_restart  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.train import (AdamWConfig, OptState,  # noqa: E402
@@ -4840,15 +4863,23 @@ def _train_full(cfg, seed: int, dev) -> dict:
         lr=1e-3, warmup_steps=10)))
     b, t = TRAIN["batch"], TRAIN["seq"]
     fixed = lm_batch(cfg, batch=b, seq=t, step=0, seed=seed, device=dev)
+    out["state_nbytes"] = sum(x.numel() * x.element_size()
+                              for x in ckpt_lib.tree_flatten(state))
     losses, gnorms, ms = [], [], []
-    for i in range(TRAIN["steps"] + TRAIN["fresh"]):
+    n_steps = TRAIN["steps"] + TRAIN["fresh"]
+    for i in range(n_steps):
         batch = fixed if i < TRAIN["steps"] else lm_batch(
             cfg, batch=b, seq=t, step=i - TRAIN["steps"] + 1, seed=seed,
             device=dev)
+        # the last step (a fresh batch, outside the median) under
+        # FlopCounterMode: the count the dry run's fake pass is held to
+        counter = (FlopCounterMode(display=False) if i == n_steps - 1
+                   else contextlib.nullcontext())
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        state, met = step(state, batch)
+        with counter:
+            state, met = step(state, batch)
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
@@ -4871,6 +4902,7 @@ def _train_full(cfg, seed: int, dev) -> dict:
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
         "flops": flops, "flop_bound_ms": flops / BF16_OPS_PER_S * 1e3,
+        "counted_flops": counter.get_total_flops(),
         "opt_bytes": opt_bytes,
         "opt_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3})
     out["bound_ms"] = out["flop_bound_ms"] + out["opt_bound_ms"]
@@ -5168,6 +5200,8 @@ def phase_train(seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARD = dict(steps=2, slice_layers=2, smoke_batch=2, smoke_seq=16)
+SERVE_SHARD = dict(batch=8, prompt=512, max_seq=4096, ticks=64)
+SERVE_SHARD_RTOL = 1e-3        # logits, of each step's largest
 SHARD_LOSS_RTOL = 1e-4         # the reference SP test's own bounds: loss
 SHARD_GNORM_RTOL = 1e-3        # and grad norm, relative
 SHARD_SLICE_GRAD_TOL = 1e-5    # the slice's gradients, of the tree's largest
@@ -5352,6 +5386,86 @@ def _shard_checkpoint(seed: int, dev, mesh) -> dict:
     return out
 
 
+def _serve_ticks(model, params, cache, prompts) -> dict:
+    """Prefill ``prompts`` into ``cache``, then ``SERVE_SHARD["ticks"]``
+    greedy decode ticks: every step's logits (gathered), the tokens, ms a
+    tick (CUDA events)."""
+    def whole(t):
+        return t.full_tensor() if shmod.is_dtensor(t) else t
+    logits, cache = model.prefill(params, {"tokens": prompts}, cache)
+    steps = [whole(logits)]
+    tok = torch.argmax(steps[-1], -1, keepdim=True).to(torch.int32)
+    toks, ms = [tok], []
+    t0 = prompts.shape[1]
+    for i in range(SERVE_SHARD["ticks"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = model.decode(params, cache, tok, t0 + i)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        steps.append(whole(logits))
+        tok = torch.argmax(steps[-1], -1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    return {"logits": steps, "tokens": torch.cat(toks, 1), "ms": ms}
+
+
+def _shard_serve(cfg, seed: int, dev, mesh, card: str) -> dict:
+    """``shard.phi4_mini_serve``: phi4-mini FULL's prefill and decode
+    through the sharded path on ``mesh`` and unsharded, from the same
+    serving parameters (``launch.dryrun._serving_schema``: bf16) and
+    prompts: ``SERVE_SHARD["batch"]`` prompts of ``SERVE_SHARD["prompt"]``
+    tokens into a cache of ``SERVE_SHARD["max_seq"]``, then
+    ``SERVE_SHARD["ticks"]`` greedy ticks. The greedy tokens must be equal
+    and every step's logits within ``SERVE_SHARD_RTOL`` (of the largest);
+    ms a tick both ways, the device peak of each."""
+    model = get_model(cfg)
+    sch = dryrun_lib._serving_schema(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(sch, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    b, t = SERVE_SHARD["batch"], SERVE_SHARD["prompt"]
+    prompts = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                            device=dev, dtype=torch.int32)
+    cache_sch = model.cache_schema(b, SERVE_SHARD["max_seq"])
+    runs: dict = {}
+    for name in ("sharded", "unsharded"):
+        torch.cuda.reset_peak_memory_stats()
+        cache = init_params(cache_sch, device=dev)
+        if name == "sharded":
+            runs[name] = _serve_ticks(
+                model, lm_params.distribute(params, sch, mesh),
+                lm_params.distribute(cache, cache_sch, mesh), prompts)
+        else:
+            shmod.disable()
+            try:
+                runs[name] = _serve_ticks(model, params, cache, prompts)
+            finally:
+                shmod.enable(("data",), sp=True, mesh=mesh)
+        runs[name]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del cache
+    s, u = runs["sharded"], runs["unsharded"]
+    rel = [float((a - w).abs().max() / w.abs().max())
+           for a, w in zip(s["logits"], u["logits"])]
+    out = {"n_layers": cfg.n_layers, "shape": dict(SERVE_SHARD),
+           "tokens_equal": torch.equal(s["tokens"], u["tokens"]),
+           "logits_rel_max": max(rel),
+           "logits_bit_equal": all(torch.equal(a, w) for a, w in
+                                   zip(s["logits"], u["logits"])),
+           "ms_per_tick": {k: statistics.median(runs[k]["ms"][1:])
+                           for k in runs},
+           "peak_bytes": {k: runs[k]["peak_bytes"] for k in runs}}
+    if not out["tokens_equal"] or not out["logits_rel_max"] <= \
+            SERVE_SHARD_RTOL:
+        raise AssertionError(f"shard serve: sharded vs unsharded {out}")
+    out["launches"] = dict(_build.LAUNCHES)
+    log("shard.phi4_mini_serve", card=card, **out)
+    return out
+
+
 def phase_shard(seed: int, card: str) -> dict:
     """``shard.phi4_mini``: the sharded train step (``repro_torch.dist.
     sharding`` on a ``DeviceMesh``: DTensor parameters, gradients and
@@ -5445,6 +5559,11 @@ def phase_shard(seed: int, card: str) -> dict:
             out["checkpoint"] = _shard_checkpoint(seed, dev, mesh)
             secs["checkpoint"] = time.perf_counter() - t_phase - sum(
                 secs.values())
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["serve"] = _shard_serve(cfg, seed, dev, mesh, card)
+            secs["serve"] = time.perf_counter() - t_phase - sum(
+                secs.values())
     finally:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", FutureWarning)
@@ -5457,6 +5576,126 @@ def phase_shard(seed: int, card: str) -> dict:
     out["seconds"] = secs
     out["phase_s"] = time.perf_counter() - t_phase
     log("shard.phi4_mini", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dry-run phase
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh, --sp, the status each must have): the reference's
+# dry-run test's four cells and phi4-mini's train_4k
+DRYRUN_CELLS = [("hymba_1_5b", "long_500k", "multi", False, "ok"),
+                ("mamba2_1_3b", "train_4k", "single", True, "ok"),
+                ("phi4_mini_3_8b", "long_500k", "single", False, "skip"),
+                ("juno_ann", "serve_q128", "single", False, "ok"),
+                ("phi4_mini_3_8b", "train_4k", "single", False, "ok")]
+DRYRUN_TIMEOUT = 600
+
+
+def start_dryrun_cells(out_dir: str) -> list:
+    """The dry-run CLI on each of ``DRYRUN_CELLS``, one subprocess a cell
+    (each starts its own fake world of 256 or 512 ranks; ``--device
+    cuda``), started here and read by :func:`phase_dryrun`: the fake
+    passes are host work, and run while the card serves other phases."""
+    d = os.path.join(out_dir, "dryrun")
+    os.makedirs(d, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mesh, sp, want in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--mesh", mesh, "--device", "cuda",
+               "--outdir", d, "--force"]
+        if arch != "juno_ann":
+            cmd += ["--shape", shape]
+        if sp:
+            cmd.append("--sp")
+        log_path = os.path.join(d, f"{arch}_{shape}_{mesh}.log")
+        with open(log_path, "w") as fh:
+            procs.append({"cell": (arch, shape, mesh, sp, want),
+                          "path": os.path.join(d, f"{arch}_{shape}_{mesh}"
+                                               f".json"),
+                          "log": log_path, "t0": time.perf_counter(),
+                          "proc": subprocess.Popen(
+                              cmd, cwd=REPO, env=env, stdout=fh,
+                              stderr=subprocess.STDOUT)})
+    return procs
+
+
+def phase_dryrun(card: str, procs: list, train: dict) -> dict:
+    """``dryrun``: (a) the dry-run CLI (``repro_torch.launch.dryrun``) over
+    ``DRYRUN_CELLS`` on the fake world, each cell's status gated, one
+    line a cell (the dominant roofline term, the compute, memory and
+    collective seconds at the H100's data-sheet rates, counted over
+    analytic FLOPs); (b) in process, the fake pass of the train phase's
+    FULL step (B 2 × T 1024, no mesh, ``cuda``): its counted FLOPs equal
+    to ``FlopCounterMode``'s count of a real step, its predicted state
+    bytes to the real state's; MemTracker's peak beside the card's, the
+    analytic compute bound beside the measured ms a step."""
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "cells": []}
+    for p in procs:
+        try:
+            rc = p["proc"].wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - p["t0"])))
+        except subprocess.TimeoutExpired:
+            p["proc"].kill()
+            p["proc"].wait()
+            raise AssertionError(f"dryrun: {p['cell']} ran past "
+                                 f"{DRYRUN_TIMEOUT} s")
+        arch, shape, mesh, sp, want = p["cell"]
+        with open(p["log"]) as fh:
+            tail = fh.read()[-2000:]
+        if rc != 0 or not os.path.exists(p["path"]):
+            raise AssertionError(f"dryrun: {p['cell']} exited {rc}: {tail}")
+        with open(p["path"]) as fh:
+            res = json.load(fh)
+        row = {"arch": arch, "shape": shape, "mesh": mesh, "sp": sp,
+               "status": res["status"],
+               "s": time.perf_counter() - p["t0"]}
+        if res["status"] != want:
+            raise AssertionError(f"dryrun: {p['cell']} is "
+                                 f"{res['status']}, want {want}: "
+                                 f"{res.get('error', res.get('reason'))}")
+        if res["status"] == "ok":
+            r = res["roofline"]
+            row.update({k: r[k] for k in ("dominant", "compute_s",
+                                           "memory_s", "collective_s")})
+            row["counted_over_analytic"] = res["counted_over_analytic"]
+            row["link_bytes_per_chip"] = res["collectives"][
+                "total_link_bytes_per_chip"]
+            row["pass_s"] = res["pass_s"]
+        log("dryrun.cell", card=card, **row)
+        out["cells"].append(row)
+    full = train["full"]
+    cfg = dataclasses.replace(get_lm_config(TRAIN["arch"]),
+                              n_layers=full["n_layers"])
+    shape = ShapeSpec("card", "train", TRAIN["seq"], TRAIN["batch"])
+    t0 = time.perf_counter()
+    res = dryrun_lib.run_cell(cfg, shape, None, device="cuda")
+    if res["status"] != "ok":
+        raise AssertionError(f"dryrun: the FULL step's fake pass: "
+                             f"{res.get('error')} {res.get('traceback')}")
+    step = {"n_layers": cfg.n_layers, "fake_s": time.perf_counter() - t0,
+            "counted_flops": res["counted_flops_per_chip"],
+            "real_counted_flops": full["counted_flops"],
+            "state_bytes": res["analytic_state_bytes_per_chip"],
+            "real_state_bytes": full["state_nbytes"],
+            "memtracker_peak_bytes": res["memory_analysis"][
+                "memtracker_peak_bytes"],
+            "real_peak_bytes": full["peak_bytes"],
+            "analytic_flops": res["analytic_flops_per_chip"],
+            "analytic_compute_ms": res["roofline"]["compute_s"] * 1e3,
+            "analytic_memory_ms": res["roofline"]["memory_s"] * 1e3,
+            "ms_per_step": full["ms_per_step"]}
+    if step["counted_flops"] != step["real_counted_flops"] or \
+            step["state_bytes"] != step["real_state_bytes"]:
+        raise AssertionError(f"dryrun: the fake pass against the real "
+                             f"step: {step}")
+    out["full_step"] = step
+    log("dryrun.full_step", card=card, **step)
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -5931,8 +6170,16 @@ def main() -> int:
     attn = phase_attention(args.seed, device["nvidia_smi"])
     lm = phase_lm(args.seed, device["nvidia_smi"])
     families = phase_families(args.seed, device["nvidia_smi"])
-    train = phase_train(args.seed, device["nvidia_smi"])
-    shard = phase_shard(args.seed, device["nvidia_smi"])
+    cells = start_dryrun_cells(args.out)
+    try:
+        train = phase_train(args.seed, device["nvidia_smi"])
+        shard = phase_shard(args.seed, device["nvidia_smi"])
+        dry = phase_dryrun(device["nvidia_smi"], cells, train)
+    finally:
+        for c in cells:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
     # the probe entry on each index's own grid leads its rows (the l2 np 16
     # row heads the line): that is the main path's shape (cap is the
     # fullest cell's, known after the build); the dense entry on each grid
@@ -5948,7 +6195,7 @@ def main() -> int:
     report = {"device": device, **kernels, "serve": serves,
               "autotune": {k: tune[k] for k in ("rows", "cache")},
               "attention": attn, "lm": lm, "lm_families": families,
-              "train": train, "shard": shard,
+              "train": train, "shard": shard, "dryrun": dry,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

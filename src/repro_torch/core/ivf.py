@@ -146,5 +146,5 @@ def filter_clusters(queries: torch.Tensor, index: IVFIndex, *, nprobe: int,
         ``(scores (Q, nprobe) f32, cluster_ids (Q, nprobe) int64)``;
         scores are lower-is-better for l2 and higher-is-better for ip.
     """
-    return ops.filter_topk(queries.float(), index.centroids,
+    return ops.route().filter_topk(queries.float(), index.centroids,
                            index.centroid_sq, nprobe=nprobe, metric=metric)

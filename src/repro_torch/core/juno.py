@@ -369,7 +369,7 @@ def _stage_b(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
         qsub = q.reshape(nq, 1, -1, m).expand(nq, nprobe, -1, m)
         probe_base = base
     tau = density_lib.predict_threshold(index.density, qsub, thres_scale)
-    mlut, table = ops.build_selective_lut(
+    mlut, table = ops.route().build_selective_lut(
         qsub, index.codebook.entries, index.codebook.entry_sq, tau,
         metric=metric)
     return mlut, table, probe_base, tau
@@ -456,14 +456,14 @@ def _score_probed(index: JunoIndexData, q: torch.Tensor, base: torch.Tensor,
     n_in = cids.shape[1] * p
     k_in = min(k, n_in)
     if mode == "H":
-        out_scores, sel = ops.masked_adc_topk_scan(
+        out_scores, sel = ops.route().masked_adc_topk_scan(
             mlut, codes, valid, scan_cids, k_in, metric=metric,
             probe_ok=probe_ok, probe_base=probe_base)
         side_args = (mlut, probe_base, bad_score(metric), metric == "ip")
     else:
         if mode == "L":  # plain count: clip penalty/inner to {0, 1}
             table = (table >= 0).to(torch.int8)
-        out_scores, sel = ops.hit_count_topk_scan(
+        out_scores, sel = ops.route().hit_count_topk_scan(
             table, codes, valid, scan_cids, k_in, probe_ok=probe_ok)
         side_args = (table, None, NEG, True)
     if side is not None:
@@ -566,8 +566,8 @@ def _score_probed_two_stage(index: JunoIndexData, q: torch.Tensor,
                 metric=metric, probe_ok=probe_ok)
         cand = cand.long()
     else:
-        _, cand = ops.hit_count_topk_scan(table, codes, valid, scan_cids, cap,
-                                          probe_ok=probe_ok)
+        _, cand = ops.route().hit_count_topk_scan(
+            table, codes, valid, scan_cids, cap, probe_ok=probe_ok)
     cand_probe = cand // p
     cand_slot = cand % p
     cand_cid = torch.gather(cids, 1, cand_probe)

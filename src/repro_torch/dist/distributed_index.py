@@ -29,6 +29,8 @@ own cluster range, per-shard rebuilds and merge lanes.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -37,6 +39,7 @@ from ..core.juno import (JunoIndexData, MutableIndexBase, _as_tensor,
                          _label_encode, _own_copy, _search_batch,
                          _search_batch_two_stage, _side_set, _top_k, index_to)
 from ..device import resolve_device
+from ..kernels import ops
 from ..rt import grid as rt_lib
 
 
@@ -85,6 +88,48 @@ def shard_index(idx: JunoIndexData, devices=None
             density=index_to(idx.density, dev),
             points_sq=idx.points_sq.to(dev)))
     return tuple(out)
+
+
+def search_shard(part: JunoIndexData, q: torch.Tensor, lo: int, *,
+                 local_nprobe: int, k: int, mode: str = "H",
+                 metric: str = "l2", thres_scale: float = 1.0,
+                 rerank: int = 0, fused: bool = False,
+                 fused3: bool | None = None, side=None,
+                 prefilter: str = "scan", rt_grid=None,
+                 rt_scale: float = 1.0, impl: str = "kernel"):
+    """One shard's search: ``part`` holds clusters ``lo ..``, ``q`` the
+    queries on its device, ``side`` and ``rt_grid`` the replicated side
+    buffer and grid (or ``None``). ``impl="ref"`` runs the plain route of
+    the non-fused scan search (``kernels.ops.plain_route``, the
+    reference's ``impl="ref"``; the dry run's fake tensors), ``"kernel"``
+    the kernels' wrappers. Returns the shard's (scores (Q, k), ids (Q, k)
+    int32)."""
+    if impl == "ref" and (fused or prefilter == "rt"):
+        raise ValueError("impl='ref' has no plain route for the fused "
+                         "scans or the rt prefilter")
+    kw = {}
+    if side is not None:
+        local = index_to(side, q.device)
+        kw["side"] = local._replace(cluster=local.cluster - lo)
+    if prefilter == "rt":
+        kw.update(prefilter="rt", rt_grid=index_to(rt_grid, q.device),
+                  rt_scale=rt_scale, rt_offset=lo)
+    route = ops.plain_route() if impl == "ref" else contextlib.nullcontext()
+    with route:
+        if mode == "H2":
+            return _search_batch_two_stage(
+                part, q, nprobe=local_nprobe, k=k, metric=metric,
+                thres_scale=thres_scale, rerank=rerank, fused=fused,
+                fused3=fused3, **kw)
+        return _search_batch(part, q, nprobe=local_nprobe, k=k, mode=mode,
+                             metric=metric, thres_scale=thres_scale, **kw)
+
+
+def merge_shards(scores, ids, k: int, higher_better: bool):
+    """The exact merge: the shards' (Q, k) results concatenated in shard
+    order, one stable top-k (point ids are global)."""
+    top, order = _top_k(torch.cat(scores, dim=1), k, higher_better)
+    return top, torch.gather(torch.cat(ids, dim=1), 1, order)
 
 
 def make_distributed_search(devices, local_nprobe: int, k: int, *,
@@ -149,28 +194,14 @@ def make_distributed_search(devices, local_nprobe: int, k: int, *,
         n_local = sharded[0].ivf.point_ids.shape[0]
         out_s, out_i = [], []
         for s, (part, dev) in enumerate(zip(sharded, devs)):
-            lo = s * n_local
-            kw = {}
-            if side is not None:
-                local = index_to(side, dev)
-                kw["side"] = local._replace(cluster=local.cluster - lo)
-            if prefilter == "rt":
-                kw.update(prefilter="rt", rt_grid=index_to(rt_grid, dev),
-                          rt_scale=rt_scale, rt_offset=lo)
-            q = q_all.to(dev)
-            if mode == "H2":
-                sc, ids = _search_batch_two_stage(
-                    part, q, nprobe=local_nprobe, k=k, metric=metric,
-                    thres_scale=thres_scale, rerank=rerank, fused=fused,
-                    fused3=fused3, **kw)
-            else:
-                sc, ids = _search_batch(
-                    part, q, nprobe=local_nprobe, k=k, mode=mode,
-                    metric=metric, thres_scale=thres_scale, **kw)
+            sc, ids = search_shard(
+                part, q_all.to(dev), s * n_local, local_nprobe=local_nprobe,
+                k=k, mode=mode, metric=metric, thres_scale=thres_scale,
+                rerank=rerank, fused=fused, fused3=fused3, side=side,
+                prefilter=prefilter, rt_grid=rt_grid, rt_scale=rt_scale)
             out_s.append(sc.to(devs[0]))
             out_i.append(ids.to(devs[0]))
-        scores, order = _top_k(torch.cat(out_s, dim=1), k, higher_better)
-        return scores, torch.gather(torch.cat(out_i, dim=1), 1, order)
+        return merge_shards(out_s, out_i, k, higher_better)
 
     return dsearch
 

@@ -261,6 +261,48 @@ def _seq_axis():
 
 
 # --------------------------------------------------------------------------
+# a dim split over "model" inside a function that :func:`local` runs
+# (serving: the decode cache's sequence, an SSM's heads and channels)
+# --------------------------------------------------------------------------
+
+
+def shard_range(x, dim: int) -> tuple[int, int]:
+    """(start, size) of this rank's part of the DTensor ``x`` along ``dim``,
+    in the global tensor's indices (the mesh dims that split ``dim`` taken
+    major first, as ``models.params.local_shard`` cuts; even parts)."""
+    from torch.distributed.tensor import Shard
+    m = x.device_mesh
+    coord = m.get_coordinate()
+    parts, idx = 1, 0
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            idx = idx * m.size(i) + coord[i]
+            parts *= m.size(i)
+    size = x.shape[dim] // parts
+    return idx * size, size
+
+
+def model_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """A local tensor all-reduced (``op``: "sum" or "max") over the
+    registered mesh's "model" dim: inside a function :func:`local` runs,
+    whose rows are split over "model"."""
+    import torch.distributed._functional_collectives as funcol
+    i = _MESH.mesh_dim_names.index("model")
+    return funcol.all_reduce(t, op, (_MESH, i))
+
+
+def split_softmax(s: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax(s, -1)`` of rows split over "model" along the last
+    dim, on this rank's part (inside a function :func:`local` runs): the
+    parts' max and their sums of exponentials are reduced over "model"
+    (the flash-decode combine), so each rank holds its part of the
+    softmax over the whole row."""
+    mx = model_reduce(s.amax(-1, keepdim=True), "max")
+    e = torch.exp(s - mx)
+    return e / model_reduce(e.sum(-1, keepdim=True))
+
+
+# --------------------------------------------------------------------------
 # activation constraints
 # --------------------------------------------------------------------------
 
@@ -274,6 +316,14 @@ def constrain_act(x):
 def constrain_batch(x, *rest):
     """Shard dim 0 over the batch axes; trailing dims per ``rest``."""
     return constrain(x, _BATCH_AXES, *rest)
+
+
+def rows(x):
+    """x batch-sharded and whole along every other dim (serving's one-token
+    activations, gathered over "model")."""
+    if _MESH is None:
+        return x
+    return constrain(x, _BATCH_AXES, *([None] * (x.ndim - 1)))
 
 
 def constrain_heads(x):

@@ -26,6 +26,9 @@ points score as invalid slots, as the reference's
 """
 from __future__ import annotations
 
+import contextlib
+import sys
+
 import torch
 
 from . import autotune
@@ -82,11 +85,20 @@ def build_selective_lut(qsub: torch.Tensor, entries: torch.Tensor,
         lut, hit = selective_lut(q[..., 0], q[..., 1], entries[..., 0],
                                  entries[..., 1], entry_sq,
                                  tau.reshape(-1, n_probe, s), metric=metric)
-    else:
-        lut, hit = selective_lut_plain(
-            qsub[..., 0].reshape(-1, s), qsub[..., 1].reshape(-1, s),
-            entries[..., 0], entries[..., 1], entry_sq, tau.reshape(-1, s),
-            metric=metric)
+        return lut.reshape(*lead, s, e), hit.reshape(*lead, s, e)
+    return build_selective_lut_plain(qsub, entries, entry_sq, tau,
+                                     metric=metric)
+
+
+def build_selective_lut_plain(qsub, entries, entry_sq, tau, *,
+                              metric: str = "l2"):
+    """:func:`build_selective_lut`'s plain version, on any device."""
+    lead = qsub.shape[:-2]
+    s, e = entries.shape[0], entries.shape[1]
+    lut, hit = selective_lut_plain(
+        qsub[..., 0].reshape(-1, s), qsub[..., 1].reshape(-1, s),
+        entries[..., 0], entries[..., 1], entry_sq, tau.reshape(-1, s),
+        metric=metric)
     return lut.reshape(*lead, s, e), hit.reshape(*lead, s, e)
 
 
@@ -136,6 +148,15 @@ def masked_adc_topk_scan(mlut: torch.Tensor, codes: torch.Tensor,
             probe_ok=None if probe_ok is None else probe_ok.contiguous(),
             probe_base=None if probe_base is None
             else probe_base.contiguous())
+    return masked_adc_topk_scan_plain(mlut, codes, valid, cids, k,
+                                      metric=metric, probe_ok=probe_ok,
+                                      probe_base=probe_base)
+
+
+def masked_adc_topk_scan_plain(mlut, codes, valid, cids, k: int, *,
+                               metric: str = "l2", probe_ok=None,
+                               probe_base=None):
+    """:func:`masked_adc_topk_scan`'s plain version, on any device."""
     return pq_scan_topk_plain(mlut, codes[cids],
                               _probed_valid(valid, cids, probe_ok), k,
                               metric=metric, probe_base=probe_base)
@@ -179,6 +200,13 @@ def hit_count_topk_scan(table: torch.Tensor, codes: torch.Tensor,
                               valid.contiguous(), cids.contiguous(), k,
                               probe_ok=None if probe_ok is None
                               else probe_ok.contiguous())
+    return hit_count_topk_scan_plain(table, codes, valid, cids, k,
+                                     probe_ok=probe_ok)
+
+
+def hit_count_topk_scan_plain(table, codes, valid, cids, k: int, *,
+                              probe_ok=None):
+    """:func:`hit_count_topk_scan`'s plain version, on any device."""
     return hit_count_topk_plain(table, codes[cids],
                                 _probed_valid(valid, cids, probe_ok), k)
 
@@ -331,3 +359,51 @@ def filter_topk(queries: torch.Tensor, centroids: torch.Tensor,
         return ivf_filter_topk(*(a.contiguous() for a in args),
                                nprobe=nprobe, metric=metric)
     return ivf_filter_topk_plain(*args, nprobe=nprobe, metric=metric)
+
+
+def filter_topk_plain(queries, centroids, centroid_sq, *, nprobe: int,
+                      metric: str = "l2"):
+    """:func:`filter_topk`'s plain version, on any device."""
+    return ivf_filter_topk_plain(queries, centroids, centroid_sq,
+                                 nprobe=nprobe, metric=metric)
+
+
+# --------------------------------------------------------------------------
+# the plain route, named (the reference's impl="ref")
+# --------------------------------------------------------------------------
+
+
+class _PlainRoute:
+    """The scans the non-fused search reaches, by their plain versions:
+    what :func:`route` gives inside :func:`plain_route`."""
+
+    filter_topk = staticmethod(filter_topk_plain)
+    build_selective_lut = staticmethod(build_selective_lut_plain)
+    masked_adc_topk_scan = staticmethod(masked_adc_topk_scan_plain)
+    hit_count_topk_scan = staticmethod(hit_count_topk_scan_plain)
+
+
+_PLAIN = [False]
+_WRAPPERS = sys.modules[__name__]
+
+
+def route():
+    """The functions ``core/juno.py`` and ``core/ivf.py`` call for stage A,
+    stage B and the non-fused scans: this module's wrappers (which follow
+    the tensors' device), or, inside :func:`plain_route`, their plain
+    versions by name."""
+    return _PlainRoute if _PLAIN[0] else _WRAPPERS
+
+
+@contextlib.contextmanager
+def plain_route():
+    """While active, the search runs the plain versions of stage A, stage
+    B and the non-fused scans whatever the tensors' device (the
+    reference's ``impl="ref"``; the dry run's fake "cuda" tensors). The
+    fused scans and the rt prefilter have no plain route here."""
+    before = _PLAIN[0]
+    _PLAIN[0] = True
+    try:
+        yield
+    finally:
+        _PLAIN[0] = before

@@ -1,6 +1,6 @@
 """Launch tooling of the port: mesh construction and pspec normalisation
-(``launch/mesh.py``) and the trainer CLI (``launch/train.py``).
-
-The reference's shapes, analytics and dry-run (``repro/launch``) are
-ROADMAP queue 1 item 2.5.
+(``launch/mesh.py``), the trainer CLI (``launch/train.py``), the input
+shapes (``shapes.py``), the analytic roofline (``analytic.py``), the
+collective accounting (``comm_analysis.py``) and the multi-pod dry run
+(``dryrun.py``).
 """

@@ -19,11 +19,30 @@ class Sharding(NamedTuple):
     placements: tuple            # one Placement a mesh dim
 
 
+def init_fake_world(n: int) -> None:
+    """Start a fake process group of ``n`` ranks in this one process (as
+    rank 0): collectives are issued and recorded but move nothing,
+    so a mesh of 256 or 512 GPUs is built with no GPU (the dry run,
+    ``launch/dryrun.py``). A function, never run at import; a no-op when
+    a fake group of that size exists already."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() == n:
+            return
+        raise RuntimeError(f"a {dist.get_backend()} process group of "
+                           f"{dist.get_world_size()} ranks exists already")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod", "data",
     "model") with ``multi_pod``, over the initialised default process
-    group, which must hold exactly that many ranks."""
+    group, which must hold exactly that many ranks (a real one, or the
+    fake world of :func:`init_fake_world`, on which ``"cuda"`` meshes
+    need no card)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)

@@ -5,11 +5,15 @@ Port of ``repro/models/api.py``: ``get_model(cfg)`` returns a
 (decoder-only, cross-attention VLM, encoder-decoder) from the serving
 loop (``serve/engine.py``) and the trainer (``train/steps.py``). ``loss``
 is differentiable (autograd records it unless the caller turns it off);
-``prefill`` and ``decode`` run under ``torch.inference_mode``. Under a
+``prefill`` and ``decode`` run under ``torch.inference_mode`` (under a
+mesh ``torch.no_grad``). Under a
 mesh (``repro_torch.dist.sharding.enable``) ``loss`` takes parameters
 placed by ``params.distribute`` and the global batch, and returns the
-global loss on every rank; ``prefill`` and ``decode`` run on one device
-and refuse a registered mesh.
+global loss on every rank; ``prefill`` and ``decode`` take parameters so
+placed (the training layout or a serving one), a cache placed by the
+cache schema's layouts (``params.distribute`` of ``init_params`` of it)
+and the global tokens, write the cache in place in its layout and return
+the logits (B, V), batch-sharded.
 
 Weights, caches and a training state carry across from the reference as
 numpy trees (:func:`params_from_reference`, :func:`cache_from_reference`,
@@ -55,11 +59,12 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - gold)
 
 
-def _one_device() -> None:
-    if shmod.mesh() is not None:
-        raise NotImplementedError(
-            "prefill and decode run on one device: disable the mesh "
-            "(repro_torch.dist.sharding.disable) to serve")
+def _serving():
+    """Prefill's and decode's autograd mode: ``inference_mode``; under a
+    mesh ``no_grad`` (a DTensor's views cannot be made of inference
+    tensors)."""
+    return torch.no_grad() if shmod.mesh() is not None else \
+        torch.inference_mode()
 
 
 def _token_batch_schema(cfg: ModelConfig):
@@ -95,14 +100,12 @@ def _decoder_api(cfg: ModelConfig) -> ModelAPI:
         return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
-        _one_device()
-        with torch.inference_mode():
+        with _serving():
             return transformer.prefill(cfg, params, batch["tokens"], cache,
                                        context=batch.get("context"))
 
     def decode_fn(params, cache, token, pos):
-        _one_device()
-        with torch.inference_mode():
+        with _serving():
             return transformer.decode(cfg, params, cache, token, pos)
 
     return ModelAPI(
@@ -122,14 +125,12 @@ def _whisper_api(cfg: ModelConfig) -> ModelAPI:
         return _xent(logits, batch["targets"])
 
     def prefill_fn(params, batch, cache):
-        _one_device()
-        with torch.inference_mode():
+        with _serving():
             return whisper.prefill(cfg, params, batch["frames"],
                                    batch["tokens"], cache)
 
     def decode_fn(params, cache, token, pos):
-        _one_device()
-        with torch.inference_mode():
+        with _serving():
             return whisper.decode(cfg, params, cache, token, pos)
 
     return ModelAPI(

@@ -165,13 +165,37 @@ def update_index(pos: torch.Tensor, s: int, t: int
     return rows, start[:, None] + torch.arange(t, device=pos.device)
 
 
+def split_update(arr: torch.Tensor, vals: torch.Tensor, pos: torch.Tensor,
+                 s_total: int, lo: int) -> None:
+    """The decode write of vals (B, 1, ...) at per-row pos into this rank's
+    part arr (B, S_loc, ...) of a cache of ``s_total`` slots whose slots
+    ``lo .. lo + S_loc - 1`` it holds (inside a function that
+    ``sharding.local`` runs): the slot placed as :func:`update_index`
+    places it in the whole cache, and written only on the rank that holds
+    it."""
+    rows, cols = update_index(pos, s_total, vals.shape[1])
+    n = arr.shape[1]
+    slot = cols - lo
+    mine = (slot >= 0) & (slot < n)
+    slot = slot.clamp(0, n - 1)
+    mine = mine.view(mine.shape + (1,) * (vals.ndim - 2))
+    arr[rows, slot] = torch.where(mine, vals.to(arr.dtype), arr[rows, slot])
+
+
 def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      mask: torch.Tensor) -> torch.Tensor:
+                      mask: torch.Tensor, seq_split: bool = False
+                      ) -> torch.Tensor:
     """:func:`attention`'s decode path (Tq <= 4) under its (B, Tq, Tk)
     validity mask: the G = H // KVH query heads of a KV head contract
     against the unrepeated K/V in one product, (B, KVH, G·Tq, hd) f32
     against (B, KVH, Tk, hd) f32, and the probabilities, cast to v's dtype,
-    against V. Returns (B, Tq, H, hd_v)."""
+    against V. Returns (B, Tq, H, hd_v).
+
+    ``seq_split``: k, v and the mask are this rank's part of a cache whose
+    sequence is split over "model" (inside a function that
+    ``sharding.local`` runs): the softmax combines the parts' max and sum
+    of exponentials, and the weighted V is summed over "model", so every
+    rank returns the attention over the whole cache."""
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -183,8 +207,13 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.matmul(qg, kf.transpose(-1, -2)).view(
         b, kvh, g, tq, tk) * (1.0 / (hd ** 0.5))
     s = torch.where(mask[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
+    if seq_split:
+        p = shmod.split_softmax(s).to(v.dtype)
+    else:
+        p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.matmul(p.view(b, kvh, g * tq, tk), v.transpose(1, 2))
+    if seq_split:
+        o = shmod.model_reduce(o)
     return o.view(b, kvh, g, tq, hd_v).permute(0, 3, 1, 2, 4).reshape(
         b, tq, h, hd_v)
 

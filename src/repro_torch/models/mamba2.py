@@ -199,3 +199,65 @@ def mamba_mixer(u, p, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     y = y.reshape(bsz, t, d_in)
     y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
     return y @ p["w_out"], (new_conv, new_ssm)
+
+
+def mamba_decode_sharded(u, p, cfg: ModelConfig, conv_state, ssm_state):
+    """The one-token recurrence under a mesh: u (B, 1, D) and the
+    parameters DTensors; ``conv_state`` (B, W-1, conv_dim) split over
+    "model" by channels and ``ssm_state`` (B, H, P, N) by heads (each as
+    its schema's pspec allows), both updated in place. Returns the
+    mixer's output (B, 1, D) in the activation layout.
+
+    ``w_x`` is column-parallel and its output gathered over "model" (one
+    token: small); each rank runs the depthwise conv on its channels
+    (``conv_w`` split like the state) and the channels are gathered; the
+    SSD step runs on each rank's heads, ``w_z``'s output split with them;
+    the gated norm over the inner width sums its squares over "model";
+    ``w_out`` is row-parallel."""
+    from ..dist import sharding as shmod
+    s = cfg.ssm
+    d_in, nh, _ = ssm_dims(cfg)
+    gn = s.n_groups * s.d_state
+    h_lo, h_n = shmod.shard_range(ssm_state, 1)
+    hsplit = h_n < nh
+    c_lo, c_n = shmod.shard_range(conv_state, 2)
+    z = shmod.constrain_batch(shmod.col_parallel(u, p["w_z"]), None,
+                              "model" if hsplit else None)
+    xin = shmod.rows(shmod.col_parallel(u, p["w_x"]))
+    ur = shmod.rows(u)
+    small = shmod.replicated({k: p[k] for k in (
+        "w_B", "w_C", "w_dt", "dt_bias", "A_log", "D")})
+
+    def conv(xl, ul, pl, cw, cs):
+        xbc = torch.cat([xl, ul @ pl["w_B"], ul @ pl["w_C"]], dim=-1)
+        out, new = _causal_conv(xbc[..., c_lo:c_lo + c_n], cw.to(ul.dtype),
+                                cs)
+        cs.copy_(new)
+        return out
+    xbc = shmod.rows(shmod.local(conv, xin, ur, small, p["conv_w"],
+                                 conv_state, out=conv_state.placements))
+
+    def ssd(xl, ul, pl, zl, nw, st):
+        bsz = ul.shape[0]
+        hs = slice(h_lo, h_lo + h_n)
+        xi, b, c = torch.split(xl, [d_in, gn, gn], dim=-1)
+        xh = xi.reshape(bsz, 1, nh, s.head_dim)[:, :, hs]
+        rep = nh // s.n_groups
+        bh = _repeat(b.reshape(bsz, s.n_groups, s.d_state), rep, 1)[:, hs]
+        ch = _repeat(c.reshape(bsz, s.n_groups, s.d_state), rep, 1)[:, hs]
+        dt = softplus((ul @ pl["w_dt"]).float() + pl["dt_bias"][None, None])
+        a = -torch.exp(pl["A_log"].float())
+        y1, new = ssd_decode_step(st, xh[:, 0], dt[:, 0, hs], a[hs], bh, ch)
+        st.copy_(new)
+        y = y1[:, None] + xh * pl["D"].to(ul.dtype)[None, None, hs, None]
+        y = y.reshape(bsz, 1, h_n * s.head_dim) * silu(zl)
+        if not hsplit:
+            return rms_norm(y, nw, cfg.norm_eps)
+        y32 = y.float()
+        var = shmod.model_reduce(torch.sum(y32 * y32, -1, keepdim=True)) \
+            / d_in
+        return (y32 * torch.rsqrt(var + cfg.norm_eps)).to(y.dtype) * \
+            nw.to(y.dtype)
+    nw = shmod.constrain(p["norm_w"], "model" if hsplit else None)
+    y = shmod.local(ssd, xbc, ur, small, z, nw, ssm_state, out=z.placements)
+    return shmod.row_parallel(y, p["w_out"])

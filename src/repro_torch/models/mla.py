@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import torch
 
+from ..dist import sharding as shmod
 from .config import ModelConfig
 from .layers import (NEG_INF, apply_rope, attention, decode_mask,
-                     update_index)
+                     split_update, update_index)
 from .params import P, Spec
 
 
@@ -78,6 +79,25 @@ def mla_attention(x, p, cfg: ModelConfig, positions, *, causal=True,
     return o.reshape(b, t, -1) @ p["wo"]
 
 
+def _latent_scores(q_lat, q_rope, ckv, kr, mask, cfg: ModelConfig, dt,
+                   seq_split: bool = False):
+    """The absorbed path's attention in latent space: q_lat (B, 1, H,
+    lora) and q_rope (B, 1, H, rope) against ckv (B, S, lora) and kr (B, S,
+    rope) under mask (B, 1, S) -> o_lat (B, H, lora). ``seq_split``: the
+    cache is this rank's part of one split over "model"; the softmax and
+    the weighted sum are combined over "model"."""
+    m = cfg.mla
+    scores = (torch.einsum("bohl,bsl->bhs", q_lat, ckv).float()
+              + torch.einsum("bohr,bsr->bhs", q_rope, kr).float())
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    scores = torch.where(mask, scores * scale, NEG_INF)
+    if seq_split:
+        w = shmod.split_softmax(scores).to(dt)
+        return shmod.model_reduce(torch.einsum("bhs,bsl->bhl", w, ckv))
+    w = torch.softmax(scores, dim=-1).to(dt)
+    return torch.einsum("bhs,bsl->bhl", w, ckv)
+
+
 def mla_decode(x, p, cfg: ModelConfig, ckv_cache, krope_cache, pos, *,
                index=None, mask=None, table=None):
     """Absorbed decode: one new token a row against the latent cache.
@@ -89,7 +109,6 @@ def mla_decode(x, p, cfg: ModelConfig, ckv_cache, krope_cache, pos, *,
     ``table``: the RoPE table at pos. Returns
     (out (B, 1, D), ckv_cache, krope_cache).
     """
-    m = cfg.mla
     b = x.shape[0]
     dt = x.dtype
     positions = pos[:, None]
@@ -104,11 +123,65 @@ def mla_decode(x, p, cfg: ModelConfig, ckv_cache, krope_cache, pos, *,
 
     # absorb W_uk into q: score in latent space
     q_lat = torch.einsum("bohn,lhn->bohl", q_nope, p["w_uk"].to(dt))
-    scores = (torch.einsum("bohl,bsl->bhs", q_lat, ckv).float()
-              + torch.einsum("bohr,bsr->bhs", q_rope, kr).float())
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    scores = torch.where(mask, scores * scale, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(dt)
-    o_lat = torch.einsum("bhs,bsl->bhl", w, ckv)
+    o_lat = _latent_scores(q_lat, q_rope, ckv, kr, mask, cfg, dt)
     o = torch.einsum("bhl,lhv->bhv", o_lat, p["w_uv"].to(dt))
     return o.reshape(b, 1, -1) @ p["wo"], ckv, kr
+
+
+def mla_decode_sharded(x, p, cfg: ModelConfig, ckv_cache, kr_cache, pos,
+                       tick) -> torch.Tensor:
+    """:func:`mla_decode` under a mesh: x (B, 1, D) and the parameters
+    DTensors, the latent cache laid out by its schema (the sequence split
+    over "model"), ``tick``: ``transformer.tick_constants``'s. Returns the
+    block's attention output (B, 1, D) in the activation layout.
+
+    The query is projected column-parallel and absorbed on each rank's
+    heads (``w_uk`` split like ``wq`` by heads over "model"), then q_lat
+    and q_rope are gathered over "model" (one token: small); the new
+    latent K/V is made on local rows (``w_dkv``/``w_krope`` whole on every
+    "model" rank) and written on the rank whose part holds the slot; each
+    rank scores its part of the cache, combined over "model"; ``w_uv``
+    runs on each rank's heads, and ``wo`` row-parallel."""
+    dt = x.dtype
+    hsplit = shmod.shard_range(p["w_uk"], 1)[1] < p["w_uk"].shape[1]
+    q2 = shmod.constrain_batch(shmod.col_parallel(x, p["wq"]), None,
+                               "model" if hsplit else None)
+    cos, sin = (shmod.rows(t) for t in tick["rope"])
+    m = cfg.mla
+
+    def absorb(q, w_uk, co, si):
+        q = q.reshape(q.shape[0], 1, -1, m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], -1)
+        q_rope = apply_rope(q_rope, None, cfg.rope_theta, (co, si))
+        return (torch.einsum("bohn,lhn->bohl", q_nope, w_uk.to(dt)),
+                q_rope)
+    q_lat, q_rope = (shmod.rows(t) for t in shmod.local(
+        absorb, q2, p["w_uk"], cos, sin))
+    lat = shmod.local(lambda h, w, co, si: _latent_kv(h, w, cfg, None,
+                                                      (co, si)),
+                      shmod.rows(x), shmod.replicated(
+                          {k: p[k] for k in ("w_dkv", "w_krope")}), cos, sin)
+    lo, n = shmod.shard_range(ckv_cache, 1)
+    s_total = ckv_cache.shape[1]
+    split = n < s_total
+    mask = shmod.constrain(tick["mask"], shmod.batch_axes(), None,
+                           "model" if split else None)
+
+    def attend(ql, qr, new, ck, kc, ml, pl):
+        if split:
+            split_update(ck, new[0], pl, s_total, lo)
+            split_update(kc, new[1], pl, s_total, lo)
+        else:
+            rows, cols = update_index(pl, s_total, 1)
+            ck[rows, cols] = new[0].to(ck.dtype)
+            kc[rows, cols] = new[1].to(kc.dtype)
+        return _latent_scores(ql, qr, ck, kc, ml, cfg, dt, seq_split=split)
+    o_lat = shmod.local(attend, q_lat, q_rope, lat, ckv_cache, kr_cache,
+                        mask, shmod.rows(pos))
+    h_lo, h_n = shmod.shard_range(p["w_uv"], 1)
+
+    def up(ol, w_uv):
+        o = torch.einsum("bhl,lhv->bhv", ol[:, h_lo:h_lo + h_n], w_uv.to(dt))
+        return o.reshape(o.shape[0], 1, -1)
+    o = shmod.local(up, o_lat, p["w_uv"], out=q2.placements)
+    return shmod.row_parallel(o, p["wo"])

@@ -19,7 +19,8 @@ the expert-parallel path (:func:`_moe_ffn_ep`, the reference's
 ``shard_map``): tokens batch-sharded and replicated over "model", each
 model rank routes its batch shard, dispatches only to its E/m experts
 with a capacity of its own shard's tokens, and adds a partial combine;
-one all-reduce over "model" finishes the layer. Any other mesh runs the
+one all-reduce over "model" finishes the layer, the shared experts'
+column/row-parallel partial sums with it. Any other mesh runs the
 dense path on the whole batch gathered (its capacity and positions are
 the global batch's, as the reference's partitioned program computes
 them), the experts gathered whole.
@@ -123,8 +124,10 @@ def _moe_ffn_ep(x, p: dict, moe: MoEConfig):
     """Expert-parallel: x batch-sharded and replicated over "model"; each
     model rank dispatches its shard's slots routed to its own E/m experts
     (local ids, a capacity of the shard's tokens), computes them and
-    combines them partially; one all-reduce over "model" finishes the
-    layer. Shared experts run on every rank's shard, weights gathered."""
+    combines them partially; the shared experts run column- then
+    row-parallel on every rank's shard (their weights split over "model",
+    gathered over the data axes only if the layout splits them there);
+    one all-reduce over "model" sums both partial results."""
     from torch.distributed.tensor import Partial
     mesh = shmod.mesh()
     n_local = moe.n_experts // shmod.model_axis()
@@ -146,12 +149,13 @@ def _moe_ffn_ep(x, p: dict, moe: MoEConfig):
                         flat_g, pos, keep & mine, cap, n_local
                         ).reshape(b, t, d)
     y = shmod.local(run, xg, w, out=tuple(out))
-    y = shmod.constrain_batch(y, None, None)                 # the psum
     if moe.n_shared:
-        y = y + shmod.local(lambda xl, wl: _shared(xl, wl), xg,
-                            shmod.replicated({k: p[k] for k in (
-                                "sh_gate", "sh_in", "sh_out")}))
-    return y
+        # the shared experts column- then row-parallel: their weights stay
+        # split over "model", their partial sums join the routed ones'
+        h = shmod._col(xg, p["sh_gate"], p["sh_in"],
+                       fn=lambda g, u: silu(g) * u)
+        y = y + shmod._row(h, p["sh_out"])
+    return shmod.constrain_batch(y, None, None)              # the psum
 
 
 def _experts(tokens, p: dict, moe: MoEConfig, flat_e, flat_g, pos, keep,

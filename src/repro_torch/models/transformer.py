@@ -29,8 +29,21 @@ embedding, on every block's output and every cross group's); attention
 column-parallel into heads over "model" and row-parallel out; the MLP
 through ``fused_mlp``; the MoE expert-parallel (``moe.moe_ffn``); MLA, the
 SSM, the hybrid's mixers and cross-attention on the whole sequence
-(``seq_all_gather``) with their weights gathered, on local shards. Prefill
-and decode run on one device.
+(``seq_all_gather``) with their weights gathered, on local shards.
+
+Prefill and decode under a mesh take parameters placed by
+``params.distribute`` (the training layout, or a serving one), a cache
+laid out by :func:`init_cache_schema`'s pspecs and batch-sharded tokens.
+Prefill runs :func:`block_apply`'s sharded path and writes each cache
+leaf in its own layout. Decode keeps the one-token activations
+batch-sharded, gathers q, k and v over "model" after the column-parallel
+projections, and attends against a full-attention cache whose sequence
+is split over "model" (context parallelism): the token is written on the
+rank whose part holds its slot, each rank scores its part, and the parts'
+max, sum of exponentials and weighted V are combined over "model"
+(``layers.grouped_attention(seq_split=True)``). A sliding-window cache is
+whole on every "model" rank. The embedding and the LM head stay split by
+vocabulary over "model" (:func:`serve_embed`, :func:`serve_logits`).
 
 Two faults of the reference are copied for parity (ROADMAP queue 3):
 a sliding-window prefill stores the prompt's last ``w`` tokens at slots
@@ -228,12 +241,51 @@ def _write_prefix(cache_arr: torch.Tensor, vals: torch.Tensor) -> None:
     cache_arr[:, :t] = vals
 
 
+def _store(arr, vals) -> None:
+    """A cache leaf's whole value written in place; a DTensor leaf takes
+    vals laid out as it is (each rank copies its part)."""
+    if shmod.is_dtensor(arr):
+        arr.to_local().copy_(shmod.relayout(vals, arr.placements).to_local())
+    else:
+        arr.copy_(vals)
+
+
+def _store_prefix(arr, vals) -> None:
+    """:func:`_write_prefix` into a cache leaf; a DTensor leaf (its
+    sequence maybe split over "model") takes vals laid out as it is when
+    they fill it, else each rank writes the prompt's slots it holds."""
+    if not shmod.is_dtensor(arr):
+        _write_prefix(arr, vals)
+        return
+    if tuple(vals.shape) == tuple(arr.shape):
+        _store(arr, vals)
+        return
+    t = vals.shape[1]
+    if t > arr.shape[1]:
+        raise ValueError(f"a prompt of {t} tokens does not fit a cache of "
+                         f"{arr.shape[1]}")
+    lo, n = shmod.shard_range(arr, 1)
+    k = max(0, min(t - lo, n))
+
+    def run(a, v):
+        a[:, :k] = v[:, lo:lo + k]
+    shmod.local(run, arr, shmod.rows(vals))
+
+
 def _write_kv(cfg, cache_block: dict, k, v) -> None:
     """Prefill's K/V write at slot 0 on. With a sliding window, the last
     ``keep = min(w, T)`` tokens go to slots 0..keep-1 (the reference's
     layout: decode then writes position p at slot p mod w, so a prompt
     longer than the window and not a multiple of it overwrites a slot that
     is not the oldest; ROADMAP queue 3)."""
+    if shmod.is_dtensor(cache_block["k"]):
+        if cfg.sliding_window:                  # whole on "model" ranks
+            shmod.local(lambda c, kk, vv: _write_kv(cfg, c, kk, vv),
+                        cache_block, shmod.rows(k), shmod.rows(v))
+        else:
+            _store_prefix(cache_block["k"], k)
+            _store_prefix(cache_block["v"], v)
+        return
     t = k.shape[1]
     if cfg.sliding_window:
         keep = min(cache_block["k"].shape[1], t)
@@ -246,9 +298,20 @@ def _write_kv(cfg, cache_block: dict, k, v) -> None:
         _write_prefix(cache_block["v"], v)
 
 
+def _latent_kv(cfg, h, p, positions, table):
+    """MLA's latent (ckv, kr) of h (B, T, D); under a mesh on local rows of
+    the whole sequence, batch-sharded and whole on every "model" rank."""
+    def fn(hh, pp):
+        return mla_lib._latent_kv(hh, pp, cfg, positions, table)
+    if not shmod.is_dtensor(h):
+        return fn(h, p)
+    return shmod.local(fn, shmod.seq_all_gather(h), shmod.replicated(
+        {k: p[k] for k in ("w_dkv", "w_krope")}))
+
+
 def _write_state(cache_block: dict, conv, ssm) -> None:
-    cache_block["conv"].copy_(conv)
-    cache_block["ssm"].copy_(ssm)
+    _store(cache_block["conv"], conv)
+    _store(cache_block["ssm"], ssm)
 
 
 def _self_attn(cfg, x, p, positions, table, cache=None):
@@ -280,9 +343,9 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mixer_kind == "attn" and cfg.attn_kind == "mla":
         if cache is not None:
-            ckv, kr = mla_lib._latent_kv(h, p["attn"], cfg, positions, table)
-            _write_prefix(cache["ckv"], ckv.to(cache["ckv"].dtype))
-            _write_prefix(cache["kr"], kr.to(cache["kr"].dtype))
+            ckv, kr = _latent_kv(cfg, h, p["attn"], positions, table)
+            _store_prefix(cache["ckv"], ckv.to(cache["ckv"].dtype))
+            _store_prefix(cache["kr"], kr.to(cache["kr"].dtype))
         x = x + _whole(lambda hh, pp: mla_lib.mla_attention(
             hh, pp, cfg, positions, table=table), h, p["attn"])
     elif cfg.mixer_kind == "attn":
@@ -474,33 +537,94 @@ def _batched_update(cache_arr: torch.Tensor, new_vals: torch.Tensor,
     return cache_arr
 
 
-def _decode_self_attn(x, p, cfg, cache, pos, tick):
-    """One-token self-attention against the cache at per-slot positions
-    pos (B,); the cache's leaves are updated in place. ``tick`` holds what
-    every layer of the step shares (:func:`tick_constants`)."""
-    b = x.shape[0]
-    q, k_new, v_new = layers.gqa_qkv(x, p, cfg, pos[:, None], tick["rope"])
+def _decode_qkv(x, p, cfg, tick):
+    """q (B, 1, H, hd) and the new k, v (B, 1, KVH, hd) of one token a row,
+    rotated. Under a mesh the column-parallel projections are gathered
+    over "model" (one token: a small all-gather) and rotated on local
+    rows, batch-sharded and whole on every "model" rank."""
+    if not shmod.is_dtensor(x):
+        return layers.gqa_qkv(x, p, cfg, None, tick["rope"])
+    q2, k2, v2 = (shmod.rows(t) for t in shmod.col_parallel_qkv(
+        x, p["wq"], p["wk"], p["wv"]))
+    cos, sin = (shmod.rows(t) for t in tick["rope"])
+    hd = cfg.head_dim
+
+    def run(a, b, c, co, si):
+        heads = [t.reshape(t.shape[0], t.shape[1], -1, hd) for t in (a, b, c)]
+        return (layers.apply_rope(heads[0], None, cfg.rope_theta, (co, si)),
+                layers.apply_rope(heads[1], None, cfg.rope_theta, (co, si)),
+                heads[2])
+    return shmod.local(run, q2, k2, v2, cos, sin)
+
+
+def _decode_attend(cfg, q, k_new, v_new, cache, pos, tick):
+    """The one-token attention against a layer's cache at per-row positions
+    pos (B,), the new k, v written there in place first (plain tensors)."""
+    b = q.shape[0]
     if cfg.sliding_window:
         w = cache["k"].shape[1]
         slot = torch.remainder(pos, w)
         k = _batched_update(cache["k"], k_new, slot)
         v = _batched_update(cache["v"], v_new, slot)
-        cache["kpos"][torch.arange(b, device=x.device), slot.long()] = \
+        cache["kpos"][torch.arange(b, device=q.device), slot.long()] = \
             pos.to(cache["kpos"].dtype)
-        o = layers.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                             q_offset=pos, k_positions=cache["kpos"],
-                             chunk=cfg.attn_chunk)
-    else:
-        # attention(q, k, v, causal=True, q_offset=pos, kv_len=pos + 1)
-        # with the step's mask made once
-        k = _batched_update(cache["k"], k_new, pos, tick["index"])
-        v = _batched_update(cache["v"], v_new, pos, tick["index"])
-        o = layers.grouped_attention(q, k, v, tick["mask"])
-    return layers.attn_out(o, p)
+        return layers.attention(q, k, v, causal=True,
+                                window=cfg.sliding_window, q_offset=pos,
+                                k_positions=cache["kpos"],
+                                chunk=cfg.attn_chunk)
+    # attention(q, k, v, causal=True, q_offset=pos, kv_len=pos + 1)
+    # with the step's mask made once
+    k = _batched_update(cache["k"], k_new, pos, tick.get("index"))
+    v = _batched_update(cache["v"], v_new, pos, tick.get("index"))
+    return layers.grouped_attention(q, k, v, tick["mask"])
+
+
+def _decode_attend_sharded(cfg, q, k_new, v_new, cache, pos, tick):
+    """:func:`_decode_attend` under a mesh, on local rows. A full-attention
+    cache whose sequence is split over "model" is written on the rank
+    whose part holds the slot and attended part by part, the parts
+    combined over "model"; any other cache is whole on every "model"
+    rank, and each rank runs the plain step on its rows."""
+    kv = {k: cache[k] for k in ("k", "v", "kpos") if k in cache}
+    pos_l = shmod.rows(pos)
+    split = not cfg.sliding_window and \
+        shmod.shard_range(cache["k"], 1)[1] < cache["k"].shape[1]
+    if not split:
+        mask = tick.get("mask")
+        mask = None if mask is None else shmod.rows(mask)
+
+        def run(ql, kl, vl, c, pl, ml):
+            return _decode_attend(cfg, ql, kl, vl, c, pl, {"mask": ml})
+        return shmod.local(run, q, k_new, v_new, kv, pos_l, mask)
+    lo = shmod.shard_range(cache["k"], 1)[0]
+    s_total = cache["k"].shape[1]
+    mask = shmod.constrain(tick["mask"], shmod.batch_axes(), None, "model")
+
+    def run_split(ql, kl, vl, c, pl, ml):
+        layers.split_update(c["k"], kl, pl, s_total, lo)
+        layers.split_update(c["v"], vl, pl, s_total, lo)
+        return layers.grouped_attention(ql, c["k"], c["v"], ml,
+                                        seq_split=True)
+    return shmod.local(run_split, q, k_new, v_new, kv, pos_l, mask)
+
+
+def _decode_self_attn(x, p, cfg, cache, pos, tick):
+    """One-token self-attention against the cache at per-slot positions
+    pos (B,); the cache's leaves are updated in place. ``tick`` holds what
+    every layer of the step shares (:func:`tick_constants`)."""
+    q, k_new, v_new = _decode_qkv(x, p, cfg, tick)
+    attend = (_decode_attend_sharded if shmod.is_dtensor(q)
+              else _decode_attend)
+    return layers.attn_out(attend(cfg, q, k_new, v_new, cache, pos, tick),
+                           p)
 
 
 def _decode_ssm(h, p, cfg, cache):
-    """The mixer's one-token recurrence; ``conv``/``ssm`` updated in place."""
+    """The mixer's one-token recurrence; ``conv``/``ssm`` updated in place
+    (under a mesh on each rank's channels and heads)."""
+    if shmod.is_dtensor(h):
+        return mamba2.mamba_decode_sharded(h, p["ssm"], cfg, cache["conv"],
+                                           cache["ssm"])
     y, (conv, ssm) = mamba2.mamba_mixer(
         h, p["ssm"], cfg, conv_state=cache["conv"], ssm_state=cache["ssm"],
         single_step=True)
@@ -515,9 +639,13 @@ def block_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos, tick):
     p = cast_floats(p, cfg.dtype)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mixer_kind == "attn" and cfg.attn_kind == "mla":
-        out, _, _ = mla_lib.mla_decode(
-            h, p["attn"], cfg, cache["ckv"], cache["kr"], pos,
-            index=tick["index"], mask=tick["mask"], table=tick["rope"])
+        if shmod.is_dtensor(h):
+            out = mla_lib.mla_decode_sharded(h, p["attn"], cfg, cache["ckv"],
+                                             cache["kr"], pos, tick)
+        else:
+            out, _, _ = mla_lib.mla_decode(
+                h, p["attn"], cfg, cache["ckv"], cache["kr"], pos,
+                index=tick["index"], mask=tick["mask"], table=tick["rope"])
         x = x + out
     elif cfg.mixer_kind == "attn":
         x = x + _decode_self_attn(h, p["attn"], cfg, cache, pos, tick)
@@ -531,15 +659,27 @@ def block_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos, tick):
     return x + _mlp(h2, p["mlp"], cfg)
 
 
+def cross_attend(cfg, h, p, ck, cv):
+    """One token a row's cross-attention through ``wo``: h (B, 1, D) normed,
+    against cached context K/V ck, cv (B, n_context, KVH, hd); under a
+    mesh q is gathered over "model" and each rank attends its rows."""
+    def attend(q2, k, v):
+        q = q2.reshape(q2.shape[0], 1, cfg.n_heads, cfg.head_dim)
+        return layers.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    if shmod.is_dtensor(h):
+        o = shmod.local(attend, shmod.rows(shmod.col_parallel(h, p["wq"])),
+                        ck, cv)
+    else:
+        o = attend(h @ p["wq"], ck, cv)
+    return layers.attn_out(o, p)
+
+
 def _cross_decode(cfg, p, x, ck, cv):
     """One token a row through a cross block against its cached context
     K/V (ck, cv (B, n_context, KVH, hd))."""
     p = cast_floats(p, cfg.dtype)
-    b = x.shape[0]
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (h @ p["attn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    o = layers.attention(q, ck, cv, causal=False, chunk=cfg.attn_chunk)
-    x = x + layers.attn_out(o, p["attn"])
+    x = x + cross_attend(cfg, h, p["attn"], ck, cv)
     h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _mlp(h2, p["mlp"], cfg)
 
@@ -561,11 +701,51 @@ def tick_constants(cfg: ModelConfig, blocks: dict, pos: torch.Tensor
     return tick
 
 
+def serve_embed(cfg, params, tokens):
+    """:func:`embed_tokens` for prefill and decode. Under a mesh the table
+    stays split by vocabulary rows over "model" (gathered over the data
+    axes only if the layout splits it there): each rank looks up the
+    tokens its rows hold and gives zeros for the others, and the parts
+    are summed over "model"."""
+    if shmod.mesh() is None:
+        return embed_tokens(cfg, params, tokens)
+    from torch.distributed.tensor import Partial
+    dt = as_dtype(cfg.dtype)
+    e = shmod.constrain(params["embed"], "model", None)
+    tok = shmod.constrain_batch(tokens, None)
+    lo, n = shmod.shard_range(e, 0)
+    if n == e.shape[0]:
+        return shmod.constrain_act(shmod.local(
+            lambda t, el: F.embedding(t.long(), el).to(dt), tok, e))
+
+    def run(t, el):
+        r = t.long() - lo
+        ok = (r >= 0) & (r < n)
+        return (F.embedding(r.clamp(0, n - 1), el) * ok[..., None]).to(dt)
+    out = list(tok.placements)
+    out[shmod.mesh().mesh_dim_names.index("model")] = Partial()
+    return shmod.constrain_act(shmod.local(run, tok, e, out=tuple(out)))
+
+
+def serve_logits(cfg: ModelConfig, params: dict, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """:func:`lm_logits` for prefill and decode. Under a mesh the head stays
+    split by vocabulary columns over "model" (column-parallel) and the
+    logits are gathered."""
+    if not shmod.is_dtensor(x):
+        return lm_logits(cfg, params, x)
+    dt = as_dtype(cfg.dtype)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return shmod.rows(shmod.col_parallel(x.to(dt), w.to(dt)).float())
+
+
 def decode(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor,
            pos) -> tuple[torch.Tensor, dict]:
     """token (B, 1) int, pos scalar or (B,) per-slot positions (continuous
     batching) -> (logits (B, V) f32, the cache, updated in place)."""
-    x = embed_tokens(cfg, params, token)
+    x = serve_embed(cfg, params, token)
+    if shmod.is_dtensor(pos):
+        pos = pos.full_tensor()
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(
         token.shape[0])
     tick = tick_constants(cfg, cache["blocks"], pos)
@@ -579,21 +759,28 @@ def decode(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor,
             x = _cross_decode(cfg, layer(params["cross_blocks"], g), x,
                               cache["cross_k"][g], cache["cross_v"][g])
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x)[:, 0], cache
+    return serve_logits(cfg, params, x)[:, 0], cache
 
 
-def _cross_kv(cfg, p, ctx, cache, g) -> None:
-    """Group g's context K/V for decode, as the reference's prefill
-    projects them: from the raw context (no ``lnc``) times the parameters
-    in their own dtype (a bf16 context against f32 weights promotes to
-    f32), then cast to the cache's dtype (ROADMAP queue 3)."""
+def _cross_kv(cfg, p, ctx, dst: dict) -> None:
+    """A group's context K/V for decode, written into ``dst`` (its
+    ``cross_k``/``cross_v`` leaves), as the reference's prefill projects
+    them: from the raw context (no ``lnc``) times the parameters in their
+    own dtype (a bf16 context against f32 weights promotes to f32), then
+    cast to the cache's dtype (ROADMAP queue 3). Under a mesh on local
+    rows, ``wk``/``wv`` gathered."""
+    if shmod.is_dtensor(ctx):
+        shmod.local(lambda c, w, d: _cross_kv(cfg, {"attn": w}, c, d), ctx,
+                    shmod.replicated({k: p["attn"][k] for k in ("wk", "wv")}),
+                    dst)
+        return
     b, tc, _ = ctx.shape
     for name, w in (("cross_k", p["attn"]["wk"]), ("cross_v",
                                                    p["attn"]["wv"])):
         dt = torch.promote_types(ctx.dtype, w.dtype)
         kv = (ctx.to(dt) @ w.to(dt)).reshape(b, tc, cfg.n_kv_heads,
                                              cfg.head_dim)
-        cache[name][g] = kv.to(cache[name].dtype)
+        dst[name].copy_(kv.to(dst[name].dtype))
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -603,7 +790,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return the last position's logits (B, V) f32 and the cache. A VLM's
     context K/V are projected here, once a group."""
     ctx = _context(cfg, context)
-    x = embed_tokens(cfg, params, tokens)
+    x = serve_embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     table = rope_table(cfg, positions)
     n_groups, per = groups(cfg)
@@ -612,9 +799,12 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             x = block_apply(cfg, self_layer(cfg, params["blocks"], g, j), x,
                             positions, table,
                             self_layer(cfg, cache["blocks"], g, j))
+            x = shmod.constrain_act(x)
         if ctx is not None:
             p_cross = layer(params["cross_blocks"], g)
-            _cross_kv(cfg, p_cross, ctx, cache, g)
-            x = cross_block_apply(cfg, p_cross, x, ctx)
-    x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x)[:, 0], cache
+            _cross_kv(cfg, p_cross, ctx, {n: cache[n][g] for n in (
+                "cross_k", "cross_v")})
+            x = shmod.constrain_act(cross_block_apply(cfg, p_cross, x, ctx))
+    x = layers.rms_norm(shmod.seq_all_gather(x)[:, -1:], params["final_norm"],
+                        cfg.norm_eps)
+    return serve_logits(cfg, params, x)[:, 0], cache

@@ -18,7 +18,10 @@ and the embedded tokens batch-sharded (``constrain_batch``), every
 block's output in the activation layout (``constrain_act``), self-attention
 with heads over "model" (``layers.gqa_qkv``) and a row-parallel output,
 the MLP through ``fused_mlp``, the decoder's cross-attention on the whole
-sequence with its weights gathered, on local shards.
+sequence with its weights gathered, on local shards. Prefill and decode
+run under a mesh as ``transformer``'s do: the self cache's sequence split
+over "model", the cross K/V batch-sharded and whole on every "model"
+rank.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ from . import layers
 from .config import ModelConfig
 from .params import P, Spec, as_dtype, cast_floats, stack
 from ..dist import sharding as shmod
-from .transformer import (_norm_spec, _whole, attn_schema, layer, lm_logits, mlp_schema, remat,
-                          tick_constants, unstack, _batched_update,
-                          _write_prefix)
+from .transformer import (_decode_self_attn, _norm_spec, _store_prefix,
+                          _whole, attn_schema, cross_attend, layer, mlp_schema,
+                          remat, serve_embed, serve_logits,
+                          tick_constants, unstack)
 
 
 def enc_block_schema(cfg: ModelConfig) -> dict:
@@ -95,13 +99,15 @@ def _dec_block(cfg, p, x, positions, table, enc_out, cache=None):
     x = shmod.constrain_act(x)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.gqa_qkv(h, p["attn"], cfg, positions, table)
+    xcache = None
     if cache is not None:
-        _write_prefix(cache["k"], k.to(cache["k"].dtype))
-        _write_prefix(cache["v"], v.to(cache["v"].dtype))
+        _store_prefix(cache["k"], k.to(cache["k"].dtype))
+        _store_prefix(cache["v"], v.to(cache["v"].dtype))
+        xcache = {"xk": cache["xk"], "xv": cache["xv"]}
     o = layers.attend(q, k, v, causal=True, chunk=cfg.attn_chunk)
     x = x + layers.attn_out(o, p["attn"])
-    x = _whole(lambda xx, pp, enc: _cross(cfg, pp, xx, enc, cache), x,
-               {"lnx": p["lnx"], "xattn": p["xattn"]}, enc_out)
+    x = _whole(lambda xx, pp, enc, xc: _cross(cfg, pp, xx, enc, xc), x,
+               {"lnx": p["lnx"], "xattn": p["xattn"]}, enc_out, xcache)
     h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     return shmod.constrain_act(x + _mlp(h2, p["mlp"]))
 
@@ -162,15 +168,16 @@ def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     """Encode the frames, project each layer's cross K/V, run the prompt
     through the decoder filling the self cache (all in place). Returns
     (last logits (B, V) f32, cache)."""
-    enc_out = encode(cfg, params, frames)
-    x = _embed(cfg, params, tokens)
+    enc_out = shmod.seq_all_gather(encode(cfg, params, frames))
+    x = serve_embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     table = layers.rope_table(positions, cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x = _dec_block(cfg, layer(params["dec_blocks"], i), x, positions,
                        table, enc_out, layer(cache["blocks"], i))
-    x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x)[:, 0], cache
+    x = layers.rms_norm(shmod.seq_all_gather(x)[:, -1:], params["final_norm"],
+                        cfg.norm_eps)
+    return serve_logits(cfg, params, x)[:, 0], cache
 
 
 def decode(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor,
@@ -178,27 +185,20 @@ def decode(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor,
     """One decoder token a row against the self cache and the cross K/V
     prefill projected: token (B, 1), pos scalar or (B,) -> (logits (B, V)
     f32, the cache, updated in place)."""
-    x = _embed(cfg, params, token)
-    b = token.shape[0]
-    pos = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(b)
+    x = serve_embed(cfg, params, token)
+    if shmod.is_dtensor(pos):
+        pos = pos.full_tensor()
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(
+        token.shape[0])
     tick = tick_constants(cfg, cache["blocks"], pos)
     for i in range(cfg.n_layers):
         p = cast_floats(layer(params["dec_blocks"], i), cfg.dtype)
         cb = layer(cache["blocks"], i)
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k1, v1 = layers.gqa_qkv(h, p["attn"], cfg, pos[:, None],
-                                   tick["rope"])
-        k = _batched_update(cb["k"], k1, pos, tick["index"])
-        v = _batched_update(cb["v"], v1, pos, tick["index"])
-        # attention(q, k, v, causal=True, q_offset=pos, kv_len=pos + 1)
-        o = layers.grouped_attention(q, k, v, tick["mask"])
-        x = x + layers.attn_out(o, p["attn"])
+        x = x + _decode_self_attn(h, p["attn"], cfg, cb, pos, tick)
         hx = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
-        qx = (hx @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        ox = layers.attention(qx, cb["xk"], cb["xv"], causal=False,
-                              chunk=cfg.attn_chunk)
-        x = x + layers.attn_out(ox, p["xattn"])
+        x = x + cross_attend(cfg, hx, p["xattn"], cb["xk"], cb["xv"])
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _mlp(h2, p["mlp"])
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x)[:, 0], cache
+    return serve_logits(cfg, params, x)[:, 0], cache

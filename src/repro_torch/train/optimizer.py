@@ -97,6 +97,15 @@ def init_opt_state(params) -> OptState:
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def opt_state_schema(schema) -> OptState:
+    """The optimizer state's Spec tree (the dry run's abstract state): m
+    and v zero-initialised leaf for leaf like ``schema``, in its dtypes
+    and pspecs, and a ``()`` int32 step."""
+    from ..models.params import P, Spec
+    z = tree_map(lambda s: Spec(s.shape, "zeros", s.dtype, s.pspec), schema)
+    return OptState(m=z, v=z, step=Spec((), "zeros", torch.int32, P()))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (f32), the leaves
     summed in sorted-key order as the reference's ``jax.tree.leaves``; the
@@ -161,8 +170,16 @@ def _leaf(cfg: AdamWConfig, sc: _Scalars, scale: torch.Tensor, p, g, m, v):
     return p_new.to(p.dtype), m_new, v_new
 
 
+def _host_step(step: torch.Tensor) -> int:
+    """The number of updates taken, on the host. A fake tensor (the dry
+    run's abstract state, ``launch/dryrun.py``) holds no value: it counts
+    as 0, so that the abstract step takes the schedule's first update."""
+    from torch._subclasses.fake_tensor import is_fake
+    return 0 if is_fake(step) else int(step)
+
+
 def _prepare(cfg: AdamWConfig, grads, state: OptState):
-    step = int(state.step) + 1
+    step = _host_step(state.step) + 1
     gnorm = global_norm(grads)
     return step, gnorm, _clip_scale(cfg, gnorm), _schedule(cfg, step)
 

@@ -87,6 +87,96 @@ def _sp_pair(mesh, out: dict) -> None:
         sh.disable()
 
 
+SERVE_SEQ = 32                 # the decode cache's length
+
+
+def _serve_run(model, params, batch, nxt, mesh=None) -> tuple:
+    """Prefill ``batch`` (its ``tokens``, a VLM's ``context``, Whisper's
+    ``frames``) into a cache of ``SERVE_SEQ``, then one decode
+    tick a column of ``nxt``: every step's logits and the cache's leaves,
+    whole. With ``mesh`` (registered already) the parameters and the cache
+    are placed by their schemas."""
+    from repro_torch.models.params import distribute, init_params
+    b, t = batch["tokens"].shape
+    csch = model.cache_schema(b, SERVE_SEQ)
+    cache = init_params(csch, device="cpu")
+    if mesh is not None:
+        params = distribute(params, model.schema, mesh)
+        cache = distribute(cache, csch, mesh)
+    logits, cache = model.prefill(params, batch, cache)
+    steps = [_full(logits)]
+    for i in range(nxt.shape[1]):
+        logits, cache = model.decode(params, cache, nxt[:, i:i + 1], t + i)
+        steps.append(_full(logits))
+    return steps, cache
+
+
+def _serve(rank: int, ref, mesh, out: dict) -> None:
+    """Sharded prefill and decode on (2, 4): phi4-mini (a context-parallel
+    cache), deepseek-v2-lite (MLA and the expert-parallel MoE, capacity 8)
+    and hymba (the SSM state and a sliding window) on the reference's
+    parameters and tokens; then every SMOKE config's prefill and 2 decode
+    ticks against the port's unsharded run (the MoE families at capacity
+    8, so that no slot drops on either path), SP on; only rank 0, which
+    writes the results, runs the unsharded one."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import get_model
+    from repro_torch.models.params import init_params
+
+    def config(arch):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        return cfg
+    tokens = torch.from_numpy(np.array(ref["serve/tokens"]))
+    nxt = torch.from_numpy(np.array(ref["serve/next"]))
+    for name, arch in (("sp", "phi4_mini_3_8b"),
+                       ("ep", "deepseek_v2_lite_16b"), ("hy", "hymba_1_5b")):
+        model = get_model(config(arch))
+        sh.enable(("data",), sp=False, model_axis=4, mesh=mesh)
+        try:
+            steps, cache = _serve_run(model, _tree(ref, f"{name}/params"),
+                                      {"tokens": tokens}, nxt, mesh)
+        finally:
+            sh.disable()
+        for i, lg in enumerate(steps):
+            out[f"serve/{name}/logits{i}"] = lg.numpy()
+        _put(out, f"serve/{name}/cache", cache)
+    for arch in ARCH_IDS:
+        cfg = config(arch)
+        model = get_model(cfg)
+        params = init_params(model.schema, torch.Generator().manual_seed(0),
+                             device="cpu")
+        batch = make_batch(cfg, batch=8, seq=16, step=0, device="cpu")
+        batch.pop("targets")
+        nxt = batch["tokens"][:, :2]
+        sh.enable(("data",), sp=True, mesh=mesh)
+        try:
+            got, got_cache = _serve_run(model, params, batch, nxt, mesh)
+        finally:
+            sh.disable()
+        flat = {}
+        _put(flat, "c", got_cache)             # a gather: every rank
+        if rank != 0:
+            continue
+        want, want_cache = _serve_run(model, params, batch, nxt)
+        out[f"serve_all/{arch}/logits_err"] = np.array(max(
+            float((a - w).abs().max() / w.abs().max())
+            for a, w in zip(got, want)))
+        ref_flat = {}
+        _put(ref_flat, "c", want_cache)
+        out[f"serve_all/{arch}/cache_err"] = np.array(max(
+            float(np.abs(flat[k].astype(np.float64) - ref_flat[k]).max()
+                  / max(np.abs(ref_flat[k]).max(), 1e-30))
+            for k in ref_flat))
+        out[f"serve_all/{arch}/int_leaves_equal"] = np.array(all(
+            np.array_equal(flat[k], ref_flat[k]) for k in ref_flat
+            if ref_flat[k].dtype.kind == "i"))
+
+
 def run(rank: int, world: int, store_path: str, in_path: str, out_path: str,
         ckpt_dir: str) -> None:
     torch.set_num_threads(1)
@@ -219,6 +309,7 @@ def _run(rank, in_path, out_path, ckpt_dir) -> None:
                         params, model.schema, m), batch).numpy()
                 finally:
                     sh.disable()
+    _serve(rank, ref, mesh, out)
     if rank == 0:
         tmp = out_path + ".tmp.npz"
         np.savez(tmp, **out)

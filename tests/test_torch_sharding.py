@@ -12,7 +12,9 @@ elastic checkpoint restore) against ``repro``'s.
   phi4-mini SMOKE f32 under SP with ``grad_pspecs`` (B 4 x T 32: the loss
   and gradients of ``jax.value_and_grad(model.loss)`` and one
   ``make_train_step`` step) and deepseek-v2-lite SMOKE under EP
-  (capacity 8, B 4 x T 16).
+  (capacity 8, B 4 x T 16); then the jitted prefill (B 4 x T 16) and 4
+  decode ticks of phi4-mini, deepseek-v2-lite and hymba SMOKE f32 with
+  ``in_shardings`` from the parameter and cache schemas.
 * One spawned gloo world of 8 processes on a (2, 4) mesh
   (``_torch_shard_worker.py``, which imports no JAX) runs the port's
   counterparts on the same parameters and batches, at the same time.
@@ -22,7 +24,10 @@ tree's largest, the parameters after the step as ``test_torch_train.py``
 holds a step (99.9 % within 1e-6, all within 2 x the learning rate), the
 EP loss within 1e-5 relative; every SMOKE config's loss under the mesh
 within 1e-5 relative of the port's unsharded loss (the MoE families' on
-(8, 1)); the SP pair and the restores exact.
+(8, 1)); the SP pair and the restores exact; the sharded prefill's and
+decode's logits and caches within 1e-5 of each array's largest value,
+against the reference's sharded runs and, for every SMOKE config, the
+port's unsharded run.
 """
 import dataclasses
 import os
@@ -220,8 +225,57 @@ with mesh:
     out["ep/loss"] = np.asarray(jax.jit(model.loss)(
         rep(tree("ep/params")), tree("ep/batch")))
 shmod.disable()
+
+# sharded prefill and decode: parameters and cache laid out by their
+# schemas' pspecs, tokens and positions batch-sharded
+from concurrent.futures import ThreadPoolExecutor
+from repro.models.params import init_params
+tokens = jax.numpy.asarray(inputs["serve/tokens"])
+nxt = inputs["serve/next"]
+b, t = tokens.shape
+
+def serve(name, arch, cap):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cap:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cap))
+    model = get_model(cfg)
+    csch = model.cache_schema(b, SERVE_SEQ)
+    lay = lambda sch: tree_map_specs(lambda s: NamedSharding(
+        mesh, normalize_pspec(s.pspec, mesh, s.shape)), sch)
+    rows = NamedSharding(mesh, P("data", None))
+    with mesh:
+        pre = jax.jit(model.prefill, in_shardings=(
+            lay(model.schema), {"tokens": rows}, lay(csch)),
+            out_shardings=(None, lay(csch)))
+        dec = jax.jit(model.decode, in_shardings=(
+            lay(model.schema), lay(csch), rows,
+            NamedSharding(mesh, P("data"))), out_shardings=(None, lay(csch)))
+        params = tree(f"{name}/params")
+        logits, cache = pre(params, {"tokens": tokens},
+                            init_params(csch, jax.random.PRNGKey(0)))
+        out[f"serve/{name}/logits0"] = np.asarray(logits)
+        for i in range(nxt.shape[1]):
+            logits, cache = dec(params, cache, nxt[:, i:i + 1],
+                                np.full((b,), t + i, np.int32))
+            out[f"serve/{name}/logits{i + 1}"] = np.asarray(logits)
+    put(f"serve/{name}/cache", cache)
+
+# the three models traced and compiled at once (XLA compiles outside the
+# GIL); the registry is process-global and the same for all three
+shmod.enable(("data",), sp=False, model_axis=4, mesh=mesh)
+with ThreadPoolExecutor(3) as pool:
+    for f in [pool.submit(serve, *a) for a in (
+            ("sp", "phi4_mini_3_8b", None),
+            ("ep", "deepseek_v2_lite_16b", 8.0),
+            ("hy", "hymba_1_5b", None))]:
+        f.result()
+shmod.disable()
 np.savez(sys.argv[2], **out)
 """
+
+SERVE_SEQ = 32                 # the decode cache's length
+REFERENCE = REFERENCE.replace("SERVE_SEQ", str(SERVE_SEQ))
 
 
 def _inputs(path: str) -> None:
@@ -239,6 +293,12 @@ def _inputs(path: str) -> None:
             else:
                 out[f"{prefix}/{k}"] = np.asarray(v)
     base = RC.get_smoke_config("deepseek_v2_lite_16b")
+    put("hy/params", RPm.init_params(r_get_model(dataclasses.replace(
+        RC.get_smoke_config("hymba_1_5b"), dtype="float32")).schema,
+        jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    out["serve/tokens"] = rng.integers(0, 512, (4, 16)).astype(np.int32)
+    out["serve/next"] = rng.integers(0, 512, (4, 4)).astype(np.int32)
     for name, cfg, seq in (
             ("sp", dataclasses.replace(RC.get_smoke_config(
                 "phi4_mini_3_8b"), dtype="float32"), 32),
@@ -407,3 +467,37 @@ def test_elastic_restore(runs):
     assert set(flat) == set(want)
     for k in want:
         assert np.array_equal(flat[k], want[k]), k
+
+
+@pytest.mark.parametrize("name", ["sp", "ep", "hy"])
+def test_serve_matches_reference_sharded(runs, name):
+    """Sharded prefill (B 4 x T 16) and 4 decode ticks on (2, 4), the
+    cache laid out by its schema: phi4-mini ("sp", the sequence of a full
+    attention cache split over "model"), deepseek-v2-lite ("ep", MLA's
+    latent cache and the expert-parallel MoE, capacity 8) and hymba ("hy",
+    the SSM state split by heads and channels, a sliding window), against
+    the reference's jitted prefill and decode on its (2, 4) mesh: every
+    step's logits and the gathered cache within 1e-5 relative (of each
+    array's largest value)."""
+    ref, port = runs.ref, runs.port
+    keys = [k for k in ref if k.startswith(f"serve/{name}/")]
+    assert len([k for k in keys if "/logits" in k]) == 5
+    for k in keys:
+        r, p = ref[k], port[k]
+        assert r.shape == p.shape, k
+        np.testing.assert_allclose(p, r, rtol=1e-5,
+                                   atol=1e-5 * max(np.abs(r).max(), 1e-30),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_serves_under_the_mesh(runs, arch):
+    """Each SMOKE config's prefill (B 8 x T 16) and 2 decode ticks under SP
+    on (2, 4) against the port's unsharded run (the MoE families at
+    capacity 8: the expert-parallel capacity is each shard's, and no slot
+    drops on either path): logits and every cache leaf within 1e-5 of
+    their largest value, the int leaves equal."""
+    port = runs.port
+    assert float(port[f"serve_all/{arch}/logits_err"]) <= 1e-5
+    assert float(port[f"serve_all/{arch}/cache_err"]) <= 1e-5
+    assert bool(port[f"serve_all/{arch}/int_leaves_equal"])

@@ -371,6 +371,9 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.dist.fault_tolerance',\n"
         "        'repro_torch.dist.compression',\n"
         "        'repro_torch.launch.train', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.shapes', 'repro_torch.launch.analytic',\n"
+        "        'repro_torch.launch.comm_analysis',\n"
+        "        'repro_torch.launch.dryrun',\n"
         "        'repro_torch.dist.sharding'} <= walked, walked\n"
         "print(len(walked))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
